@@ -1,0 +1,135 @@
+"""The CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: they skip where no NVIDIA GPU is present (the decision
+is made inside the fixture, never at import).  On a machine with the
+card, run ``python -m pytest -m cuda tests/test_torch_cuda.py``.
+
+Tolerances: float32 runs with TF32 off, so kernel and plain differ only
+in summation order and in the plain version's softmax rounding (1e-4);
+bfloat16 differs in where the two round (the plain version casts
+probabilities to bf16 before P·V, the kernel keeps them in f32): 2e-2.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import flash_prefill as fp
+from repro_torch.kernels import ops
+from repro_torch.kernels import paged_attention as pa
+from repro_torch.paging import resolve_physical_blocks
+
+pytestmark = pytest.mark.cuda
+
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels are CUDA only)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _pool(n, hd, dtype, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn((n, 16, hd), generator=g, device=dev).to(dtype),
+            torch.randn((n, 16, hd), generator=g, device=dev).to(dtype))
+
+
+def _tables(rng, rows, max_blocks, n_blocks, group_size):
+    """Disjoint random group bases per row, −1 padded."""
+    t = np.full((rows, max_blocks), -1, np.int32)
+    bases = rng.permutation(n_blocks // group_size)[:rows * max_blocks]
+    used = 0
+    for r in range(rows):
+        k = int(rng.integers(1, max_blocks + 1))
+        t[r, :k] = bases[used:used + k] * group_size
+        used += k
+    return t
+
+
+@pytest.mark.parametrize("dtype,hd,H,n_kv", [
+    (torch.float32, 64, 4, 2),        # reduced qwen2-7b pool
+    (torch.bfloat16, 128, 28, 4),     # full-width qwen2-7b
+    (torch.bfloat16, 64, 8, 1),
+])
+def test_decode_kernel_matches_plain(dev, dtype, hd, H, n_kv):
+    rng = np.random.default_rng(0)
+    B, max_blocks, layers = 8, 12, 3
+    pool_k, pool_v = _pool(4096, hd, dtype, dev, 1)
+    table = _tables(rng, B, max_blocks, 4096, layers * n_kv)
+    lens = np.array([int(rng.integers(1, 16 * max(1, (t >= 0).sum()) + 1))
+                     for t in table], np.int32)
+    lens[-1] = 1                                   # a padded row
+    table[-1] = -1
+    phys = resolve_physical_blocks(torch.from_numpy(table).to(dev), 2, n_kv)
+    seq = torch.from_numpy(lens).to(dev)
+    q = torch.randn((B, H, hd), device=dev).to(dtype)
+    n0 = pa.DECODE_KERNEL.launches
+    out = pa.fused_paged_decode_attention(q, pool_k, pool_v, phys, seq)
+    ref = pa.decode_plain(q, pool_k, pool_v, phys, seq)
+    torch.cuda.synchronize()
+    assert pa.DECODE_KERNEL.launches == n0 + 1
+    assert torch.isfinite(out.float()).all()
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= TOL[dtype], err
+
+
+@pytest.mark.parametrize("dtype,hd,H,n_kv,C", [
+    (torch.float32, 64, 4, 2, 16),
+    (torch.bfloat16, 128, 28, 4, 64),
+])
+def test_chunk_kernel_matches_plain(dev, dtype, hd, H, n_kv, C):
+    rng = np.random.default_rng(1)
+    B, max_blocks, layers = 6, 10, 2
+    pool_k, pool_v = _pool(4096, hd, dtype, dev, 2)
+    table = _tables(rng, B, max_blocks, 4096, layers * n_kv)
+    table[-1] = -1                                 # a padded row
+    offs = np.array([int(rng.integers(0, 16 * max_blocks - C)) for _ in
+                     range(B)], np.int32)
+    offs[0], offs[-1] = 0, 0
+    phys = resolve_physical_blocks(torch.from_numpy(table).to(dev), 1, n_kv)
+    q = torch.randn((B, C, H, hd), device=dev).to(dtype)
+    qo = torch.from_numpy(offs).to(dev)
+    out = fp.fused_paged_flash_prefill(q, pool_k, pool_v, phys, qo)
+    ref = fp.paged_prefill_plain(q, pool_k, pool_v, phys, qo)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= TOL[dtype], err
+
+
+@pytest.mark.parametrize("dtype,hd,S,H,KV,window", [
+    (torch.float32, 64, 48, 4, 2, None),
+    (torch.bfloat16, 128, 512, 28, 4, None),
+    (torch.bfloat16, 128, 100, 8, 2, 32),          # ragged S, window
+])
+def test_flash_kernel_matches_plain(dev, dtype, hd, S, H, KV, window):
+    B = 2
+    q = torch.randn((B, S, H, hd), device=dev).to(dtype)
+    k = torch.randn((B, S, KV, hd), device=dev).to(dtype)
+    v = torch.randn((B, S, KV, hd), device=dev).to(dtype)
+    out = fp.flash_prefill(q, k, v, window=window)
+    ref = fp.flash_prefill_plain(q, k, v, window=window)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= TOL[dtype], err
+
+
+def test_kernels_refuse_bad_operands(dev):
+    q = torch.randn((2, 4, 64), device=dev)
+    pool = torch.randn((8, 16, 64), device=dev)
+    phys = torch.zeros((2, 2, 1), dtype=torch.int64, device=dev)
+    lens = torch.ones(2, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        pa.fused_paged_decode_attention(q, pool, pool, phys, lens)
+    with pytest.raises(ValueError):
+        pa.fused_paged_decode_attention(q, pool.cpu(), pool, phys.int(),
+                                        lens)
+    counts = ops.launch_counts()
+    with pytest.raises(ValueError):
+        fp.flash_prefill(q[:, None], q[:, None, :2], q[:, None, :2],
+                         window=0)
+    assert ops.launch_counts() == counts
