@@ -3,20 +3,28 @@
 
   python3 chip_smoke.py
 
-1. builds the three Hopper attention kernels from ``src/repro_torch/
-   kernels/csrc`` (one nvcc per source, in parallel);
+1. builds the four Hopper kernels (three attention kernels and the
+   Mamba2 SSD scan) from ``src/repro_torch/kernels/csrc`` (one nvcc per
+   source, in parallel);
 2. holds each kernel against its plain PyTorch version at the serving
    path's shapes — full-width qwen2-7b (bf16, head_dim 128) and the
-   reduced CPU-test model (f32, head_dim 64) — and times the kernel,
+   reduced CPU-test model (f32, head_dim 64) for attention; the
+   mamba2-2.7b chunk step, a zamba2-1.2b whole-prompt bucket and a
+   reduced ragged f32 case for the SSD scan — and times the kernel,
    the plain version, one PyTorch library call over the same work
-   (scaled_dot_product_attention on gathered K/V, a yardstick only)
-   and the card's bound for the work;
+   where one exists (scaled_dot_product_attention on gathered K/V, a
+   yardstick only; none computes SSD) and the card's bound for the
+   work;
 3. checks the serving steps on the card against the same steps on the
-   CPU (plain versions) on the reduced model, and that both serve a
-   small trace to the same report;
+   CPU (plain versions) on the reduced models (qwen2-7b; the SSM
+   chunk, prefill and decode steps of mamba2-2.7b and zamba2-1.2b), and
+   that both devices serve a small qwen2 trace to the same report;
 4. serves two colocated full-width qwen2-7b (random bf16 weights) with
    the fused chunked-prefill ADBS loop under the logical clock, then
-   one with whole-prompt prefill, counting kernel launches in each.
+   one with whole-prompt prefill; then the JAX CLI's default pair,
+   full-width qwen2-7b + mamba2-2.7b (chunked, ADBS, serial: no
+   fusable pair), and full-width zamba2-1.2b with whole-prompt prefill,
+   counting kernel launches in each.
 
 Any failed phase raises and the script exits non-zero.  The last two
 lines of standard output are the card (name, power limit) and a JSON
@@ -38,6 +46,10 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor-core bf16
               "float32": 67e12}    # f32 outside the tensor cores
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# The SSD scan's y sums up to a chunk's worth (Q <= 256) of terms, so a
+# fixed absolute bf16 tolerance does not fit its range: its tolerance
+# is relative to the plain output's largest magnitude (same numbers).
+SSD_TOL_REL = TOL
 
 
 def card_line() -> str:
@@ -207,6 +219,63 @@ def check_kernels(torch, np, shape: dict) -> dict:
     return res
 
 
+def check_ssd(torch, shape: dict) -> dict:
+    """Hold the SSD-scan kernel against its plain version at one shape;
+    returns its numbers.  No single PyTorch call computes SSD, so there
+    is no library yardstick (``library_ms`` null)."""
+    from repro_torch.kernels import ssd_scan as ss
+    dt_ = shape["dtype"]
+    dname = str(dt_).replace("torch.", "")
+    es = torch.empty((), dtype=dt_).element_size()
+    b, S, H, G, N, Q = (shape[k] for k in ("b", "S", "H", "G", "N", "chunk"))
+    P = ss.HEAD_DIM
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(*s):
+        return torch.randn(s, generator=gen, device="cuda")
+    x = randn(b, S, H, P).to(dt_)
+    dt = torch.nn.functional.softplus(randn(b, S, H) - 2.0)
+    a_log = torch.log(torch.linspace(1.0, 16.0, H, device="cuda"))
+    B, C = randn(b, S, G, N).to(dt_), randn(b, S, G, N).to(dt_)
+    d_skip = torch.ones(H, device="cuda")
+    st = randn(b, H, P, N) * 0.1 if shape["init"] else None
+    y, fs = ss.ssd_scan(x, dt, a_log, B, C, d_skip, Q, st)
+    y_ref, fs_ref = ss.ssd_plain(x, dt, a_log, B, C, d_skip, Q, st)
+    rel = SSD_TOL_REL[dname]
+    errs, tols = [], []               # y, then the final state
+    for out, ref in ((y, y_ref), (fs, fs_ref)):
+        errs.append((out.float() - ref.float()).abs().max().item())
+        tols.append(rel * ref.float().abs().max().item())
+    # bytes: every input read once, every output written once; flops:
+    # per chunk of q rows and head, C.B and scores.(x dt) over the q(q+1)/2
+    # causal pairs, C.S_prev and the state update over q x P x N
+    n_bytes = (2 * x.numel() * es + dt.numel() * 4 + 2 * H * 4
+               + 2 * B.numel() * es + (2 if st is not None else 1)
+               * b * H * P * N * 4)
+    flops = 0
+    for c0 in range(0, S, Q):
+        q = min(Q, S - c0)
+        flops += (q * (q + 1) // 2) * (2 * N + 2 * P) + 4 * q * P * N
+    flops *= b * H
+    bnd, why = bound_ms(n_bytes, flops, dname)
+    res = dict(max_abs_err=errs[0], tolerance=tols[0],
+               state_max_abs_err=errs[1], state_tolerance=tols[1],
+               tolerance_rel=rel,
+               ms=time_ms(torch, lambda: ss.ssd_scan(x, dt, a_log, B, C,
+                                                     d_skip, Q, st)),
+               plain_ms=time_ms(torch, lambda: ss.ssd_plain(
+                   x, dt, a_log, B, C, d_skip, Q, st)),
+               library_ms=None, bound_ms=bnd, bound_by=why,
+               bytes=n_bytes, flops=flops)
+    if not all(e <= t for e, t in zip(errs, tols)):
+        raise AssertionError(f"ssd_scan disagrees with its plain version at "
+                             f"{shape['label']}: |Δ| {errs} > {tols} "
+                             f"({rel} of the plain outputs' largest "
+                             f"magnitudes)")
+    torch.cuda.synchronize()
+    return res
+
+
 # ---------------------------------------------------------------------------
 # serving phases
 # ---------------------------------------------------------------------------
@@ -284,30 +353,96 @@ def reduced_steps_match(torch, np) -> str:
             f"{same}/{len(toks_by['cpu'])} greedy outputs identical")
 
 
-def serve_full_width(torch, n_models: int, chunk_tokens: int, n_target: int,
-                     seed: int, must_launch) -> dict:
-    """Serve ``n_models`` colocated full-width qwen2-7b (random bf16
-    weights) under the logical clock; every request must finish, the
-    pool must be freed and each kernel of ``must_launch`` must have
-    launched in this run (every step's logits are checked finite by
+def reduced_ssm_steps_match(torch, np) -> str:
+    """The SSM serving steps on the card (SSD kernel; flash-prefill and
+    paged-decode kernels for zamba2's shared attention) against the same
+    steps on the CPU (plain versions): reduced mamba2-2.7b (chunk,
+    whole-prompt and decode steps) and zamba2-1.2b (whole-prompt and
+    decode), f32, same weights, carried states and pool contents.  The
+    whole prompt is 80 tokens, which the 32-token chunk does not divide,
+    so it runs through the padded scan."""
+    from repro_torch import configs
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving import engine
+    from repro_torch.serving.engine import tree_map
+    from repro_torch.serving.kvcache import UnifiedKVPool
+
+    worst = {}
+    for arch in ("mamba2-2.7b", "zamba2-1.2b"):
+        cfg = configs.get_reduced(arch)
+        sc = cfg.ssm
+        tree = tree_map(lambda a: a[None], init_params(
+            cfg, torch.Generator().manual_seed(3), torch.float32, "cpu"))
+        rng = np.random.default_rng(1)
+        B, C, S, W = 4, 16, 80, 8
+        toks = rng.integers(1, cfg.vocab_size, (B, S)).astype(np.int32)
+        lens = np.array([80, 71, 40, 9], np.int32)
+        clens = np.array([16, 16, 9, 1], np.int32)
+        gsz = max(cfg.n_attn_layers * cfg.n_kv_heads, 1)
+        tables = (rng.permutation(2048 // gsz)[:B * W] * gsz).reshape(B, W)
+        tables = tables.astype(np.int32)
+        g = torch.Generator().manual_seed(5)
+        conv_dim = cfg.d_inner + 2 * sc.n_groups * sc.d_state
+        st0 = torch.randn((cfg.n_layers, B, cfg.n_ssm_heads, sc.head_dim,
+                           sc.d_state), generator=g) * 0.1
+        tail0 = torch.randn((cfg.n_layers, B, sc.conv_kernel - 1, conv_dim),
+                            generator=g)
+        kv0 = torch.randn((2, 2048, 16, 64), generator=g)
+        out = {}
+        for dev in ("cpu", "cuda"):
+            p = tree_map(lambda a: a.to(dev), tree)
+            pool = UnifiedKVPool(2048, 64, torch.float32, device=dev)
+            pool.k.copy_(kv0[0])
+            pool.v.copy_(kv0[1])
+            res = []
+            if cfg.family == "ssm":
+                res += engine._prefill_chunk_ssm_step(
+                    p, 0, toks[:, :C], clens, st0.to(dev), tail0.to(dev),
+                    cfg=cfg)
+            lp, sp, tp = engine._prefill_ssm_step(p, 0, toks, lens, pool,
+                                                  tables, cfg=cfg)
+            res += [lp, sp, tp]
+            res += engine._decode_ssm_step(p, 0, toks[:, 0], lens + 1, pool,
+                                           tables, sp, tp, cfg=cfg)
+            res.append(pool.k)
+            out[dev] = [t.float().cpu() for t in res]
+        worst[arch] = max((a - b).abs().max().item()
+                          for a, b in zip(out["cpu"], out["cuda"]))
+        if not worst[arch] <= 1e-3:
+            raise AssertionError(f"reduced {arch} SSM steps: card vs CPU "
+                                 f"{worst[arch]}")
+    return ("reduced SSM steps card-vs-CPU max|Δ|: "
+            + ", ".join(f"{a} {w:.2e}" for a, w in worst.items()))
+
+
+def serve_full_width(torch, archs, chunk_tokens: int, n_target: int,
+                     seed: int, must_launch, alpha: float = 2.1,
+                     pool_blocks: int = 16384) -> dict:
+    """Serve the colocated full-width ``archs`` (random bf16 weights)
+    under the logical clock; every request must finish, the pool must
+    be freed and each kernel of ``must_launch`` must have launched in
+    this run (every step's logits are checked finite by
     ``engine.greedy_tokens``, which raises otherwise).  Returns the
     run's numbers and launch counts."""
     from repro_torch.core.workload import synthesize
     from repro_torch.kernels import ops
-    from repro_torch.serving import driver
+    from repro_torch.serving import driver, engine
 
-    names = [f"qwen2-7b#{i}" for i in range(n_models)]
-    # ~n_target requests: power-law rates (α 2.1) over a 1.6 s window
-    wl = synthesize(names, alpha=2.1, max_rate=n_target / 2.0, horizon=1.6,
-                    seed=seed, mean_prompt=256, mean_output=40, max_len=512)
+    names = [f"{a}#{i}" for i, a in enumerate(archs)]
+    # ~n_target requests: power-law rates (α) over a 1.6 s window
+    wl = synthesize(names, alpha=alpha, max_rate=n_target / 2.0,
+                    horizon=1.6, seed=seed, mean_prompt=256, mean_output=40,
+                    max_len=512)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     unit = driver.build_unit_from_specs(
-        [(n, "qwen2-7b", wl.rates[n]) for n in names], pool_blocks=16384,
-        max_slots=4, chunk_tokens=chunk_tokens, seed=seed, policy="adbs",
-        fused=True, reduced=False, dtype=torch.bfloat16, device="cuda")
+        [(n, a, wl.rates[n]) for n, a in zip(names, archs)],
+        pool_blocks=pool_blocks, max_slots=4, chunk_tokens=chunk_tokens,
+        seed=seed, policy="adbs", fused=True, reduced=False,
+        dtype=torch.bfloat16, device="cuda")
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
+    buckets0 = set(engine._BUCKETS)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     rep = driver.serve_workload([unit], wl, seed=seed, max_new_cap=64,
@@ -328,7 +463,13 @@ def serve_full_width(torch, n_models: int, chunk_tokens: int, n_target: int,
     n_prompt = sum(len(r.prompt) for r in fin)
     lens = sorted(len(r.prompt) for r in fin)
     outs = sorted(len(r.output) for r in fin)
-    res = dict(models=n_models, chunk_tokens=chunk_tokens,
+    per_model = {n: sum(r.model == n for r in fin) for n in names}
+    # padded prompt lengths of the SSM/hybrid whole-prompt prefills
+    ssm_prefill_lens = sorted({shapes[0][1] for kind, cfg, shapes
+                               in engine._BUCKETS - buckets0
+                               if kind == "prefill" and cfg.ssm})
+    res = dict(models=archs, requests_per_model=per_model,
+               chunk_tokens=chunk_tokens,
                requests=agg.submitted, ticks=rep.ticks,
                prompt_tokens=n_prompt, output_tokens=n_out,
                prompt_len_range=[lens[0], lens[-1]],
@@ -339,6 +480,7 @@ def serve_full_width(torch, n_models: int, chunk_tokens: int, n_target: int,
                fused_groups=len(unit.fused_groups),
                pool_head_blocks=unit.pool.n_head_blocks,
                max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+               ssm_prefill_lens=ssm_prefill_lens,
                launches=launches, summary=rep.summary())
     del unit, rep
     gc.collect()
@@ -381,47 +523,89 @@ def main() -> int:
         for name, r in res.items():
             print(f"check [{label}] {name}: " + json.dumps(r))
 
-    print(reduced_steps_match(torch, np))
+    ssd_shapes = [
+        dict(label="mamba2-2.7b chunk step bf16", dtype=torch.bfloat16, b=4,
+             S=64, chunk=64, H=80, G=1, N=128, init=True),
+        dict(label="zamba2-1.2b whole-prompt bucket bf16",
+             dtype=torch.bfloat16, b=2, S=512, chunk=256, H=64, G=1, N=64,
+             init=False),
+        dict(label="reduced f32, 2 groups, ragged chunk", dtype=torch.float32,
+             b=2, S=72, chunk=32, H=8, G=2, N=16, init=True),
+    ]
+    ssd = {s["label"]: check_ssd(torch, s) for s in ssd_shapes}
+    for label, r in ssd.items():
+        print(f"check [{label}] ssd_scan: " + json.dumps(r))
 
-    fused = serve_full_width(torch, n_models=2, chunk_tokens=64,
-                             n_target=16, seed=0,
-                             must_launch=("repro_paged_decode",
-                                          "repro_paged_prefill"))
-    print("fused chunked serve: " + json.dumps(
-        {k: v for k, v in fused.items() if k != "summary"}))
-    for line in fused["summary"].splitlines():
-        print(f"  {line}")
-    whole = serve_full_width(torch, n_models=1, chunk_tokens=0,
-                             n_target=8, seed=1,
-                             must_launch=("repro_paged_decode",
-                                          "repro_flash_prefill"))
-    print("whole-prompt serve: " + json.dumps(
-        {k: v for k, v in whole.items() if k != "summary"}))
-    for line in whole["summary"].splitlines():
-        print(f"  {line}")
+    print(reduced_steps_match(torch, np))
+    print(reduced_ssm_steps_match(torch, np))
+
+    qwen = "qwen2-7b"
+    phases = [
+        ("fused chunked serve", dict(
+            archs=[qwen, qwen], chunk_tokens=64, n_target=16, seed=0,
+            must_launch=("repro_paged_decode", "repro_paged_prefill"))),
+        ("whole-prompt serve", dict(
+            archs=[qwen], chunk_tokens=0, n_target=8, seed=1,
+            must_launch=("repro_paged_decode", "repro_flash_prefill"))),
+        # the JAX CLI's default pair; α 1 gives mamba2 a third of the
+        # traffic, and the pool's quota arithmetic (mamba2's state is
+        # 20,480 head-block units a sequence) admits several at once
+        ("serve A: qwen2-7b + mamba2-2.7b, chunked", dict(
+            archs=[qwen, "mamba2-2.7b"], chunk_tokens=64, n_target=12,
+            seed=2, alpha=1.0, pool_blocks=196608,
+            must_launch=("repro_ssd_scan", "repro_paged_prefill",
+                         "repro_paged_decode"))),
+        ("serve B: zamba2-1.2b, whole-prompt", dict(
+            archs=["zamba2-1.2b"], chunk_tokens=0, n_target=12, seed=3,
+            pool_blocks=131072,
+            must_launch=("repro_ssd_scan", "repro_flash_prefill",
+                         "repro_paged_decode"))),
+    ]
+    served = {}
+    for label, kw in phases:
+        res = served[label] = serve_full_width(torch, **kw)
+        print(f"{label}: " + json.dumps(
+            {k: v for k, v in res.items() if k != "summary"}))
+        for line in res["summary"].splitlines():
+            print(f"  {line}")
+    # some whole prompts pad to a length the 256-token chunk does not
+    # divide: those run through the scan's ragged last chunk
+    ragged = [S for S in served["serve B: zamba2-1.2b, whole-prompt"][
+        "ssm_prefill_lens"] if S > 256 and S % 256]
+    if not ragged:
+        raise AssertionError("serve B ran no ragged whole-prompt prefill")
+    print(f"serve B prefilled ragged whole prompts of {ragged} tokens "
+          f"(256-token chunks)")
     print("every served step had finite logits (engine.greedy_tokens "
           "raises otherwise); every request finished; pools freed")
 
-    launches = {
-        "repro_paged_decode": (fused["launches"]["repro_paged_decode"]
-                               + whole["launches"]["repro_paged_decode"]),
-        "repro_paged_prefill": fused["launches"]["repro_paged_prefill"],
-        "repro_flash_prefill": whole["launches"]["repro_flash_prefill"],
-    }
-    kernel_names = {"repro_paged_decode": ("fused_paged_decode_attention",
-                                           "decode"),
-                    "repro_paged_prefill": ("fused_paged_flash_prefill",
-                                            "chunk"),
-                    "repro_flash_prefill": ("flash_prefill", "flash")}
+    launches = {k.symbol: sum(r["launches"][k.symbol]
+                              for r in served.values())
+                for k in ops.path_kernels()}
+    attn_names = {"repro_paged_decode": ("fused_paged_decode_attention",
+                                         "decode"),
+                  "repro_paged_prefill": ("fused_paged_flash_prefill",
+                                          "chunk"),
+                  "repro_flash_prefill": ("flash_prefill", "flash")}
     rows = []
     for k in ops.path_kernels():
-        name, key = kernel_names[k.symbol]
+        base = {"route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{k.source}",
+                "replaces": k.replaces, "launches": launches[k.symbol]}
+        if k.symbol == "repro_ssd_scan":
+            main_shape, *others = ssd_shapes
+            r = ssd[main_shape["label"]]
+            rows.append({
+                "name": "ssd_scan", **base, **r, "kernel_ms": r["ms"],
+                "shapes": main_shape["label"],
+                "other_shapes": [{"shapes": o["label"], **ssd[o["label"]]}
+                                 for o in others]})
+            continue
+        name, key = attn_names[k.symbol]
         r = checks[full["label"]][key]
         s = checks[small["label"]][key]
         rows.append({
-            "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{k.source}",
-            "replaces": k.replaces, "launches": launches[k.symbol],
+            "name": name, **base,
             "max_abs_err": r["max_abs_err"], "tolerance": r["tolerance"],
             "ms": r["ms"], "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

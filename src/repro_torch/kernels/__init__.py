@@ -1,2 +1,3 @@
-"""Attention kernels: hand-written CUDA for Hopper with a plain PyTorch
-version beside each (see ``ops.runs_kernel`` for the dispatch rule)."""
+"""Attention and SSD-scan kernels: hand-written CUDA for Hopper with a
+plain PyTorch version beside each (see ``ops.runs_kernel`` for the
+dispatch rule)."""

@@ -27,7 +27,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("paged_decode.cu", "paged_prefill.cu", "flash_prefill.cu")
+SOURCES = ("paged_decode.cu", "paged_prefill.cu", "flash_prefill.cu",
+           "ssd_scan.cu")
 
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
@@ -144,14 +145,15 @@ def dtype_code(dtype: torch.dtype) -> int:
     return codes[dtype]
 
 
-def check_operands(name: str, device: torch.device, **tensors) -> None:
+def check_operands(name: str, device: torch.device, align: int = 16,
+                   **tensors) -> None:
     """Raise unless every tensor lies on ``device``, is contiguous and
-    16-byte aligned (the kernels' vector loads need it)."""
+    ``align``-byte aligned (16 for the kernels' vector loads)."""
     for key, t in tensors.items():
         if t.device != device:
             raise ValueError(f"{name}: {key} is on {t.device}, expected "
                              f"{device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: {key} must be 16-byte aligned")
+        if t.data_ptr() % align:
+            raise ValueError(f"{name}: {key} must be {align}-byte aligned")

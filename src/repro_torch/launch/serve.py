@@ -1,5 +1,6 @@
 """Multi-LLM SLO-attainment serving over real colocated engines (port of
-``repro/launch/serve.py``, the subset the dense slice supports).
+``repro/launch/serve.py``, the subset the ported families support:
+dense, SSM and hybrid).
 
 Colocates the requested architectures' reduced variants on one unified
 KV pool, replays a popularity-skewed Poisson workload
@@ -9,7 +10,7 @@ weights); ``--device cpu`` runs the plain versions of the kernels in
 f32.
 
   PYTHONPATH=src python -m repro_torch.launch.serve \\
-      --archs qwen2-7b,qwen2-7b --policy adbs --fused \\
+      --archs qwen2-7b,mamba2-2.7b --policy adbs --fused \\
       --chunk-tokens 16 --rate 2.0 --horizon 8 --deterministic
 """
 from __future__ import annotations
@@ -37,7 +38,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         description="SLO-attainment serving over real colocated engines "
                     "(PyTorch/CUDA port)")
-    ap.add_argument("--archs", default="qwen2-7b,qwen2-7b",
+    ap.add_argument("--archs", default="qwen2-7b,mamba2-2.7b",
                     help="comma list of architectures to colocate "
                          "(repeat one to colocate instances)")
     ap.add_argument("--policy", default="adbs",

@@ -339,8 +339,8 @@ def build_unit_from_specs(specs: Sequence[Tuple[str, str, float]],
     the initial head-block quota split ∝ arrival rate (ADBS adapts it
     from there).
 
-    The pool takes its head_dim from the configs (all must agree) and
-    its dtype — like the weights' — from ``dtype``.  ``params`` gives
+    The pool takes its head_dim from the configs with attention (all
+    must agree; 64 when none has any) and its dtype — like the weights' — from ``dtype``.  ``params`` gives
     one weight tree per spec (e.g. the JAX package's tree mapped
     through ``models.transformer.params_to_torch``); by default spec
     ``i`` draws random weights from a ``torch.Generator`` seeded
@@ -352,12 +352,14 @@ def build_unit_from_specs(specs: Sequence[Tuple[str, str, float]],
     cfgs = [replace(configs.get_reduced(arch) if reduced
                     else configs.get(arch), name=name)
             for name, arch, _ in specs]
-    head_dims = {cfg.hd for cfg in cfgs}
-    if len(head_dims) != 1:
+    # attention-free models hold no KV: the head_dim comes from the
+    # rest, 64 (the JAX package's pool) when no model has attention
+    head_dims = {cfg.hd for cfg in cfgs if not cfg.attn_free}
+    if len(head_dims) > 1:
         raise ValueError(f"a unit's pool has one head_dim; the specs have "
                          f"{sorted(head_dims)}")
-    pool = UnifiedKVPool(pool_blocks, head_dims.pop(), dtype=dtype,
-                         device=dev)
+    pool = UnifiedKVPool(pool_blocks, head_dims.pop() if head_dims else 64,
+                         dtype=dtype, device=dev)
     rate_sum = sum(max(r, 0.0) for _, _, r in specs)
     min_quota = max(pool_blocks // (8 * len(specs)), 1)
     engines: Dict[str, Engine] = {}

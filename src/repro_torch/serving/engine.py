@@ -1,5 +1,5 @@
 """Per-LLM runtime engine: disaggregated prefill / decode jobs (port of
-``repro/serving/engine.py``, dense family).
+``repro/serving/engine.py``: the dense, SSM and hybrid families).
 
 Prefill and decode are separate jobs over shared weights and the
 unified KV pool; the scheduler (serving/mux.py) decides which job runs
@@ -20,9 +20,12 @@ pads them, so the two packages see the same batches; ``TRACE_COUNTS``
 counts the distinct shape buckets each step ran at (the set a CUDA
 graph per bucket would capture).
 
-The step functions run eagerly; on CUDA tensors the attention goes
-through the Hopper kernels (``serving/cache_ops``), on CPU tensors
-through their plain versions.  KV writes update the arena in place.
+The step functions run eagerly; on CUDA tensors the attention and the
+SSD scan go through the Hopper kernels (``serving/cache_ops``,
+``models/mamba2``), on CPU tensors through their plain versions.  KV
+writes update the arena in place.  SSM state (constant size) lives in
+per-slot arrays: ``ssm_state`` [L, slots, H, P, N] float32 and
+``conv_tail`` [L, slots, K-1, conv_dim].
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch.config import BLOCK_TOKENS, ModelConfig, replace
+from repro_torch.models import mamba2 as M2
 from repro_torch.models.layers import (attn_qkv, embed_tokens, linear,
                                        lm_logits, mlp, rms_norm)
 from repro_torch.serving import cache_ops
@@ -198,7 +202,8 @@ class PrefillJob:
 
 
 class Engine:
-    """Inference engine for one dense LLM over the shared pool."""
+    """Inference engine for one dense, SSM or hybrid LLM over the shared
+    pool."""
 
     def __init__(self, cfg: ModelConfig, params, view: ModelCacheView,
                  max_slots: int = 8, max_blocks_per_seq: int = 64,
@@ -206,11 +211,14 @@ class Engine:
                  clock=time.perf_counter):
         """``params``: the model's tree on the pool's device.
         ``chunk_tokens``: enable chunked prefill — prompts are processed
-        ``chunk_tokens`` at a time, one chunk per scheduler tick."""
-        if cfg.family not in ("dense", "vlm", "audio") or cfg.ssm \
+        ``chunk_tokens`` at a time, one chunk per scheduler tick
+        (attention families against the pool, pure SSM through the
+        mixer's state carry; hybrid keeps whole-prompt prefill)."""
+        if cfg.family not in ("dense", "vlm", "audio", "ssm", "hybrid") \
                 or cfg.moe:
-            raise ValueError(f"the port serves the dense family so far, "
-                             f"not {cfg.family!r} ({cfg.name})")
+            raise ValueError(f"the port serves the dense, SSM and hybrid "
+                             f"families so far, not {cfg.family!r} "
+                             f"({cfg.name})")
         self.cfg = cfg
         self.clock = clock
         # steps are cached per *geometry*, not per model name
@@ -219,7 +227,7 @@ class Engine:
         self.pool = view.pool
         self.max_slots = max_slots
         self.max_blocks = max_blocks_per_seq
-        self.chunk_tokens = chunk_tokens
+        self.chunk_tokens = None if cfg.family == "hybrid" else chunk_tokens
         self.slots: List[Optional[Request]] = [None] * max_slots
         self.slot_seq: np.ndarray = np.full(max_slots, -1, np.int64)
         self.finished: List[Request] = []
@@ -228,12 +236,24 @@ class Engine:
         self._stall_ticks = 0
         self._rolled_rows: List[int] = []
         self._next_seq = 0
+        # SSM per-slot state
+        self.ssm_state = self.conv_tail = None
+        if cfg.ssm:
+            sc = cfg.ssm
+            conv_dim = cfg.d_inner + 2 * sc.n_groups * sc.d_state
+            self.ssm_state = torch.zeros(
+                (cfg.n_layers, max_slots, cfg.n_ssm_heads, sc.head_dim,
+                 sc.d_state), dtype=torch.float32, device=self.pool.device)
+            self.conv_tail = torch.zeros(
+                (cfg.n_layers, max_slots, sc.conv_kernel - 1, conv_dim),
+                dtype=params["tok"]["embed"].dtype, device=self.pool.device)
         # zero-copy weights: an M=1 stacked view of the engine's tree
         self.params = tree_map(lambda a: a.unsqueeze(0), params)
         self.model_index = 0
-        self._prefill_fn = step_fn("prefill", self.cfg_key)
-        self._decode_fn = step_fn("decode", self.cfg_key)
-        self._chunk_fn = step_fn("chunk", self.cfg_key)
+        ssm = "_ssm" if cfg.ssm else ""
+        self._prefill_fn = step_fn("prefill" + ssm, self.cfg_key)
+        self._decode_fn = step_fn("decode" + ssm, self.cfg_key)
+        self._chunk_fn = step_fn("chunk" + ssm, self.cfg_key)
 
     # ------------------------------------------------------------------
     def adopt_stacked(self, stacked, model_index: int) -> None:
@@ -259,9 +279,12 @@ class Engine:
 
     def lifetime_blocks(self, req: Request) -> int:
         """Head-blocks this request needs over its whole lifetime
-        (prompt + max_new tokens)."""
+        (prompt + max_new tokens, plus SSM state pages)."""
         total = len(req.prompt) + req.max_new_tokens
-        return -(-total // BLOCK_TOKENS) * self.view.group_size
+        blocks = -(-total // BLOCK_TOKENS) * self.view.group_size
+        if self.cfg.ssm:
+            blocks += self.view._ssm_blocks_per_seq
+        return blocks
 
     def can_admit(self, req: Request, pending_blocks: int = 0) -> bool:
         """Whether the request's whole-lifetime quota fits the current
@@ -313,8 +336,15 @@ class Engine:
         toks, lens, table = _pad_rows(
             Bp, (toks, 0), (lens, 0),
             (self.view.block_table(seq_ids, self.max_blocks), -1))
-        logits = self._prefill_fn(self.params, self.model_index, toks, lens,
-                                  self.pool, table)
+        out = self._prefill_fn(self.params, self.model_index, toks, lens,
+                               self.pool, table)
+        if self.cfg.ssm:
+            logits, new_ssm, new_tail = out
+            sl = torch.tensor(slot_ids, device=self.pool.device)
+            self.ssm_state[:, sl] = new_ssm[:, :B]
+            self.conv_tail[:, sl] = new_tail[:, :B].to(self.conv_tail.dtype)
+        else:
+            logits = out
         nxt = greedy_tokens(logits[:B])
         for i, r in enumerate(admitted):
             if r.max_new_tokens <= 0:
@@ -413,7 +443,25 @@ class Engine:
         self.admit_chunked(reqs)
         if not self._prefilling:
             return 0
+        if self.cfg.ssm:
+            return self._run_chunk_ssm()
         return self.run_chunk_job(self.export_prefill_job())
+
+    def _run_chunk_ssm(self) -> int:
+        """Chunk advance for pure-SSM engines (state carry, no pool):
+        exact rows, fresh sequences start from zero state."""
+        job = self.export_prefill_job()
+        sl = torch.tensor(job.slots, device=self.pool.device)
+        st = self.ssm_state[:, sl]                  # gathered copies
+        tail = self.conv_tail[:, sl]
+        fresh = torch.from_numpy(job.offs == 0).to(self.pool.device)
+        st[:, fresh] = 0
+        tail[:, fresh] = 0
+        logits, new_st, new_tail = self._chunk_fn(
+            self.params, self.model_index, job.toks, job.clens, st, tail)
+        self.ssm_state[:, sl] = new_st
+        self.conv_tail[:, sl] = new_tail.to(self.conv_tail.dtype)
+        return self.apply_prefill_result(job, greedy_tokens(logits))
 
     # ------------------------------------------------------------------
     def export_decode_job(self) -> Optional[DecodeJob]:
@@ -486,6 +534,8 @@ class Engine:
         job = job or self.export_decode_job()
         if job is None:
             return 0
+        if self.cfg.ssm:
+            return self._decode_ssm(job)
         B = len(job)
         lens = self.view.seq_lens(job.seq_ids)  # incl. reserved current token
         table = self.view.block_table(job.seq_ids, self.max_blocks)
@@ -498,6 +548,29 @@ class Engine:
                                  lens, self.pool, table)
         return self.apply_decode_result(job, greedy_tokens(logits[:B]))
 
+    def _decode_ssm(self, job: DecodeJob) -> int:
+        """Decode step of an SSM/hybrid engine: exact rows (the per-slot
+        state scatter must not see padded duplicates).  The step's rows
+        of the state are gathered (a copy) before the step and restored
+        for the rows that roll back: the SSM carry is not idempotent,
+        so a retry must start from the pre-step state."""
+        lens = self.view.seq_lens(job.seq_ids)
+        table = self.view.block_table(job.seq_ids, self.max_blocks)
+        sl = torch.tensor(job.slots, device=self.pool.device)
+        prev_ssm = self.ssm_state[:, sl]
+        prev_tail = self.conv_tail[:, sl]
+        logits, new_ssm, new_tail = self._decode_fn(
+            self.params, self.model_index, job.last_tok, lens, self.pool,
+            table, prev_ssm, prev_tail)
+        self.ssm_state[:, sl] = new_ssm
+        self.conv_tail[:, sl] = new_tail.to(self.conv_tail.dtype)
+        toks = self.apply_decode_result(job, greedy_tokens(logits))
+        if self._rolled_rows:
+            ri = torch.tensor(self._rolled_rows, device=self.pool.device)
+            self.ssm_state[:, sl[ri]] = prev_ssm[:, ri]
+            self.conv_tail[:, sl[ri]] = prev_tail[:, ri]
+        return toks
+
     def has_decode_work(self) -> bool:
         return any(s not in self._prefilling for s in self.active_slots())
 
@@ -509,8 +582,13 @@ class Engine:
         """Key under which this engine's steps fuse with other colocated
         engines: everything that shapes the stacked tree and the fused
         computation (geometry, head layout, projection extras, vocab,
-        param dtype, block-table width, chunk window)."""
+        param dtype, block-table width, chunk window).  None marks the
+        engine fusion-ineligible (SSM/hybrid keep their own scan): the
+        scheduler runs it on the serial path."""
         cfg = self.cfg
+        if cfg.family not in ("dense", "vlm", "audio") or cfg.ssm \
+                or cfg.moe:
+            return None
         return (cfg.family, cfg.n_layers, cfg.d_model, cfg.n_heads,
                 cfg.n_kv_heads, cfg.hd, cfg.d_ff, cfg.vocab_size,
                 cfg.qkv_bias, cfg.qk_norm, cfg.rope_theta, cfg.rms_eps,
@@ -667,10 +745,153 @@ def _decode_step(params, midx, last_tok, lens, pool, table, *,
     return logits[0]
 
 
+# ---------------------------------------------------------------------------
+# SSM / hybrid steps: one model's [L, ...] tree, per-slot state in and
+# out (the inputs are never written: the engine restores rolled-back
+# rows from them)
+# ---------------------------------------------------------------------------
+def _one_model(params, midx: int):
+    """One model's unstacked tree (views of the stacked leaves)."""
+    return tree_map(lambda a: a[midx], params)
+
+
+def _prefill_ssm_step(params, midx, toks, lens, pool, table, *,
+                      cfg: ModelConfig):
+    """Whole-prompt prefill of an SSM or hybrid model: the mixer over
+    the prompt (the SSD kernel on CUDA) with padded positions masked,
+    and for hybrid the shared attention block after every
+    ``attn_every`` layers (the flash-prefill kernel on CUDA; KV written
+    into the pool at attention-layer index ``attn_li``).  Like the JAX
+    package's engine, the hybrid path ignores ``sliding_window``.
+
+    toks: [B, S] (S a block multiple); lens: [B]; table: [B, W]
+    Returns (logits [B, vocab], ssm_state [L, B, H, P, N] f32,
+    conv_tail [L, B, K-1, conv_dim]).
+    """
+    B, S = toks.shape
+    _note_step("prefill", cfg, (B, S, table.shape[1]))
+    dev = pool.device
+    p = _one_model(params, midx)
+    lp = p["layers"]
+    x = embed_tokens(p["tok"]["embed"], _to(dev, toks, torch.int64))
+    lens_t = _to(dev, lens, torch.int64)
+    mask = torch.arange(S, device=dev)[None, :] < lens_t[:, None]
+    sc = cfg.ssm
+    new_ssm = torch.empty((cfg.n_layers, B, cfg.n_ssm_heads, sc.head_dim,
+                           sc.d_state), dtype=torch.float32, device=dev)
+    new_tail = torch.empty((cfg.n_layers, B, sc.conv_kernel - 1,
+                            cfg.d_inner + 2 * sc.n_groups * sc.d_state),
+                           dtype=x.dtype, device=dev)
+    if cfg.family == "hybrid":
+        slots = cache_ops.token_slots(table, np.zeros(B, np.int64), S,
+                                      pool.block_tokens, dev)
+        positions = torch.arange(S, device=dev).expand(B, S)
+        sa = p["shared_attn"]
+    attn_li = 0
+    for li in range(cfg.n_layers):
+        h = rms_norm(x, lp["ln1"][li], cfg.rms_eps)
+        out, new_ssm[li], new_tail[li] = M2.mamba2_mixer(
+            h, lp, li, cfg, return_cache=True, length_mask=mask)
+        x = x + out
+        if cfg.family == "hybrid" and (li + 1) % cfg.attn_every == 0:
+            h = rms_norm(x, sa["ln1"][0], cfg.rms_eps)
+            q, k, v = attn_qkv(h, sa, 0, cfg, positions)   # [B,S,{H,KV},hd]
+            o = cache_ops.flash_prefill(q.contiguous(), k.contiguous(),
+                                        v.contiguous())
+            cache_ops.write_slots(pool.k, pool.v, k, v, slots, attn_li,
+                                  cfg.n_kv_heads)
+            attn_li += 1
+            x = x + linear(o.reshape(B, S, -1), sa["wo"][0])
+            x = x + mlp(rms_norm(x, sa["ln2"][0], cfg.rms_eps), sa, 0)
+    idx = _to(dev, np.maximum(lens - 1, 0), torch.int64)
+    x_last = x[torch.arange(B, device=dev), idx]                 # [B, d]
+    logits = lm_logits(x_last, p["tok"], cfg)[:, :cfg.vocab_size]
+    return logits, new_ssm, new_tail
+
+
+def _prefill_chunk_ssm_step(params, midx, toks, clens, ssm_state, conv_tail,
+                            *, cfg: ModelConfig):
+    """Chunked prefill of a pure-SSM model: the mixer's conv-tail +
+    state carry IS the chunk boundary.  ``clens`` masks padded chunk
+    positions (dt=0 ⇒ state frozen past the true chunk length).
+
+    toks: [B, C]; clens: [B]; ssm_state / conv_tail: the rows' carried
+    caches.  Returns (logits [B, vocab], new ssm_state, new conv_tail).
+    """
+    B, C = toks.shape
+    _note_step("prefill_chunk_ssm", cfg, (B, C))
+    dev = ssm_state.device
+    p = _one_model(params, midx)
+    lp = p["layers"]
+    x = embed_tokens(p["tok"]["embed"], _to(dev, toks, torch.int64))
+    clens_t = _to(dev, clens, torch.int64)
+    mask = torch.arange(C, device=dev)[None, :] < clens_t[:, None]
+    new_ssm, new_tail = torch.empty_like(ssm_state), torch.empty_like(
+        conv_tail)
+    for li in range(cfg.n_layers):
+        h = rms_norm(x, lp["ln1"][li], cfg.rms_eps)
+        out, new_ssm[li], new_tail[li] = M2.mamba2_mixer(
+            h, lp, li, cfg, conv_tail=conv_tail[li], ssm_state=ssm_state[li],
+            return_cache=True, length_mask=mask)
+        x = x + out
+    x_last = x[torch.arange(B, device=dev), (clens_t - 1).clamp(min=0)]
+    logits = lm_logits(x_last, p["tok"], cfg)[:, :cfg.vocab_size]
+    return logits, new_ssm, new_tail
+
+
+def _decode_ssm_step(params, midx, last_tok, lens, pool, table, ssm_state,
+                     conv_tail, *, cfg: ModelConfig):
+    """One decode step of an SSM or hybrid model: ``mamba2_decode_step``
+    per layer and, for hybrid, the shared attention block over the pool
+    (the paged-decode kernel on CUDA) after every ``attn_every``
+    layers.  last_tok, lens [B] (lens incl. the current token, whose
+    position is lens−1); table [B, W]; ssm_state / conv_tail the rows'
+    caches.  Returns (logits [B, vocab], new ssm_state, new conv_tail).
+    """
+    B = last_tok.shape[0]
+    _note_step("decode", cfg, (B, table.shape[1]))
+    dev = ssm_state.device
+    p = _one_model(params, midx)
+    lp = p["layers"]
+    x = embed_tokens(p["tok"]["embed"], _to(dev, last_tok, torch.int64))
+    new_ssm, new_tail = torch.empty_like(ssm_state), torch.empty_like(
+        conv_tail)
+    if cfg.family == "hybrid":
+        pos = lens.astype(np.int64) - 1
+        slots = cache_ops.token_slots(table, pos, 1, pool.block_tokens, dev)
+        table_t = _to(dev, table)
+        lens_t = _to(dev, lens, torch.int32)
+        pos_t = _to(dev, pos)[:, None]                              # [B, 1]
+        sa = p["shared_attn"]
+    n_h, n_kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    attn_li = 0
+    for li in range(cfg.n_layers):
+        h = rms_norm(x, lp["ln1"][li], cfg.rms_eps)
+        out, new_tail[li], new_ssm[li] = M2.mamba2_decode_step(
+            h, lp, li, cfg, conv_tail[li], ssm_state[li])
+        x = x + out
+        if cfg.family == "hybrid" and (li + 1) % cfg.attn_every == 0:
+            h = rms_norm(x, sa["ln1"][0], cfg.rms_eps)
+            q, k, v = attn_qkv(h[:, None, :], sa, 0, cfg, pos_t)
+            cache_ops.write_slots(pool.k, pool.v, k, v, slots, attn_li, n_kv)
+            phys = cache_ops.resolve_physical_blocks(table_t, attn_li, n_kv)
+            o = cache_ops.fused_paged_decode_attention(
+                q.reshape(B, n_h, hd).contiguous(), pool.k, pool.v, phys,
+                lens_t)
+            attn_li += 1
+            x = x + linear(o.reshape(B, n_h * hd), sa["wo"][0])
+            x = x + mlp(rms_norm(x, sa["ln2"][0], cfg.rms_eps), sa, 0)
+    logits = lm_logits(x, p["tok"], cfg)[:, :cfg.vocab_size]
+    return logits, new_ssm, new_tail
+
+
 _STEP_TABLE = {
     "prefill": _prefill_step,
     "decode": _decode_step,
     "chunk": _prefill_chunk_step,
+    "prefill_ssm": _prefill_ssm_step,
+    "decode_ssm": _decode_ssm_step,
+    "chunk_ssm": _prefill_chunk_ssm_step,
     "fused_decode": _fused_decode_step,
     "fused_prefill_chunk": _fused_prefill_chunk_step,
 }

@@ -185,8 +185,8 @@ class ModelCacheView:
 
     Tracks quota (head-blocks) granted by ADBS and per-sequence block
     tables.  ``group_size = n_layers × n_kv_heads`` head-blocks per
-    token block.  (The JAX package's SSM state accounting arrives with
-    the SSM family.)
+    token block (attention models); SSM models have group_size 0 and a
+    fixed per-seq state cost (accounted against quota, not the arena).
     """
 
     def __init__(self, cfg: ModelConfig, pool: "UnifiedKVPool", quota: int):
@@ -196,6 +196,14 @@ class ModelCacheView:
         self.used = 0
         self.group_size = cfg.n_attn_layers * cfg.n_kv_heads
         self.seqs: Dict[int, SeqCache] = {}
+        self._started: set = set()
+        # SSM quota accounting: state bytes expressed in head-block units
+        self._ssm_blocks_per_seq = 0
+        if cfg.ssm:
+            state_bytes = (cfg.n_ssm_layers * cfg.n_ssm_heads
+                           * cfg.ssm.head_dim * cfg.ssm.d_state * 4)
+            self._ssm_blocks_per_seq = max(
+                1, state_bytes // pool.head_block_bytes)
 
     # ---- quota ------------------------------------------------------
     def quota_headroom(self) -> int:
@@ -211,7 +219,10 @@ class ModelCacheView:
         cur = sc.n_tokens if sc else 0
         need_tokens = max(0, cur + n_tokens - have)
         n_groups = -(-need_tokens // BLOCK_TOKENS)
-        return n_groups * self.group_size
+        cost = n_groups * self.group_size
+        if sc is None and self.cfg.ssm:
+            cost += self._ssm_blocks_per_seq
+        return cost
 
     # ---- allocation ---------------------------------------------------
     def append_tokens(self, seq_id: int, n_tokens: int) -> bool:
@@ -234,7 +245,11 @@ class ModelCacheView:
                 newly.append(base)
         sc.bases.extend(newly)
         sc.n_tokens += n_tokens
-        self.used += n_groups * self.group_size
+        extra = n_groups * self.group_size
+        if seq_id not in self._started and self.cfg.ssm:
+            extra += self._ssm_blocks_per_seq
+        self._started.add(seq_id)
+        self.used += extra
         self.pool.used_by[self.cfg.name] = self.used
         return True
 
@@ -244,7 +259,11 @@ class ModelCacheView:
             return
         for b in sc.bases:
             self.pool.allocator.free(b, self.group_size)
-        self.used -= len(sc.bases) * self.group_size
+        freed = len(sc.bases) * self.group_size
+        if self.cfg.ssm and seq_id in self._started:
+            freed += self._ssm_blocks_per_seq
+        self._started.discard(seq_id)
+        self.used -= freed
         self.pool.used_by[self.cfg.name] = self.used
 
     # ---- device-side tables -------------------------------------------

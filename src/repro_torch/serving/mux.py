@@ -15,6 +15,8 @@ tick runs ONE decode sweep and, with chunked prefill, ONE prefill sweep
 over all members — on the card one launch of each attention kernel per
 layer serves every colocated model.  The weight memory the stacking
 de-duplicates is granted to the pool as extra head-blocks.
+Fusion-ineligible engines (SSM and hybrid: ``fusion_signature`` None)
+take the serial prefill and decode paths next to the groups.
 
 ``policy``: "adbs" (paper), "fcfs" (temporal multiplexing baseline),
 "round_robin" (no prefill priority, fixed quotas).  ``sm_frac``:

@@ -8,6 +8,9 @@ Tolerances: float32 runs with TF32 off, so kernel and plain differ only
 in summation order and in the plain version's softmax rounding (1e-4);
 bfloat16 differs in where the two round (the plain version casts
 probabilities to bf16 before P·V, the kernel keeps them in f32): 2e-2.
+The SSD scan's output sums up to a chunk's worth of terms, so its
+tolerance is relative to the plain output's largest magnitude (the same
+1e-4 and 2e-2).
 """
 import numpy as np
 import pytest
@@ -16,6 +19,7 @@ import torch
 from repro_torch.kernels import flash_prefill as fp
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pa
+from repro_torch.kernels import ssd_scan as ss
 from repro_torch.paging import resolve_physical_blocks
 
 pytestmark = pytest.mark.cuda
@@ -133,3 +137,58 @@ def test_kernels_refuse_bad_operands(dev):
         fp.flash_prefill(q[:, None], q[:, None, :2], q[:, None, :2],
                          window=0)
     assert ops.launch_counts() == counts
+
+
+def _ssd_inputs(dev, dtype, b, S, H, G, N, init, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+    x = rn(b, S, H, 64).to(dtype)
+    dt = torch.nn.functional.softplus(rn(b, S, H) - 2.0)
+    a_log = torch.log(torch.linspace(1.0, 16.0, H, device=dev))
+    B, C = rn(b, S, G, N).to(dtype), rn(b, S, G, N).to(dtype)
+    d_skip = torch.ones(H, device=dev)
+    st = rn(b, H, 64, N) * 0.1 if init else None
+    return x, dt, a_log, B, C, d_skip, st
+
+
+# the chip smoke's shapes: mamba2-2.7b chunk step (4 slots, 64-token
+# chunk, carried state), a zamba2-1.2b whole-prompt bucket, and a
+# reduced float32 case with two groups and a ragged last chunk
+@pytest.mark.parametrize("dtype,b,S,H,G,N,chunk,init", [
+    (torch.bfloat16, 4, 64, 80, 1, 128, 64, True),
+    (torch.bfloat16, 2, 512, 64, 1, 64, 256, False),
+    (torch.float32, 2, 72, 8, 2, 16, 32, True),
+])
+def test_ssd_kernel_matches_plain(dev, dtype, b, S, H, G, N, chunk, init):
+    x, dt, a_log, B, C, d_skip, st = _ssd_inputs(dev, dtype, b, S, H, G, N,
+                                                 init)
+    n0 = ss.SSD_KERNEL.launches
+    y, fs = ss.ssd_scan(x, dt, a_log, B, C, d_skip, chunk, st)
+    y_ref, fs_ref = ss.ssd_plain(x, dt, a_log, B, C, d_skip, chunk, st)
+    torch.cuda.synchronize()
+    assert ss.SSD_KERNEL.launches == n0 + 1
+    assert y.dtype == dtype and fs.dtype == torch.float32
+    for out, ref in ((y, y_ref), (fs, fs_ref)):
+        out, ref = out.float(), ref.float()
+        assert torch.isfinite(out).all()
+        scale = ref.abs().max().item()
+        err = (out - ref).abs().max().item()
+        assert err <= TOL[dtype] * scale, (err, scale)
+
+
+def test_ssd_kernel_refuses_bad_operands(dev):
+    x, dt, a_log, B, C, d_skip, st = _ssd_inputs(dev, torch.float32, 1, 32,
+                                                 4, 1, 16, True)
+    n0 = ss.SSD_KERNEL.launches
+    with pytest.raises(TypeError):                 # x and B dtypes differ
+        ss.ssd_scan(x, dt, a_log, B.bfloat16(), C, d_skip, 32)
+    with pytest.raises(TypeError):                 # a bf16 state
+        ss.ssd_scan(x, dt, a_log, B, C, d_skip, 32, st.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        ss.ssd_scan(x.transpose(1, 2).contiguous().transpose(1, 2), dt,
+                    a_log, B, C, d_skip, 32)
+    with pytest.raises(ValueError):                # chunk past the kernel's
+        ss.ssd_scan(x, dt, a_log, B, C, d_skip, 512)
+    assert ss.SSD_KERNEL.launches == n0
