@@ -3,28 +3,36 @@
 
   python3 chip_smoke.py
 
-1. builds the four Hopper kernels (three attention kernels and the
-   Mamba2 SSD scan) from ``src/repro_torch/kernels/csrc`` (one nvcc per
-   source, in parallel);
+1. builds the five Hopper kernels (three attention kernels, the Mamba2
+   SSD scan and the int8 decode attention of the W8/KV8 path) from
+   ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel);
 2. holds each kernel against its plain PyTorch version at the serving
    path's shapes — full-width qwen2-7b (bf16, head_dim 128) and the
-   reduced CPU-test model (f32, head_dim 64) for attention; the
-   mamba2-2.7b chunk step, a zamba2-1.2b whole-prompt bucket and a
-   reduced ragged f32 case for the SSD scan — and times the kernel,
-   the plain version, one PyTorch library call over the same work
-   where one exists (scaled_dot_product_attention on gathered K/V, a
-   yardstick only; none computes SSD) and the card's bound for the
-   work;
+   reduced CPU-test model (f32, head_dim 64) for attention, the int8
+   decode through both of its addressings (paged pool and dense cache
+   layer); the mamba2-2.7b chunk step, a zamba2-1.2b whole-prompt bucket
+   and a reduced ragged f32 case for the SSD scan — and times the
+   kernel, the plain version, one PyTorch library call over the same
+   work where one exists (scaled_dot_product_attention on gathered,
+   dequantized K/V, a yardstick only; none computes SSD) and the card's
+   bound for the work;
 3. checks the serving steps on the card against the same steps on the
    CPU (plain versions) on the reduced models (qwen2-7b; the SSM
-   chunk, prefill and decode steps of mamba2-2.7b and zamba2-1.2b), and
-   that both devices serve a small qwen2 trace to the same report;
+   chunk, prefill and decode steps of mamba2-2.7b and zamba2-1.2b; the
+   W8/KV8 prefill and decode of qwen2-7b), and that both devices serve a
+   small qwen2 trace to the same report;
 4. serves two colocated full-width qwen2-7b (random bf16 weights) with
    the fused chunked-prefill ADBS loop under the logical clock, then
    one with whole-prompt prefill; then the JAX CLI's default pair,
    full-width qwen2-7b + mamba2-2.7b (chunked, ADBS, serial: no
    fusable pair), and full-width zamba2-1.2b with whole-prompt prefill,
-   counting kernel launches in each.
+   counting kernel launches in each;
+5. runs the W8/KV8 decode of full-width qwen2-7b: the weights quantized
+   to int8 on the card, 8 prompts of 512 tokens prefilled, then 32
+   decode steps with int8 weights and an int8 KV cache in lockstep with
+   the bf16 decode and with a W8-only control (the int8 weights
+   dequantized, bf16 cache), held at every step to the reference test's
+   logit bound against bf16 and to its greedy rule against the control.
 
 Any failed phase raises and the script exits non-zero.  The last two
 lines of standard output are the card (name, power limit) and a JSON
@@ -215,6 +223,110 @@ def check_kernels(torch, np, shape: dict) -> dict:
                                  f"version at {shape['label']}: "
                                  f"{r['max_abs_err']} > {TOL[dname]}")
         r["tolerance"] = TOL[dname]
+    torch.cuda.synchronize()
+    return res
+
+
+def check_int8(torch, np, shape: dict) -> dict:
+    """Hold the int8 decode kernel against its plain version at one set
+    of shapes, through both of its addressings: the paged pool (the
+    Pallas kernel's) over rows of 16 .. 16*W-16 cached tokens, and one
+    layer of a dense [L, B, S, KV, hd] cache read in place, first with
+    the same rows' tokens (S = 16*W: the two addressings read the same
+    data), then at the W8/KV8 decode's own shape (S = 544).  Returns
+    per-addressing numbers."""
+    from repro_torch.kernels import paged_attention_int8 as pi8
+    from repro_torch.paging import resolve_physical_blocks
+    F = torch.nn.functional
+
+    dt = shape["dtype"]
+    dname = str(dt).replace("torch.", "")
+    es = torch.empty((), dtype=dt).element_size()
+    H, KV, hd, L = shape["H"], shape["KV"], shape["hd"], shape["layers"]
+    G = H // KV
+    rows, W = shape["rows"], shape["max_blocks"]
+    rng = np.random.default_rng(0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def int8_cache(*s):
+        q = torch.randint(-127, 128, s, generator=gen, device="cuda",
+                          dtype=torch.int8)
+        return q, torch.rand(s[:-1], generator=gen, device="cuda") * 0.05 + 1e-3
+
+    gsz = L * KV
+    n_groups = rows * W
+    pk, psk = int8_cache(n_groups * gsz, 16, hd)
+    pv, psv = int8_cache(n_groups * gsz, 16, hd)
+    lens = rng.integers(16, 16 * W - 16, rows).astype(np.int32)
+    table = _random_tables(np, rng, rows, W, n_groups, gsz, -(-lens // 16))
+    phys = resolve_physical_blocks(torch.from_numpy(table).cuda(), L - 1, KV)
+    seq = torch.from_numpy(lens).cuda()
+    q = torch.randn((rows, H, hd), generator=gen, device="cuda").to(dt)
+    # the dense layout of the same rows: layer 1 of a 3-layer cache
+    idx = phys.long()
+
+    def dense_of(pool):
+        x = pool[idx].reshape(rows, KV, W * 16, *pool.shape[2:])
+        return x.transpose(1, 2).contiguous()
+    dense = [torch.stack([torch.zeros_like(d), d, torch.zeros_like(d)])
+             for d in (dense_of(pk), dense_of(pv), dense_of(psk),
+                       dense_of(psv))]
+    S2, lo = 544, 513           # the W8/KV8 phase: 512 + 32 tokens
+    d2 = [int8_cache(3, rows, S2, KV, hd) for _ in range(2)]
+    seq2 = torch.from_numpy(rng.integers(lo, S2 + 1, rows)
+                            .astype(np.int32)).cuda()
+    def dense_case(ck, cv, sk, sv, lens_t):
+        args = (q, ck, cv, sk, sv, lens_t)
+        return (lambda: pi8.dense_decode_attention_int8(*args),
+                lambda: pi8.dense_int8_plain(*args),
+                lambda: tuple((c.float() * sc[..., None]).transpose(1, 2)
+                              for c, sc in ((ck, sk), (cv, sv))),
+                lens_t, ck.shape[1])
+    cases = {
+        "paged": (lambda: pi8.fused_paged_decode_attention_int8(
+                      q, pk, pv, psk, psv, phys, seq),
+                  lambda: pi8.paged_int8_plain(q, pk, pv, psk, psv, phys,
+                                               seq),
+                  lambda: (pk[idx].float() * psk[idx][..., None],
+                           pv[idx].float() * psv[idx][..., None]), seq, W * 16),
+        "dense": dense_case(*(d[1] for d in dense), seq),
+        "dense_w8kv8_step": dense_case(d2[0][0][1], d2[1][0][1], d2[0][1][1],
+                                       d2[1][1][1], seq2),
+    }
+    res = {}
+    outs = {}
+    for name, (kern, plain, deq, lens_t, T) in cases.items():
+        out = outs[name] = kern()
+        ref = plain()
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = TOL[dname] * ref.float().abs().max().item()
+        if not err <= tol:
+            raise AssertionError(f"int8 decode kernel ({name}) disagrees with "
+                                 f"its plain version at {shape['label']}: "
+                                 f"{err} > {tol}")
+        # library yardstick: SDPA over K/V dequantized and gathered
+        # beforehand (only the call is timed)
+        kd, vd = (x.reshape(rows, KV, T, hd).to(dt).repeat_interleave(G, 1)
+                  for x in deq())
+        mask = (torch.arange(T, device="cuda")[None, :]
+                < lens_t[:, None])[:, None, None, :]
+        q4 = q[:, :, None, :]
+        tok = int(lens_t.sum().item())
+        # bytes: the int8 K/V and their f32 scales of the cached tokens,
+        # q and the output once (and the table for the paged pool)
+        n_bytes = (2 * rows * H * hd * es + 2 * tok * KV * (hd + 4)
+                   + (phys.numel() * 4 if name == "paged" else 0) + rows * 4)
+        b, why = bound_ms(n_bytes, 4 * tok * H * hd, dname)
+        res[name] = dict(
+            max_abs_err=err, tolerance=tol, tolerance_rel=TOL[dname],
+            ms=time_ms(torch, kern), plain_ms=time_ms(torch, plain),
+            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q4, kd, vd, attn_mask=mask)),
+            bound_ms=b, bound_by=why, bytes=n_bytes,
+            cached_tokens=[int(lens_t.min()), int(lens_t.max())])
+        del kd, vd
+    res["dense"]["max_abs_diff_vs_paged"] = (
+        outs["dense"].float() - outs["paged"].float()).abs().max().item()
     torch.cuda.synchronize()
     return res
 
@@ -415,6 +527,256 @@ def reduced_ssm_steps_match(torch, np) -> str:
             + ", ".join(f"{a} {w:.2e}" for a, w in worst.items()))
 
 
+def _w8kv8_caches(torch, pk, pv, steps: int):
+    """int8 caches [L, B, S + steps, KV, hd] and scales [L, B, S + steps,
+    KV] holding a prefill cache (the reference test's quantization,
+    ``tests/test_quantize.py``), plus float caches of the same length
+    for the float decode."""
+    from repro_torch.serving.quantize import quantize_kv
+    L, B, S, KV, hd = pk.shape
+    out = []
+    for p in (pk, pv):
+        q, s = quantize_kv(p)
+        c = torch.zeros((L, B, S + steps, KV, hd), dtype=torch.int8,
+                        device=p.device)
+        sc = torch.zeros((L, B, S + steps, KV), device=p.device)
+        c[:, :, :S], sc[:, :, :S] = q, s
+        out.append((c, sc))
+    (ck, sk), (cv, sv) = out
+    fk = torch.zeros((L, B, S + steps, KV, hd), dtype=pk.dtype,
+                     device=pk.device)
+    fv = torch.zeros_like(fk)
+    fk[:, :, :S], fv[:, :, :S] = pk, pv
+    return (ck, cv, sk, sv), (fk, fv)
+
+
+def _greedy_flips(logits_q, logits_ref):
+    """Rows whose greedy token differs, in two counts: all of them, and
+    those beyond the reference test's near-tie (``tests/test_quantize.py``:
+    the reference's gap to the chosen token above 1 % of its logit
+    spread)."""
+    aq = logits_q.argmax(-1)
+    flip = aq != logits_ref.argmax(-1)
+    gap = logits_ref.max(-1).values - logits_ref.gather(
+        -1, aq[:, None])[:, 0]
+    spread = logits_ref.max(-1).values - logits_ref.min(-1).values
+    return int(flip.sum()), int((flip & (gap > 0.01 * spread)).sum())
+
+
+def _near_tie_ok(logits_q, logits_ref) -> bool:
+    """The reference test's greedy rule: same argmax, or a near-tie."""
+    return _greedy_flips(logits_q, logits_ref)[1] == 0
+
+
+def reduced_w8kv8_match(torch, np) -> str:
+    """The W8/KV8 path on the card (flash-prefill and int8 decode
+    kernels) against the same path on the CPU (plain versions): reduced
+    qwen2-7b, f32 weights drawn on the CPU and quantized on each device,
+    the same prompts, 3 decode steps fed the CPU run's greedy token.
+    Tolerances: the f32 prefill 1e-3 (as the other reduced steps); the
+    W8/KV8 step runs bf16 products, which cuBLAS and the CPU round at
+    different places, so logits within 2e-2 of the CPU's largest
+    |logit|, scales within 2e-2 relative, int8 cache entries at most 2
+    steps apart (as between the two packages on the CPU,
+    ``tests/test_torch_steps.py``: rounding, plus a step where the bf16
+    K/V differ by about 1 % of the row's largest value), greedy tokens
+    equal except on near-ties."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving.engine import tree_map
+    from repro_torch.serving.quantize import quantize_params
+
+    cfg = configs.get_reduced("qwen2-7b")
+    params = init_params(cfg, torch.Generator().manual_seed(11),
+                         torch.float32, "cpu")
+    rng = np.random.default_rng(12)
+    B, S, n = 4, 40, 3
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)))
+    lens = torch.tensor([40, 33, 17, 8], dtype=torch.int32)
+    prefill = steps.make_prefill_step(cfg)
+    decode = steps.make_decode_step_w8kv8(cfg)
+    runs = {}
+    nxt_cpu = []
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda a: a.to(dev), params)
+        qp = quantize_params(p)
+        ops.reset_launch_counts()
+        out = prefill(p, toks.to(dev), lens.to(dev))
+        caches, _ = _w8kv8_caches(torch, out["cache_k"], out["cache_v"], n)
+        logits = [out["logits"]]
+        for t in range(n):
+            if dev == "cpu":
+                nxt_cpu.append(logits[-1].argmax(-1))
+            o = decode(qp, *caches, nxt_cpu[t].to(dev), (lens + t + 1).to(dev))
+            logits.append(o["logits"])
+        runs[dev] = dict(prefill=[out[k].cpu() for k in
+                                  ("logits", "cache_k", "cache_v")],
+                         logits=[x.float().cpu() for x in logits[1:]],
+                         caches=[c.cpu() for c in caches],
+                         launches=ops.launch_counts())
+    c, g = runs["cpu"], runs["cuda"]
+    worst_prefill = max((a - b).abs().max().item()
+                        for a, b in zip(c["prefill"], g["prefill"]))
+    worst_logit = max(((a - b).abs().max() / a.abs().max()).item()
+                      for a, b in zip(c["logits"], g["logits"]))
+    worst_int8 = max((a.int() - b.int()).abs().max().item()
+                     for a, b in zip(c["caches"][:2], g["caches"][:2]))
+    worst_scale = max(((a - b).abs().max() / a.abs().max()).item()
+                      for a, b in zip(c["caches"][2:], g["caches"][2:]))
+    ties = all(_near_tie_ok(b, a) for a, b in zip(c["logits"], g["logits"]))
+    want = {"repro_flash_prefill": cfg.n_layers,
+            "repro_decode_int8": cfg.n_layers * n}
+    got = {k: g["launches"][k] for k in want}
+    if not (worst_prefill <= 1e-3 and worst_logit <= 2e-2 and worst_int8 <= 2
+            and worst_scale <= 2e-2 and ties and got == want):
+        raise AssertionError(
+            f"reduced W8/KV8 card vs CPU: prefill {worst_prefill}, logits "
+            f"{worst_logit}, int8 {worst_int8}, scales {worst_scale}, greedy "
+            f"{ties}, launches {got} (want {want})")
+    return (f"reduced W8/KV8 card-vs-CPU: prefill max|Δ|={worst_prefill:.2e}, "
+            f"decode logits max|Δ|/max|logit|={worst_logit:.2e}, int8 cache "
+            f"max|Δ|={worst_int8}, scales rel {worst_scale:.2e}, greedy tokens "
+            f"equal except near-ties; kernel launches {got}")
+
+
+def _dequantized_tree(torch, qparams):
+    """The int8 tree's weights dequantized to bf16 as ``QLayerView``
+    does (q and s each cast to bf16, then multiplied), as a plain tree
+    for ``make_decode_step``: the W8 control."""
+    def walk(d):
+        out = {}
+        for k, v in d.items():
+            if isinstance(v, dict):
+                out[k] = walk(v)
+            elif k.endswith("_q"):
+                out[k[:-2]] = (v.to(torch.bfloat16)
+                               * d[k[:-2] + "_s"].to(torch.bfloat16))
+            elif not (k.endswith("_s") and k[:-2] + "_q" in d):
+                out[k] = v
+        return out
+    return walk(qparams)
+
+
+def w8kv8_full_width(torch, np, rows: int = 8, prompt: int = 512,
+                     n_steps: int = 32) -> dict:
+    """Full-width qwen2-7b W8/KV8 decode: a random bf16 tree from a
+    seeded generator, quantized on the card; ``rows`` prompts of
+    ``prompt`` tokens prefilled through the flash-prefill kernel; then
+    ``n_steps`` decode steps of ``make_decode_step_w8kv8`` (every layer's
+    attention through the int8 decode kernel) in lockstep with the bf16
+    ``make_decode_step``, both fed the bf16 path's greedy token, and
+    with a control: ``make_decode_step`` on the int8 weights dequantized
+    to bf16 and the bf16 KV cache (W8 only: no int8 cache, no int8
+    decode kernel).  Every step must meet: every logit finite; the
+    reference test's max |Δlogit| / max |logit_bf16| < 0.1; and the
+    reference test's greedy rule (same token, or the other's gap to it
+    within 1 % of the logit spread) between the W8/KV8 step and the W8
+    control — what the int8 cache and its kernel add.  Between the
+    W8/KV8 and the bf16 step that rule does not hold at this vocabulary:
+    it was set on 512 tokens, and over 152,064 random logits the int8
+    weights alone flip rows beyond it; the flips against bf16, of both
+    the W8/KV8 step and the W8 control, are counted and reported."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving.engine import tree_bytes
+    from repro_torch.serving.quantize import quantize_params
+
+    cfg = configs.get("qwen2-7b")
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(7),
+                         torch.bfloat16, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qparams = quantize_params(params)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    rng = np.random.default_rng(7)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (rows, prompt))
+                            ).cuda()
+    lens = torch.full((rows,), prompt, dtype=torch.int32, device="cuda")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = steps.make_prefill_step(cfg)(params, toks, lens)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    caches, (fk, fv) = _w8kv8_caches(torch, out["cache_k"], out["cache_v"],
+                                     n_steps)
+    wk, wv = fk.clone(), fv.clone()
+    w8params = _dequantized_tree(torch, qparams)
+    logits_f = out["logits"]
+    del out
+    dec_q = steps.make_decode_step_w8kv8(cfg)
+    dec_f = steps.make_decode_step(cfg)
+    wall = {"w8kv8": 0.0, "bf16": 0.0}
+    worst, rms, worst_kv = 0.0, 0.0, 0.0
+    flips = {"w8kv8_vs_bf16": [0, 0], "w8_control_vs_bf16": [0, 0],
+             "w8kv8_vs_w8_control": [0, 0]}
+    for t in range(n_steps):
+        nxt = logits_f.argmax(-1)
+        lens_t = lens + t + 1
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lq = dec_q(qparams, *caches, nxt, lens_t)["logits"]
+        torch.cuda.synchronize()
+        wall["w8kv8"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        logits_f = dec_f(params, fk, fv, nxt, lens_t)["logits"]
+        torch.cuda.synchronize()
+        wall["bf16"] += time.perf_counter() - t0
+        lw = dec_f(w8params, wk, wv, nxt, lens_t)["logits"]
+        lq, lf, lw = lq.float(), logits_f.float(), lw.float()
+        if not all(bool(torch.isfinite(x).all()) for x in (lq, lf, lw)):
+            raise AssertionError(f"W8/KV8 step {t}: non-finite logits")
+        rel = ((lq - lf).abs().max() / lf.abs().max()).item()
+        worst = max(worst, rel)
+        rms = max(rms, ((lq - lf).pow(2).mean().sqrt()
+                        / lf.pow(2).mean().sqrt()).item())
+        worst_kv = max(worst_kv,
+                       ((lq - lw).abs().max() / lw.abs().max()).item())
+        if not rel < 0.1:
+            raise AssertionError(f"W8/KV8 step {t}: rel logit err {rel}")
+        for key, (a, b) in (("w8kv8_vs_bf16", (lq, lf)),
+                            ("w8_control_vs_bf16", (lw, lf)),
+                            ("w8kv8_vs_w8_control", (lq, lw))):
+            flips[key] = [x + y for x, y in zip(flips[key],
+                                                _greedy_flips(a, b))]
+        if flips["w8kv8_vs_w8_control"][1]:
+            raise AssertionError(
+                f"W8/KV8 step {t}: greedy tokens differ from the W8 "
+                f"control beyond a near-tie")
+    launches = ops.launch_counts()
+    if launches["repro_decode_int8"] != cfg.n_layers * n_steps:
+        raise AssertionError(f"int8 decode kernel launched "
+                             f"{launches['repro_decode_int8']} times, not "
+                             f"{cfg.n_layers} x {n_steps}")
+    if launches["repro_flash_prefill"] != cfg.n_layers:
+        raise AssertionError("the prefill did not run the flash-prefill "
+                             "kernel once per layer")
+    res = dict(
+        rows=rows, prompt_tokens=prompt, decode_steps=n_steps,
+        bf16_tree_gb=tree_bytes(params) / 1e9,
+        int8_tree_gb=tree_bytes(qparams) / 1e9,
+        int8_cache_gb=sum(c.numel() * c.element_size() for c in caches) / 1e9,
+        bf16_cache_gb=2 * fk.numel() * fk.element_size() / 1e9,
+        quantize_s=quant_s, prefill_s=prefill_s,
+        max_rel_logit_err=worst, max_rel_rms_logit_err=rms,
+        max_rel_logit_err_vs_w8_control=worst_kv,
+        greedy_flips={k: dict(all=v[0], beyond_1pct_spread=v[1])
+                      for k, v in flips.items()},
+        decode_wall_s=wall,
+        decode_tok_s={k: rows * n_steps / v for k, v in wall.items()},
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+        launches=launches)
+    del params, qparams, w8params, caches, fk, fv, wk, wv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 def serve_full_width(torch, archs, chunk_tokens: int, n_target: int,
                      seed: int, must_launch, alpha: float = 2.1,
                      pool_blocks: int = 16384) -> dict:
@@ -535,9 +897,14 @@ def main() -> int:
     ssd = {s["label"]: check_ssd(torch, s) for s in ssd_shapes}
     for label, r in ssd.items():
         print(f"check [{label}] ssd_scan: " + json.dumps(r))
+    int8 = {s["label"]: check_int8(torch, np, s) for s in (full, small)}
+    for label, res in int8.items():
+        for name, r in res.items():
+            print(f"check [{label}] int8 decode, {name}: " + json.dumps(r))
 
     print(reduced_steps_match(torch, np))
     print(reduced_ssm_steps_match(torch, np))
+    print(reduced_w8kv8_match(torch, np))
 
     qwen = "qwen2-7b"
     phases = [
@@ -579,8 +946,21 @@ def main() -> int:
     print("every served step had finite logits (engine.greedy_tokens "
           "raises otherwise); every request finished; pools freed")
 
-    launches = {k.symbol: sum(r["launches"][k.symbol]
-                              for r in served.values())
+    w8 = w8kv8_full_width(torch, np)
+    print("W8/KV8 decode, qwen2-7b full width: " + json.dumps(w8))
+    fl = w8["greedy_flips"]
+    print(f"W8/KV8 decode, all {w8['decode_steps']} steps: max rel logit "
+          f"err vs bf16 {w8['max_rel_logit_err']:.4f} < 0.1; greedy tokens "
+          f"equal to the W8 control's except on near-ties "
+          f"({fl['w8kv8_vs_w8_control']['all']} flips of "
+          f"{w8['rows'] * w8['decode_steps']}); against bf16 "
+          f"{fl['w8kv8_vs_bf16']['all']} flips, "
+          f"{fl['w8kv8_vs_bf16']['beyond_1pct_spread']} beyond 1 % of the "
+          f"spread (the W8 control alone: {fl['w8_control_vs_bf16']['all']}"
+          f", {fl['w8_control_vs_bf16']['beyond_1pct_spread']})")
+
+    runs = list(served.values()) + [w8]
+    launches = {k.symbol: sum(r["launches"][k.symbol] for r in runs)
                 for k in ops.path_kernels()}
     attn_names = {"repro_paged_decode": ("fused_paged_decode_attention",
                                          "decode"),
@@ -600,6 +980,20 @@ def main() -> int:
                 "shapes": main_shape["label"],
                 "other_shapes": [{"shapes": o["label"], **ssd[o["label"]]}
                                  for o in others]})
+            continue
+        if k.symbol == "repro_decode_int8":
+            # the main path's shape (one dense cache layer of the W8/KV8
+            # decode) first; kernel 1's paged shapes beside it
+            r = int8[full["label"]]
+            main_r = r["dense_w8kv8_step"]
+            rows.append({
+                "name": "paged_decode_attention_int8", **base, **main_r,
+                "kernel_ms": main_r["ms"],
+                "shapes": full["label"] + ", dense cache layer of the "
+                "W8/KV8 decode (S 544)",
+                "paged": r["paged"], "dense": r["dense"],
+                "reduced": {"shapes": small["label"],
+                            **int8[small["label"]]}})
             continue
         name, key = attn_names[k.symbol]
         r = checks[full["label"]][key]

@@ -1,8 +1,9 @@
 """Architecture configs the port serves (copy of ``repro.configs``).
 
 The port serves the dense ``qwen2-7b``, the SSM ``mamba2-2.7b`` and the
-hybrid ``zamba2-1.2b``; the other architectures of ``repro.configs``
-arrive with their model families.
+hybrid ``zamba2-1.2b``; the dense ``qwen3-14b`` (QK-norm) runs the
+serve steps of ``launch/steps.py``.  The other architectures of
+``repro.configs`` arrive with their model families.
 ``get(name)`` / ``get_reduced(name)`` resolve the dashed id.
 """
 from __future__ import annotations
@@ -14,6 +15,7 @@ from repro_torch.config import ModelConfig
 # canonical dashed ids → module names (only families the port serves)
 ALIASES = {
     "qwen2-7b": "qwen2_7b",
+    "qwen3-14b": "qwen3_14b",
     "mamba2-2.7b": "mamba2_2p7b",
     "zamba2-1.2b": "zamba2_1p2b",
 }

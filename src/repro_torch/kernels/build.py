@@ -28,9 +28,10 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 SOURCES = ("paged_decode.cu", "paged_prefill.cu", "flash_prefill.cu",
-           "ssd_scan.cu")
+           "ssd_scan.cu", "paged_decode_int8.cu")
 
-_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_longlong,
+           "f": ctypes.c_float}
 
 
 def _nvcc() -> str:
@@ -98,7 +99,7 @@ class CudaKernel:
     """One C entry point of a kernel library, with its launch count.
 
     ``signature`` spells the argument types before the trailing stream
-    (``p`` pointer, ``i`` int, ``f`` float).  Calling launches on the
+    (``p`` pointer, ``i`` int, ``l`` 64-bit int, ``f`` float).  Calling launches on the
     current stream of ``device``, raises if the launch was refused
     (the C function returns ``cudaGetLastError()``), and counts one
     launch — the only place a kernel's count moves."""

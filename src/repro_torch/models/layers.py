@@ -40,7 +40,12 @@ def _per_model(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` with ``w`` of shape ``[d_in, d_out]`` or ``[M, d_in,
-    d_out]`` (then ``x`` is ``[M, ..., d_in]``)."""
+    d_out]`` (then ``x`` is ``[M, ..., d_in]``).  Operands of two
+    float types meet in the wider one, as ``jnp.matmul`` promotes them
+    (the W8/KV8 step multiplies f32 activations by bf16 weights)."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
     if w.dim() == 2:
         return x @ w
     m, d_in, d_out = w.shape

@@ -70,11 +70,16 @@ def params_to_torch(tree, device="cuda", dtype=torch.float32,
     same layout — ``[L, d_in, d_out]`` applied as ``x @ w``, a leading
     ``[M, ...]`` axis where stacked — no transposes.  Leaves go to
     ``dtype``, except the Mamba2 leaves the JAX package keeps in
-    float32 (``FLOAT32_LEAVES``), which stay float32."""
+    float32 (``FLOAT32_LEAVES``), which stay float32, and the leaves of
+    a quantized tree (``serving.quantize.quantize_params``): int8
+    values ``*_q`` stay int8 and their scales ``*_s`` float32."""
     device = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_to_torch(v, device, dtype, k)
                 for k, v in tree.items()}
-    to = torch.float32 if _key in FLOAT32_LEAVES else dtype
+    if _key.endswith("_q"):
+        return torch.from_numpy(np.array(tree, np.int8)).to(device)
+    to = torch.float32 if (_key in FLOAT32_LEAVES
+                           or _key.endswith("_s")) else dtype
     return torch.from_numpy(np.array(tree, np.float32)).to(
         device=device, dtype=to)

@@ -1,4 +1,4 @@
-"""Shared paged-KV index arithmetic and the plain decode attention
+"""Shared paged-KV index arithmetic and the plain decode attentions
 (port of ``repro/paging.py``).
 
 Physical head-block id for (token-block base b, layer l, kv head h) of
@@ -6,7 +6,9 @@ a model with KV kv-heads: ``b + l*KV + h`` (groups are contiguous —
 see serving/kvcache.py).  The plain decode attention here is the CPU
 path and the reference of the CUDA decode kernel; its single-model
 view (a table instead of resolved ids) is
-``kernels/paged_attention.paged_decode_attention``.
+``kernels/paged_attention.paged_decode_attention``.  The dense-cache
+decode attention is the serve steps' float decode (``launch/steps.py``)
+and, over dequantized int8, the plain version of the int8 decode kernel.
 """
 from __future__ import annotations
 
@@ -58,3 +60,20 @@ def fused_paged_decode_attention(q, pool_k, pool_v, phys, seq_lens):
     out = torch.einsum("bkgt,bktd->bkgd", probs, v)
     return out.reshape(B, H, hd)
 
+
+
+def dense_decode_attention(q, k, v, lens):
+    """Decode attention over one dense cache layer, in f32 (plain).
+
+    q: [B, H, hd]; k/v: [B, S, KV, hd] (any float type); lens: [B]
+    (length including the current token).  Returns [B, H, hd] in q's
+    type: the JAX package's ``launch/steps._decode_attend_dense`` (its
+    chunking only bounds XLA's temporaries)."""
+    B, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    qh = q.float().reshape(B, KV, H // KV, hd)
+    s = torch.einsum("bkgd,bskd->bkgs", qh, k.float()) / math.sqrt(hd)
+    t = torch.arange(S, device=q.device)
+    s = torch.where(t < lens.reshape(B, 1, 1, 1), s, -1e30)
+    o = torch.einsum("bkgs,bskd->bkgd", torch.softmax(s, dim=-1), v.float())
+    return o.reshape(B, H, hd).to(q.dtype)

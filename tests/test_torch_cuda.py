@@ -8,7 +8,8 @@ Tolerances: float32 runs with TF32 off, so kernel and plain differ only
 in summation order and in the plain version's softmax rounding (1e-4);
 bfloat16 differs in where the two round (the plain version casts
 probabilities to bf16 before P·V, the kernel keeps them in f32): 2e-2.
-The SSD scan's output sums up to a chunk's worth of terms, so its
+The SSD scan's output sums up to a chunk's worth of terms, and the int8
+decode kernel's output scales with the cache's scales, so their
 tolerance is relative to the plain output's largest magnitude (the same
 1e-4 and 2e-2).
 """
@@ -19,6 +20,7 @@ import torch
 from repro_torch.kernels import flash_prefill as fp
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pa
+from repro_torch.kernels import paged_attention_int8 as pi8
 from repro_torch.kernels import ssd_scan as ss
 from repro_torch.paging import resolve_physical_blocks
 
@@ -192,3 +194,94 @@ def test_ssd_kernel_refuses_bad_operands(dev):
     with pytest.raises(ValueError):                # chunk past the kernel's
         ss.ssd_scan(x, dt, a_log, B, C, d_skip, 512)
     assert ss.SSD_KERNEL.launches == n0
+
+
+def _int8_cache(dev, shape, seed):
+    """An int8 cache with per-token scales (the last axis quantized)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randint(-127, 128, shape, generator=g, device=dev,
+                      dtype=torch.int8)
+    s = torch.rand(shape[:-1], generator=g, device=dev) * 0.05 + 1e-3
+    return q, s
+
+
+# the chip smoke's shapes: full-width qwen2-7b (bf16, 28/4 heads, hd 128)
+# and the reduced model (f32, 4/2 heads, hd 64); a padded paged row and
+# a row with no cached token
+@pytest.mark.parametrize("dtype,hd,H,n_kv", [
+    (torch.float32, 64, 4, 2),
+    (torch.bfloat16, 128, 28, 4),
+    (torch.bfloat16, 64, 14, 2),
+])
+def test_int8_decode_kernel_matches_plain_paged(dev, dtype, hd, H, n_kv):
+    rng = np.random.default_rng(3)
+    B, max_blocks, layers = 8, 12, 3
+    k8, sk = _int8_cache(dev, (4096, 16, hd), 1)
+    v8, sv = _int8_cache(dev, (4096, 16, hd), 2)
+    table = _tables(rng, B, max_blocks, 4096, layers * n_kv)
+    lens = np.array([int(rng.integers(1, 16 * max(1, (t >= 0).sum()) + 1))
+                     for t in table], np.int32)
+    lens[-1] = 1                                   # a padded row
+    table[-1] = -1
+    lens[-2] = 0                                   # a row with no token
+    q = torch.randn((B, H, hd), device=dev).to(dtype)
+    args = (q, k8, v8, sk, sv, torch.from_numpy(table).to(dev),
+            torch.from_numpy(lens).to(dev), 2)
+    n0 = pi8.DECODE_INT8_KERNEL.launches
+    out = pi8.paged_decode_attention_int8(*args, n_kv=n_kv)
+    phys = resolve_physical_blocks(args[5], 2, n_kv)
+    ref = pi8.paged_int8_plain(q, k8, v8, sk, sv, phys, args[6])
+    torch.cuda.synchronize()
+    assert pi8.DECODE_INT8_KERNEL.launches == n0 + 1
+    assert out.dtype == dtype and torch.isfinite(out.float()).all()
+    assert not out[-2].any() and not ref[-2].any()
+    scale = ref.float().abs().max().item()
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= TOL[dtype] * scale, (err, scale)
+
+
+@pytest.mark.parametrize("dtype,hd,H,KV,S", [
+    (torch.float32, 64, 4, 2, 37),                 # S not a multiple of 16
+    (torch.bfloat16, 128, 28, 4, 544),             # the W8/KV8 smoke phase
+])
+def test_int8_decode_kernel_matches_plain_dense(dev, dtype, hd, H, KV, S):
+    """One layer of a stacked [L, B, S, KV, hd] cache, read in place."""
+    B, L = 8, 3
+    ck, sk = _int8_cache(dev, (L, B, S, KV, hd), 4)
+    cv, sv = _int8_cache(dev, (L, B, S, KV, hd), 5)
+    lens = torch.from_numpy(np.random.default_rng(4).integers(
+        1, S + 1, B).astype(np.int32)).to(dev)
+    lens[0] = S
+    lens[1] = 0                                    # a row with no token
+    q = torch.randn((B, H, hd), device=dev).to(dtype)
+    n0 = pi8.DECODE_INT8_KERNEL.launches
+    out = pi8.dense_decode_attention_int8(q, ck[1], cv[1], sk[1], sv[1], lens)
+    ref = pi8.dense_int8_plain(q, ck[1], cv[1], sk[1], sv[1], lens)
+    torch.cuda.synchronize()
+    assert pi8.DECODE_INT8_KERNEL.launches == n0 + 1
+    assert torch.isfinite(out.float()).all() and not out[1].any()
+    scale = ref.float().abs().max().item()
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= TOL[dtype] * scale, (err, scale)
+
+
+def test_int8_decode_kernel_refuses_bad_operands(dev):
+    q = torch.randn((2, 4, 64), device=dev)
+    ck, sk = _int8_cache(dev, (2, 8, 2, 64), 6)
+    lens = torch.ones(2, dtype=torch.int32, device=dev)
+    n0 = pi8.DECODE_INT8_KERNEL.launches
+    with pytest.raises(TypeError):                 # a float cache
+        pi8.dense_decode_attention_int8(q, ck.float(), ck, sk, sk, lens)
+    with pytest.raises(TypeError):                 # int64 lengths
+        pi8.dense_decode_attention_int8(q, ck, ck, sk, sk, lens.long())
+    with pytest.raises(ValueError):                # head_dim 32
+        pi8.dense_decode_attention_int8(q[..., :32].contiguous(),
+                                        ck[..., :32].contiguous(),
+                                        ck[..., :32].contiguous(), sk, sk,
+                                        lens)
+    with pytest.raises(ValueError):                # a group of 16
+        pi8.dense_decode_attention_int8(torch.randn((2, 32, 64), device=dev),
+                                        ck, ck, sk, sk, lens)
+    with pytest.raises(ValueError):                # mixed devices
+        pi8.dense_decode_attention_int8(q, ck.cpu(), ck, sk, sk, lens)
+    assert pi8.DECODE_INT8_KERNEL.launches == n0
