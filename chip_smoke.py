@@ -5,17 +5,22 @@
 
 1. builds the five Hopper kernels (three attention kernels, the Mamba2
    SSD scan and the int8 decode attention of the W8/KV8 path) from
-   ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel);
+   ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel),
+   and counts the tensor-core instructions (``HGMMA``, from
+   ``cuobjdump -sass``) of each prefill kernel instantiation: every bf16
+   one must have some, the f32 ones (CUDA-core tile) none;
 2. holds each kernel against its plain PyTorch version at the serving
-   path's shapes — full-width qwen2-7b (bf16, head_dim 128) and the
-   reduced CPU-test model (f32, head_dim 64) for attention, the int8
+   path's shapes — full-width qwen2-7b (bf16, head_dim 128), zamba2-1.2b's
+   shared attention (bf16, 32 heads of 64, group 1, a 272-token
+   whole-prompt bucket) and the reduced CPU-test model (f32, head_dim
+   64) for attention, the int8
    decode through both of its addressings (paged pool and dense cache
    layer); the mamba2-2.7b chunk step, a zamba2-1.2b whole-prompt bucket
    and a reduced ragged f32 case for the SSD scan — and times the
    kernel, the plain version, one PyTorch library call over the same
    work where one exists (scaled_dot_product_attention on gathered,
-   dequantized K/V, a yardstick only; none computes SSD) and the card's
-   bound for the work;
+   dequantized K/V, a yardstick only; none computes SSD), the card's
+   bound for the work and the kernel's achieved TFLOP/s;
 3. checks the serving steps on the card against the same steps on the
    CPU (plain versions) on the reduced models (qwen2-7b; the SSM
    chunk, prefill and decode steps of mamba2-2.7b and zamba2-1.2b; the
@@ -43,6 +48,8 @@ from __future__ import annotations
 import gc
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -95,6 +102,40 @@ def bound_ms(n_bytes: float, flops: float, dtype_name: str):
     t_ops = flops / PEAK_FLOPS[dtype_name]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def tensor_core_sass() -> dict:
+    """HGMMA (wgmma) instructions per kernel in the SASS of the two
+    prefill libraries, by demangled name.  Raises unless every bf16
+    instantiation (``tc_attention_kernel``) has some and every float32
+    one (the CUDA-core tile) has none."""
+    from repro_torch.kernels import build
+    tool = Path(build._nvcc()).with_name("cuobjdump")
+    counts = {}
+    for src in ("flash_prefill.cu", "paged_prefill.cu"):
+        sass = subprocess.run([str(tool), "-sass", str(build.library_path(src))],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        fn = None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = m.group(1)
+                counts[fn] = 0
+            elif fn is not None and re.search(r"\bHGMMA\b", line):
+                counts[fn] += 1
+    if shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(counts),
+                               capture_output=True, text=True, check=True,
+                               timeout=60).stdout.splitlines()
+        counts = dict(zip(names, counts.values()))
+    tc = {k: v for k, v in counts.items() if "tc_attention_kernel" in k}
+    f32 = {k: v for k, v in counts.items() if "prefill_kernel" in k}
+    if len(tc) != 4 or min(tc.values()) == 0:
+        raise AssertionError(f"bf16 prefill kernels without HGMMA: {tc}")
+    if len(f32) != 4 or max(f32.values()) != 0:
+        raise AssertionError(f"float32 prefill kernels with HGMMA: {f32}")
+    return {"bf16": tc, "float32": f32}
 
 
 # ---------------------------------------------------------------------------
@@ -153,10 +194,11 @@ def check_kernels(torch, np, shape: dict) -> dict:
             < seq[:, None])[:, None, None, :]
     q4 = q[:, :, None, :]
     tok = int(lens.sum())
+    flops = 4 * tok * H * hd
     b, why = bound_ms(2 * rows * H * hd * es + 2 * tok * KV * hd * es
-                      + phys.numel() * 4 + rows * 4, 4 * tok * H * hd, dname)
+                      + phys.numel() * 4 + rows * 4, flops, dname)
     res["decode"] = dict(
-        max_abs_err=err,
+        max_abs_err=err, flops=flops,
         ms=time_ms(torch, lambda: pa.fused_paged_decode_attention(
             q, pool_k, pool_v, phys, seq)),
         plain_ms=time_ms(torch, lambda: pa.decode_plain(
@@ -186,10 +228,11 @@ def check_kernels(torch, np, shape: dict) -> dict:
     qt = q.transpose(1, 2)
     keys = int((offs + C).sum())
     pairs = int(sum(C * o + C * (C + 1) // 2 for o in offs))
+    flops = 4 * pairs * H * hd
     b, why = bound_ms(2 * q.numel() * es + 2 * keys * KV * hd * es
-                      + phys.numel() * 4 + rows * 4, 4 * pairs * H * hd, dname)
+                      + phys.numel() * 4 + rows * 4, flops, dname)
     res["chunk"] = dict(
-        max_abs_err=err,
+        max_abs_err=err, flops=flops,
         ms=time_ms(torch, lambda: fp.fused_paged_flash_prefill(
             q, pool_k, pool_v, phys, qo)),
         plain_ms=time_ms(torch, lambda: fp.paged_prefill_plain(
@@ -208,10 +251,10 @@ def check_kernels(torch, np, shape: dict) -> dict:
     qt = q.transpose(1, 2)
     kt = k.transpose(1, 2).repeat_interleave(G, 1)
     vt = v.transpose(1, 2).repeat_interleave(G, 1)
-    b, why = bound_ms((2 * q.numel() + 2 * k.numel()) * es,
-                      4 * B * H * hd * S * (S + 1) // 2, dname)
+    flops = 4 * B * H * hd * S * (S + 1) // 2
+    b, why = bound_ms((2 * q.numel() + 2 * k.numel()) * es, flops, dname)
     res["flash"] = dict(
-        max_abs_err=err,
+        max_abs_err=err, flops=flops,
         ms=time_ms(torch, lambda: fp.flash_prefill(q, k, v)),
         plain_ms=time_ms(torch, lambda: fp.flash_prefill_plain(q, k, v)),
         library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
@@ -223,6 +266,7 @@ def check_kernels(torch, np, shape: dict) -> dict:
                                  f"version at {shape['label']}: "
                                  f"{r['max_abs_err']} > {TOL[dname]}")
         r["tolerance"] = TOL[dname]
+        r["tflops"] = r["flops"] / r["ms"] / 1e9
     torch.cuda.synchronize()
     return res
 
@@ -316,10 +360,12 @@ def check_int8(torch, np, shape: dict) -> dict:
         # q and the output once (and the table for the paged pool)
         n_bytes = (2 * rows * H * hd * es + 2 * tok * KV * (hd + 4)
                    + (phys.numel() * 4 if name == "paged" else 0) + rows * 4)
-        b, why = bound_ms(n_bytes, 4 * tok * H * hd, dname)
+        flops = 4 * tok * H * hd
+        b, why = bound_ms(n_bytes, flops, dname)
+        ms = time_ms(torch, kern)
         res[name] = dict(
             max_abs_err=err, tolerance=tol, tolerance_rel=TOL[dname],
-            ms=time_ms(torch, kern), plain_ms=time_ms(torch, plain),
+            ms=ms, tflops=flops / ms / 1e9, plain_ms=time_ms(torch, plain),
             library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
                 q4, kd, vd, attn_mask=mask)),
             bound_ms=b, bound_by=why, bytes=n_bytes,
@@ -379,6 +425,7 @@ def check_ssd(torch, shape: dict) -> dict:
                    x, dt, a_log, B, C, d_skip, Q, st)),
                library_ms=None, bound_ms=bnd, bound_by=why,
                bytes=n_bytes, flops=flops)
+    res["tflops"] = flops / res["ms"] / 1e9
     if not all(e <= t for e, t in zip(errs, tols)):
         raise AssertionError(f"ssd_scan disagrees with its plain version at "
                              f"{shape['label']}: |Δ| {errs} > {tols} "
@@ -873,14 +920,22 @@ def main() -> int:
     took = build.build_all()
     print(f"kernels built in {time.perf_counter() - t0:.1f}s "
           f"(per source: {json.dumps({k: round(v, 1) for k, v in took.items()})})")
+    print("tensor cores (HGMMA instructions in cuobjdump -sass): "
+          + json.dumps(tensor_core_sass()))
 
     full = dict(label="qwen2-7b full width bf16", dtype=torch.bfloat16, H=28,
                 KV=4, hd=128, layers=28, rows=8, max_blocks=64, C=64, S=512,
                 flash_rows=4)
+    # zamba2-1.2b's shared attention block (6 applications, 32 heads of
+    # 64, group 1) at a whole-prompt bucket that is not a multiple of 64
+    zamba = dict(label="zamba2-1.2b shared attention bf16",
+                 dtype=torch.bfloat16, H=32, KV=32, hd=64, layers=6, rows=8,
+                 max_blocks=64, C=64, S=272, flash_rows=2)
     small = dict(label="qwen2-7b reduced f32", dtype=torch.float32, H=4,
                  KV=2, hd=64, layers=2, rows=8, max_blocks=64, C=16, S=64,
                  flash_rows=4)
-    checks = {s["label"]: check_kernels(torch, np, s) for s in (full, small)}
+    checks = {s["label"]: check_kernels(torch, np, s)
+              for s in (full, zamba, small)}
     for label, res in checks.items():
         for name, r in res.items():
             print(f"check [{label}] {name}: " + json.dumps(r))
@@ -1003,8 +1058,10 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "tolerance": r["tolerance"],
             "ms": r["ms"], "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"],
+            "library_ms": r["library_ms"], "tflops": r["tflops"],
             "shapes": full["label"],
+            "other_shapes": [{"shapes": zamba["label"],
+                              **checks[zamba["label"]][key]}],
             "reduced": {"shapes": small["label"], **s}})
     print(json.dumps({"kernels": rows}))
     print(card)

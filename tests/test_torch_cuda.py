@@ -83,19 +83,30 @@ def test_decode_kernel_matches_plain(dev, dtype, hd, H, n_kv):
     assert err <= TOL[dtype], err
 
 
-@pytest.mark.parametrize("dtype,hd,H,n_kv,C", [
-    (torch.float32, 64, 4, 2, 16),
-    (torch.bfloat16, 128, 28, 4, 64),
+# bf16 runs the tensor-core tile (64 query rows, 64-token key tiles of
+# four head-blocks): full-width qwen2-7b (group 7, 448 rows = 7 tiles),
+# zamba2-1.2b's geometry (group 1, hd 64), and a 64-block table with
+# offsets up to 896 so the two-stage K/V ring wraps many times; row 1's
+# offset is never a multiple of 64
+@pytest.mark.parametrize("dtype,hd,H,n_kv,C,max_blocks,max_off", [
+    (torch.float32, 64, 4, 2, 16, 10, None),
+    (torch.bfloat16, 128, 28, 4, 64, 10, None),
+    (torch.bfloat16, 64, 32, 32, 64, 10, None),
+    (torch.bfloat16, 128, 28, 4, 64, 64, 896),
 ])
-def test_chunk_kernel_matches_plain(dev, dtype, hd, H, n_kv, C):
+def test_chunk_kernel_matches_plain(dev, dtype, hd, H, n_kv, C, max_blocks,
+                                    max_off):
     rng = np.random.default_rng(1)
-    B, max_blocks, layers = 6, 10, 2
+    B, layers = 6, 2
     pool_k, pool_v = _pool(4096, hd, dtype, dev, 2)
     table = _tables(rng, B, max_blocks, 4096, layers * n_kv)
     table[-1] = -1                                 # a padded row
     offs = np.array([int(rng.integers(0, 16 * max_blocks - C)) for _ in
                      range(B)], np.int32)
     offs[0], offs[-1] = 0, 0
+    offs[1] = 37
+    if max_off is not None:
+        offs[2] = max_off
     phys = resolve_physical_blocks(torch.from_numpy(table).to(dev), 1, n_kv)
     q = torch.randn((B, C, H, hd), device=dev).to(dtype)
     qo = torch.from_numpy(offs).to(dev)
@@ -107,10 +118,18 @@ def test_chunk_kernel_matches_plain(dev, dtype, hd, H, n_kv, C):
     assert err <= TOL[dtype], err
 
 
+# bf16 runs the tensor-core tile: zamba2-1.2b's whole-prompt buckets
+# (hd 64, 32 heads, S 272 and 416: a ragged last key tile), full-width
+# qwen2-7b at 512 and 1024 tokens, and windows of 32 and 100 (neither a
+# multiple of the 64-token key tile)
 @pytest.mark.parametrize("dtype,hd,S,H,KV,window", [
     (torch.float32, 64, 48, 4, 2, None),
     (torch.bfloat16, 128, 512, 28, 4, None),
     (torch.bfloat16, 128, 100, 8, 2, 32),          # ragged S, window
+    (torch.bfloat16, 64, 272, 32, 32, None),
+    (torch.bfloat16, 64, 416, 32, 32, None),
+    (torch.bfloat16, 128, 1024, 28, 4, None),
+    (torch.bfloat16, 128, 300, 8, 2, 100),
 ])
 def test_flash_kernel_matches_plain(dev, dtype, hd, S, H, KV, window):
     B = 2
@@ -138,6 +157,29 @@ def test_kernels_refuse_bad_operands(dev):
     with pytest.raises(ValueError):
         fp.flash_prefill(q[:, None], q[:, None, :2], q[:, None, :2],
                          window=0)
+    # the bf16 tensor-core path: another head_dim, another dtype, a
+    # non-contiguous or misaligned operand
+    x = torch.randn((1, 64, 4, 128), device=dev).bfloat16()
+    with pytest.raises(ValueError, match="head_dim"):
+        fp.flash_prefill(x[..., :96].contiguous(), x[..., :96].contiguous(),
+                         x[..., :96].contiguous())
+    with pytest.raises(TypeError):
+        fp.flash_prefill(x.half(), x.half(), x.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        fp.flash_prefill(x, x.transpose(1, 2).contiguous().transpose(1, 2), x)
+    with pytest.raises(ValueError, match="aligned"):
+        y = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)[1:]
+        fp.flash_prefill(x, y.view(x.shape), x)
+    xq = torch.randn((1, 4, 8, 128), device=dev).bfloat16()
+    pool = torch.randn((8, 16, 128), device=dev).bfloat16()
+    phys = torch.zeros((1, 2, 1), dtype=torch.int32, device=dev)
+    qo = torch.zeros(1, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        fp.fused_paged_flash_prefill(xq, pool.float(), pool.float(), phys,
+                                     qo)
+    with pytest.raises(ValueError, match="contiguous"):
+        fp.fused_paged_flash_prefill(xq, pool.transpose(0, 1).contiguous()
+                                     .transpose(0, 1), pool, phys, qo)
     assert ops.launch_counts() == counts
 
 
