@@ -1,5 +1,5 @@
 // Shared pieces of the Hopper attention kernels (sm_90a): element
-// conversion, 4/8/16-byte vector loads and stores, warp reductions, the
+// conversion, 4/8/16-byte vector loads, warp reductions, the
 // CUDA-core row-tile online-softmax step of the two prefill kernels'
 // float32 instantiations, and the tensor-core (wgmma + TMA) tile of
 // their bf16 instantiations.
@@ -14,6 +14,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
+
+#include <mutex>
 
 namespace repro {
 
@@ -52,16 +55,6 @@ __device__ __forceinline__ void load_f(const T* p, float (&out)[N]) {
   for (int i = 0; i < N; ++i) out[i] = to_float(e[i]);
 }
 
-template <typename T, int N>
-__device__ __forceinline__ void store_f(T* p, const float (&in)[N]) {
-  using V = typename VecOf<N * sizeof(T)>::type;
-  V v;
-  T* e = reinterpret_cast<T*>(&v);
-#pragma unroll
-  for (int i = 0; i < N; ++i) e[i] = from_float<T>(in[i]);
-  *reinterpret_cast<V*>(p) = v;
-}
-
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(FULL_MASK, x, o));
@@ -92,25 +85,18 @@ template <int HD> struct TileSmem {
   float p[TILE_Q][TILE_K + 1];
 };
 
-// Copy `rows` rows of HD elements into a float tile; row_ptr(i) gives
-// row i's address in device memory or nullptr for a zero row.
-template <typename T, int HD, typename RowPtr>
+// Copy `rows` rows of HD floats into a tile; row_ptr(i) gives row i's
+// address in device memory or nullptr for a zero row.
+template <int HD, typename RowPtr>
 __device__ __forceinline__ void load_tile(float (*dst)[HD + 4], int rows,
                                           RowPtr row_ptr) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int CPR = HD / VEC;  // 16-byte chunks per row
+  constexpr int CPR = HD / 4;  // float4 chunks per row
   for (int i = threadIdx.x; i < rows * CPR; i += TILE_THREADS) {
-    const int r = i / CPR, c = (i % CPR) * VEC;
-    const T* row = row_ptr(r);
-    float tmp[VEC];
-    if (row != nullptr) {
-      load_f<T, VEC>(row + c, tmp);
-    } else {
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) tmp[e] = 0.f;
-    }
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) dst[r][c + e] = tmp[e];
+    const int r = i / CPR, c = (i % CPR) * 4;
+    const float* row = row_ptr(r);
+    *reinterpret_cast<float4*>(&dst[r][c]) =
+        row != nullptr ? *reinterpret_cast<const float4*>(row + c)
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
   }
 }
 
@@ -176,16 +162,15 @@ __device__ __forceinline__ void tile_step(TileSmem<HD>& sm, int r, int tx,
   }
 }
 
-template <typename T, int HD>
-__device__ __forceinline__ void store_row(T* out_row, int tx, float l,
+template <int HD>
+__device__ __forceinline__ void store_row(float* out_row, int tx, float l,
                                           const float (&acc)[HD / 16][4]) {
   const float den = fmaxf(l, 1e-30f);
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    const float o[4] = {acc[kk][0] / den, acc[kk][1] / den, acc[kk][2] / den,
-                        acc[kk][3] / den};
-    store_f<T, 4>(out_row + tx * 4 + 16 * kk, o);
-  }
+  for (int kk = 0; kk < HD / 16; ++kk)
+    *reinterpret_cast<float4*>(out_row + tx * 4 + 16 * kk) =
+        make_float4(acc[kk][0] / den, acc[kk][1] / den, acc[kk][2] / den,
+                    acc[kk][3] / den);
 }
 
 // ---------------------------------------------------------------------------
@@ -432,13 +417,44 @@ __device__ __forceinline__ float ex2(float x) {   // 2^x, flushing to 0
 // exactly the m64k16 A fragment of those keys); returns the factors
 // the rows' earlier output must be scaled by.  The scale is folded into
 // the exponent's FFMA: max is taken over the raw scores (scale > 0).
+//
+// In a tile that crosses a mask edge the product is rounded on its own
+// (__fmul_rn, never contracted), as the row's max was: a masked score
+// then gives exactly 2^0 while its row has seen no valid key (the max is
+// fl(NEG_INF * scale_log2) itself) and 2^-huge = 0 after, as the
+// CUDA-core tile's expf(NEG_INF - NEG_INF) does.  Inside an FFMA the
+// exponent would be that rounding's error instead, up to +-2^71, and
+// ex2 of it +inf (hd 64's scale rounds that way).
+template <bool EXACT>
+__device__ __forceinline__ float exp_score(float s, float scale_log2,
+                                           float mn) {
+  return EXACT ? ex2(__fmul_rn(s, scale_log2) - mn)
+               : ex2(fmaf(s, scale_log2, -mn));
+}
+
+template <bool MASKED>
+__device__ __forceinline__ void exp_tile(float (&s)[32], float scale_log2,
+                                         float mn_a, float mn_b,
+                                         float& sum_a, float& sum_b) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    s[4 * i] = exp_score<MASKED>(s[4 * i], scale_log2, mn_a);
+    s[4 * i + 1] = exp_score<MASKED>(s[4 * i + 1], scale_log2, mn_a);
+    s[4 * i + 2] = exp_score<MASKED>(s[4 * i + 2], scale_log2, mn_b);
+    s[4 * i + 3] = exp_score<MASKED>(s[4 * i + 3], scale_log2, mn_b);
+    sum_a += s[4 * i] + s[4 * i + 1];
+    sum_b += s[4 * i + 2] + s[4 * i + 3];
+  }
+}
+
 template <class Addr>
 __device__ __forceinline__ float2 online_softmax(float (&s)[32],
                                                  uint32_t (&p)[4][4],
                                                  RowState& rs, const Addr& ad,
                                                  int it, int pos_a, int pos_b,
                                                  int cq, float scale_log2) {
-  if (ad.tile_masked(it)) {   // mask only where the tile crosses an edge
+  const bool masked = ad.tile_masked(it);
+  if (masked) {   // mask only where the tile crosses an edge
     const int t0 = ad.key0(it);
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
@@ -460,21 +476,16 @@ __device__ __forceinline__ float2 online_softmax(float (&s)[32],
     mx_a = fmaxf(mx_a, __shfl_xor_sync(FULL_MASK, mx_a, o));
     mx_b = fmaxf(mx_b, __shfl_xor_sync(FULL_MASK, mx_b, o));
   }
-  const float mn_a = fmaxf(rs.m_a, mx_a * scale_log2);
-  const float mn_b = fmaxf(rs.m_b, mx_b * scale_log2);
+  const float mn_a = fmaxf(rs.m_a, __fmul_rn(mx_a, scale_log2));
+  const float mn_b = fmaxf(rs.m_b, __fmul_rn(mx_b, scale_log2));
   const float2 corr = make_float2(ex2(rs.m_a - mn_a), ex2(rs.m_b - mn_b));
   rs.m_a = mn_a;
   rs.m_b = mn_b;
   float sum_a = 0.f, sum_b = 0.f;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    s[4 * i] = ex2(fmaf(s[4 * i], scale_log2, -mn_a));
-    s[4 * i + 1] = ex2(fmaf(s[4 * i + 1], scale_log2, -mn_a));
-    s[4 * i + 2] = ex2(fmaf(s[4 * i + 2], scale_log2, -mn_b));
-    s[4 * i + 3] = ex2(fmaf(s[4 * i + 3], scale_log2, -mn_b));
-    sum_a += s[4 * i] + s[4 * i + 1];
-    sum_b += s[4 * i + 2] + s[4 * i + 3];
-  }
+  if (masked)
+    exp_tile<true>(s, scale_log2, mn_a, mn_b, sum_a, sum_b);
+  else
+    exp_tile<false>(s, scale_log2, mn_a, mn_b, sum_a, sum_b);
   rs.l_a = rs.l_a * corr.x + sum_a;
   rs.l_b = rs.l_b * corr.y + sum_b;
 #pragma unroll
@@ -749,14 +760,70 @@ inline cudaError_t encode_bf16_map(CUtensorMap* map, const void* base,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// The last maps encoded for one operand of one kernel: a launch on the
+// same base and geometry (the paged pool, the same for every layer's
+// chunk sweep) copies a map instead of encoding it.  A map holds only
+// the address and the geometry, so a freed tensor's entry stays right
+// for whatever is allocated there next.  A few entries, replaced in
+// turn.
+class MapCache {
+ public:
+  cudaError_t get(CUtensorMap* map, const void* base, int rank,
+                  const cuuint64_t* dims, const cuuint64_t* strides,
+                  const cuuint32_t* box) {
+    Key key;
+    memset(&key, 0, sizeof(key));
+    key.base = base;
+    key.rank = rank;
+    memcpy(key.dims, dims, rank * sizeof(cuuint64_t));
+    memcpy(key.strides, strides, (rank - 1) * sizeof(cuuint64_t));
+    memcpy(key.box, box, rank * sizeof(cuuint32_t));
+    std::lock_guard<std::mutex> lock(mu_);
+    for (int i = 0; i < N; ++i) {
+      if (used_[i] && memcmp(&keys_[i], &key, sizeof(key)) == 0) {
+        *map = maps_[i];
+        return cudaSuccess;
+      }
+    }
+    const cudaError_t err =
+        encode_bf16_map(map, base, rank, dims, strides, box);
+    if (err != cudaSuccess) return err;
+    memcpy(&keys_[next_], &key, sizeof(key));   // padding included
+    maps_[next_] = *map;
+    used_[next_] = true;
+    next_ = (next_ + 1) % N;
+    return cudaSuccess;
+  }
+
+ private:
+  static constexpr int N = 8;
+  struct Key {
+    const void* base;
+    int rank;
+    cuuint64_t dims[4], strides[3];
+    cuuint32_t box[4];
+  };
+  std::mutex mu_;
+  Key keys_[N];
+  CUtensorMap maps_[N];
+  bool used_[N] = {};
+  int next_ = 0;
+};
+
+// The dynamic shared-memory opt-in is made once per instantiation, as
+// ssd_scan.cu does; every launch after it is the launch alone.
 template <int HD, class Addr>
 cudaError_t launch_tc(dim3 grid, const typename Addr::Params& p,
                       cudaStream_t stream) {
   constexpr int smem = tc_smem_bytes<HD>();
-  const cudaError_t err = cudaFuncSetAttribute(
-      tc_attention_kernel<HD, Addr>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        tc_attention_kernel<HD, Addr>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    attr_set = true;
+  }
   tc_attention_kernel<HD, Addr><<<grid, TC_THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }

@@ -33,16 +33,16 @@
 namespace repro {
 
 // float32: the CUDA-core tile
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(TILE_THREADS)
-flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ out, int S,
+flash_prefill_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ out, int S,
                      int H, int KV, int window, float scale) {
   __shared__ __align__(16) TileSmem<HD> sm;
   const int q0 = blockIdx.x * TILE_Q, h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / KV);
 
-  load_tile<T, HD>(sm.q, TILE_Q, [&](int r) -> const T* {
+  load_tile<HD>(sm.q, TILE_Q, [&](int r) -> const float* {
     const int pos = q0 + r;
     return pos < S ? q + (((size_t)b * S + pos) * H + h) * HD : nullptr;
   });
@@ -61,12 +61,12 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int t0 = k_begin; t0 < k_end; t0 += TILE_K) {
     __syncthreads();  // previous tile fully consumed (and q visible)
-    auto kv_row = [&](const T* base, int i) -> const T* {
+    auto kv_row = [&](const float* base, int i) -> const float* {
       const int t = t0 + i;
       return t < S ? base + (((size_t)b * S + t) * KV + kvh) * HD : nullptr;
     };
-    load_tile<T, HD>(sm.k, TILE_K, [&](int i) { return kv_row(k, i); });
-    load_tile<T, HD>(sm.v, TILE_K, [&](int i) { return kv_row(v, i); });
+    load_tile<HD>(sm.k, TILE_K, [&](int i) { return kv_row(k, i); });
+    load_tile<HD>(sm.v, TILE_K, [&](int i) { return kv_row(v, i); });
     __syncthreads();
     bool keep[4];
 #pragma unroll
@@ -78,7 +78,7 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   if (q_pos < S)
-    store_row<T, HD>(out + (((size_t)b * S + q_pos) * H + h) * HD, tx, l, acc);
+    store_row<HD>(out + (((size_t)b * S + q_pos) * H + h) * HD, tx, l, acc);
 }
 
 template <int HD>
@@ -86,7 +86,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
                        int B, int S, int H, int KV, int window, float scale,
                        cudaStream_t stream) {
   const dim3 grid((S + TILE_Q - 1) / TILE_Q, H, B);
-  flash_prefill_kernel<float, HD><<<grid, TILE_THREADS, 0, stream>>>(
+  flash_prefill_kernel<HD><<<grid, TILE_THREADS, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), S, H, KV,
       window, scale);
@@ -160,9 +160,10 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
   const cuuint64_t strides[3] = {(cuuint64_t)HD * 2, (cuuint64_t)KV * HD * 2,
                                  (cuuint64_t)S * KV * HD * 2};
   const cuuint32_t box[4] = {ATOM, 1, TC_KEYS, 1};
-  cudaError_t err = encode_bf16_map(&p.k_map, k, 4, dims, strides, box);
+  static MapCache k_maps, v_maps;
+  cudaError_t err = k_maps.get(&p.k_map, k, 4, dims, strides, box);
   if (err == cudaSuccess)
-    err = encode_bf16_map(&p.v_map, v, 4, dims, strides, box);
+    err = v_maps.get(&p.v_map, v, 4, dims, strides, box);
   if (err != cudaSuccess) return err;
   p.q = static_cast<const bf16*>(q);
   p.out = static_cast<bf16*>(out);

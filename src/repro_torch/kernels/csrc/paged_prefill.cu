@@ -38,12 +38,15 @@
 namespace repro {
 
 // float32: the CUDA-core tile
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(TILE_THREADS)
-paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
-                     const T* __restrict__ pool_v, const int* __restrict__ phys,
-                     const int* __restrict__ q_offset, T* __restrict__ out,
-                     int C, int H, int n_kv, int max_blocks, float scale) {
+paged_prefill_kernel(const float* __restrict__ q,
+                     const float* __restrict__ pool_k,
+                     const float* __restrict__ pool_v,
+                     const int* __restrict__ phys,
+                     const int* __restrict__ q_offset,
+                     float* __restrict__ out, int C, int H, int n_kv,
+                     int max_blocks, float scale) {
   __shared__ __align__(16) TileSmem<HD> sm;
   const int b = blockIdx.x, h = blockIdx.y;
   const int group = H / n_kv;
@@ -52,13 +55,13 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
   const int off = q_offset[b];
   const int* ph = phys + ((size_t)b * n_kv + h) * max_blocks;
 
-  auto q_row = [&](int r) -> const T* {
+  auto q_row = [&](int r) -> const float* {
     const int rr = r0 + r;
     if (rr >= rows) return nullptr;
     const int c = rr / group, g = rr % group;
     return q + (((size_t)b * C + c) * H + (size_t)h * group + g) * HD;
   };
-  load_tile<T, HD>(sm.q, TILE_Q, q_row);
+  load_tile<HD>(sm.q, TILE_Q, q_row);
 
   const int r = threadIdx.x / 4, tx = threadIdx.x % 4;
   const int q_pos = off + (r0 + r) / group;
@@ -75,10 +78,8 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
   for (int j = 0; j < n_blocks; ++j) {
     const size_t base = (size_t)ph[j] * BLOCK_TOKENS;
     __syncthreads();  // previous tile fully consumed (and q visible)
-    load_tile<T, HD>(sm.k, TILE_K,
-                     [&](int i) -> const T* { return pool_k + (base + i) * HD; });
-    load_tile<T, HD>(sm.v, TILE_K,
-                     [&](int i) -> const T* { return pool_v + (base + i) * HD; });
+    load_tile<HD>(sm.k, TILE_K, [&](int i) { return pool_k + (base + i) * HD; });
+    load_tile<HD>(sm.v, TILE_K, [&](int i) { return pool_v + (base + i) * HD; });
     __syncthreads();
     bool keep[4];
 #pragma unroll
@@ -89,7 +90,7 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
   const int rr = r0 + r;
   if (rr < rows) {
     const int c = rr / group, g = rr % group;
-    store_row<T, HD>(out + (((size_t)b * C + c) * H + (size_t)h * group + g) * HD,
+    store_row<HD>(out + (((size_t)b * C + c) * H + (size_t)h * group + g) * HD,
                      tx, l, acc);
   }
 }
@@ -101,7 +102,7 @@ cudaError_t launch_f32(const void* q, const void* pool_k, const void* pool_v,
                        float scale, cudaStream_t stream) {
   const int rows = C * (H / n_kv);
   const dim3 grid(B, n_kv, (rows + TILE_Q - 1) / TILE_Q);
-  paged_prefill_kernel<float, HD><<<grid, TILE_THREADS, 0, stream>>>(
+  paged_prefill_kernel<HD><<<grid, TILE_THREADS, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(pool_k),
       static_cast<const float*>(pool_v), static_cast<const int*>(phys),
       static_cast<const int*>(q_offset), static_cast<float*>(out), C, H,
@@ -192,9 +193,10 @@ cudaError_t launch_bf16(const void* q, const void* pool_k, const void* pool_v,
   const cuuint64_t dims[2] = {(cuuint64_t)HD, (cuuint64_t)0x7FFFFFF0};
   const cuuint64_t strides[1] = {(cuuint64_t)HD * 2};
   const cuuint32_t box[2] = {ATOM, BLOCK_TOKENS};
-  cudaError_t err = encode_bf16_map(&p.k_map, pool_k, 2, dims, strides, box);
+  static MapCache k_maps, v_maps;
+  cudaError_t err = k_maps.get(&p.k_map, pool_k, 2, dims, strides, box);
   if (err == cudaSuccess)
-    err = encode_bf16_map(&p.v_map, pool_v, 2, dims, strides, box);
+    err = v_maps.get(&p.v_map, pool_v, 2, dims, strides, box);
   if (err != cudaSuccess) return err;
   p.q = static_cast<const bf16*>(q);
   p.out = static_cast<bf16*>(out);

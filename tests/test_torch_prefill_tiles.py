@@ -352,6 +352,24 @@ def test_paged_gather_reads_the_tables_blocks():
     np.testing.assert_array_equal(tiles[1][3 * BT:], pool[phys_row[4]])
 
 
+@pytest.mark.parametrize("hd,fused_overflows", [(64, True), (128, False)])
+def test_masked_exponent_is_exact_before_a_rows_first_valid_key(
+        hd, fused_overflows):
+    """A row whose keys so far are all masked has the max
+    fl(NEG_INF * scale_log2).  In a masked tile the kernel rounds each
+    score's product on its own, as the max's was, so such a score's
+    exponent is exactly 0 (the replay's `walk` does the same).  Folded
+    into one fused multiply-add, the exponent would be the product's
+    rounding error instead: at hd 64 it is positive and 2^x overflows
+    float32, so the row's sum and output turn to inf and then NaN."""
+    scale_log2 = np.float32(np.float32(1 / math.sqrt(hd)) * np.float32(LOG2E))
+    mn = np.float32(NEG_INF * scale_log2)
+    separate = np.float32(NEG_INF * scale_log2) - mn
+    assert separate == 0 and np.exp2(separate) == 1
+    fused = float(NEG_INF) * float(scale_log2) - float(mn)   # exact in f64
+    assert (fused > 128) == fused_overflows, fused
+
+
 # ---------------------------------------------------------------------------
 # the replay against the plain versions, the references and Pallas
 # ---------------------------------------------------------------------------
@@ -366,6 +384,8 @@ def _dtype(name):
     ("float32", 2, 128, 4, 4, 64, 48, 64),      # group 1, window 48
     ("bfloat16", 1, 272, 4, 4, 64, None, 136),  # zamba2's group 1, hd 64
     ("bfloat16", 1, 200, 7, 1, 128, 48, 100),   # group 7, hd 128, window
+    ("bfloat16", 1, 272, 4, 4, 64, 48, 136),    # hd 64, window 48: rows
+    # whose first key tile is wholly masked
 ])
 def test_flash_replay_matches_plain_reference_and_pallas(
         dtype, B, S, H, KV, hd, window, block):
@@ -386,6 +406,24 @@ def test_flash_replay_matches_plain_reference_and_pallas(
     for other in (plain.float().numpy(), np.asarray(ref, np.float32),
                   np.asarray(pal, np.float32)):
         np.testing.assert_allclose(out, other, **TOL[dtype])
+
+
+@pytest.mark.parametrize("seed", [4, 18])
+def test_flash_replay_stays_near_the_f32_result_at_s1024(seed):
+    """Full-width qwen2-7b heads (28/4, hd 128) over 2 x 1024 bf16
+    tokens.  The kernel's numerics (f32 scores, P rounded to bf16 before
+    P·V) stay within the bf16 tolerance of the plain version run in
+    float32 on the same inputs, which is what the card tests hold the
+    bf16 prefill kernels to.  The bf16 plain version rounds its scores
+    to bf16, as the JAX reference does, and is on its own up to ~2e-2
+    from that result (seed 18), so it cannot be the card's yardstick at
+    this tolerance."""
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn((2, 1024, n, 128), generator=g).bfloat16()
+               for n in (28, 4, 4))
+    out = replay_flash(*(x.float().numpy() for x in (q, k, v)), None, True)
+    ref = fp.flash_prefill(q.float(), k.float(), v.float()).numpy()
+    assert np.abs(out - ref).max() <= TOL["bfloat16"]["atol"]
 
 
 @pytest.mark.parametrize("dtype,C,H,n_kv,hd,offs,max_blocks", [
