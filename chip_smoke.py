@@ -21,8 +21,7 @@
    work where one exists (scaled_dot_product_attention on gathered,
    dequantized K/V, a yardstick only; none computes SSD), the card's
    bound for the work and the kernel's achieved TFLOP/s, and for the bf16
-   prefill kernels the host's enqueue time per wrapper call, with their
-   TMA tensor maps cached and encoded anew;
+   prefill kernels the host's enqueue time per wrapper call;
 3. checks the serving steps on the card against the same steps on the
    CPU (plain versions) on the reduced models (qwen2-7b; the SSM
    chunk, prefill and decode steps of mamba2-2.7b and zamba2-1.2b; the
@@ -67,7 +66,6 @@ TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # fixed absolute bf16 tolerance does not fit its range: its tolerance
 # is relative to the plain output's largest magnitude (same numbers).
 SSD_TOL_REL = TOL
-MAP_CACHE = 8                      # MapCache::N (attn_common.cuh)
 
 
 def card_line() -> str:
@@ -100,17 +98,15 @@ def time_ms(torch, fn, iters: int = 25) -> float:
     return times[len(times) // 2]
 
 
-def host_us(torch, fns, n: int = 60) -> float:
-    """Host time per call, in microseconds, to enqueue ``n`` wrapper
-    calls cycling through ``fns`` (no sync between them: 60 launches
-    stay far inside the launch queue, so the card does not hold the
-    host back)."""
-    for fn in fns:
-        fn()
+def host_us(torch, fn, n: int = 60) -> float:
+    """Host time per call, in microseconds, to enqueue ``n`` calls of
+    ``fn`` (no sync between them: 60 launches stay far inside the launch
+    queue, so the card does not hold the host back)."""
+    fn()
     torch.cuda.synchronize()
     t = time.perf_counter()
-    for i in range(n):
-        fns[i % len(fns)]()
+    for _ in range(n):
+        fn()
     dt = time.perf_counter() - t
     torch.cuda.synchronize()
     return dt / n * 1e6
@@ -259,20 +255,9 @@ def check_kernels(torch, np, shape: dict) -> dict:
         library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kg, vg, attn_mask=mask)),
         bound_ms=b, bound_by=why)
-    if dname == "bfloat16":
-        # the wrapper's host cost with the pool's tensor maps cached (as
-        # served: one pool) and with more pools in turn than the cache
-        # holds (every call encodes both maps): views of one buffer at
-        # MAP_CACHE + 1 block offsets
-        n = pool_k.shape[0]
-        bk, bv = (torch.cat([x, x[:MAP_CACHE]]) for x in (pool_k, pool_v))
-        res["chunk"]["host_us"] = host_us(torch, [
-            lambda: fp.fused_paged_flash_prefill(q, pool_k, pool_v, phys, qo)])
-        res["chunk"]["host_us_new_maps"] = host_us(torch, [
-            (lambda i=i: fp.fused_paged_flash_prefill(
-                q, bk[i:i + n], bv[i:i + n], phys, qo))
-            for i in range(MAP_CACHE + 1)])
-        del bk, bv
+    if dname == "bfloat16":   # checks, output, two TMA maps, launch
+        res["chunk"]["host_us"] = host_us(torch, lambda: (
+            fp.fused_paged_flash_prefill(q, pool_k, pool_v, phys, qo)))
     del kg, vg, pool_k, pool_v
 
     # dense flash prefill: a whole-prompt bucket
@@ -294,14 +279,8 @@ def check_kernels(torch, np, shape: dict) -> dict:
             qt, kt, vt, is_causal=True)),
         bound_ms=b, bound_by=why)
     if dname == "bfloat16":
-        # as served, every layer's K and V are new tensors, so their
-        # maps are encoded anew: more pairs in turn than the cache holds
-        kv = [(k.clone(), v.clone()) for _ in range(MAP_CACHE + 1)]
-        res["flash"]["host_us"] = host_us(torch, [
-            lambda: fp.flash_prefill(q, k, v)])
-        res["flash"]["host_us_new_maps"] = host_us(torch, [
-            (lambda a=a, b=b: fp.flash_prefill(q, a, b)) for a, b in kv])
-        del kv
+        res["flash"]["host_us"] = host_us(
+            torch, lambda: fp.flash_prefill(q, k, v))
     for name, r in res.items():
         if not r["max_abs_err"] <= TOL[dname]:
             raise AssertionError(f"{name} kernel disagrees with its plain "
@@ -1101,7 +1080,7 @@ def main() -> int:
             "ms": r["ms"], "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "tflops": r["tflops"],
-            **{k: r[k] for k in ("host_us", "host_us_new_maps") if k in r},
+            **({"host_us": r["host_us"]} if "host_us" in r else {}),
             "shapes": full["label"],
             "other_shapes": [{"shapes": zamba["label"],
                               **checks[zamba["label"]][key]}],

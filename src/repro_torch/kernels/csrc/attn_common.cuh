@@ -14,9 +14,6 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-#include <string.h>
-
-#include <mutex>
 
 namespace repro {
 
@@ -759,56 +756,6 @@ inline cudaError_t encode_bf16_map(CUtensorMap* map, const void* base,
                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
-
-// The last maps encoded for one operand of one kernel: a launch on the
-// same base and geometry (the paged pool, the same for every layer's
-// chunk sweep) copies a map instead of encoding it.  A map holds only
-// the address and the geometry, so a freed tensor's entry stays right
-// for whatever is allocated there next.  A few entries, replaced in
-// turn.
-class MapCache {
- public:
-  cudaError_t get(CUtensorMap* map, const void* base, int rank,
-                  const cuuint64_t* dims, const cuuint64_t* strides,
-                  const cuuint32_t* box) {
-    Key key;
-    memset(&key, 0, sizeof(key));
-    key.base = base;
-    key.rank = rank;
-    memcpy(key.dims, dims, rank * sizeof(cuuint64_t));
-    memcpy(key.strides, strides, (rank - 1) * sizeof(cuuint64_t));
-    memcpy(key.box, box, rank * sizeof(cuuint32_t));
-    std::lock_guard<std::mutex> lock(mu_);
-    for (int i = 0; i < N; ++i) {
-      if (used_[i] && memcmp(&keys_[i], &key, sizeof(key)) == 0) {
-        *map = maps_[i];
-        return cudaSuccess;
-      }
-    }
-    const cudaError_t err =
-        encode_bf16_map(map, base, rank, dims, strides, box);
-    if (err != cudaSuccess) return err;
-    memcpy(&keys_[next_], &key, sizeof(key));   // padding included
-    maps_[next_] = *map;
-    used_[next_] = true;
-    next_ = (next_ + 1) % N;
-    return cudaSuccess;
-  }
-
- private:
-  static constexpr int N = 8;
-  struct Key {
-    const void* base;
-    int rank;
-    cuuint64_t dims[4], strides[3];
-    cuuint32_t box[4];
-  };
-  std::mutex mu_;
-  Key keys_[N];
-  CUtensorMap maps_[N];
-  bool used_[N] = {};
-  int next_ = 0;
-};
 
 // The dynamic shared-memory opt-in is made once per instantiation, as
 // ssd_scan.cu does; every launch after it is the launch alone.

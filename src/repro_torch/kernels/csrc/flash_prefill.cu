@@ -160,10 +160,9 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
   const cuuint64_t strides[3] = {(cuuint64_t)HD * 2, (cuuint64_t)KV * HD * 2,
                                  (cuuint64_t)S * KV * HD * 2};
   const cuuint32_t box[4] = {ATOM, 1, TC_KEYS, 1};
-  static MapCache k_maps, v_maps;
-  cudaError_t err = k_maps.get(&p.k_map, k, 4, dims, strides, box);
+  cudaError_t err = encode_bf16_map(&p.k_map, k, 4, dims, strides, box);
   if (err == cudaSuccess)
-    err = v_maps.get(&p.v_map, v, 4, dims, strides, box);
+    err = encode_bf16_map(&p.v_map, v, 4, dims, strides, box);
   if (err != cudaSuccess) return err;
   p.q = static_cast<const bf16*>(q);
   p.out = static_cast<bf16*>(out);

@@ -193,10 +193,9 @@ cudaError_t launch_bf16(const void* q, const void* pool_k, const void* pool_v,
   const cuuint64_t dims[2] = {(cuuint64_t)HD, (cuuint64_t)0x7FFFFFF0};
   const cuuint64_t strides[1] = {(cuuint64_t)HD * 2};
   const cuuint32_t box[2] = {ATOM, BLOCK_TOKENS};
-  static MapCache k_maps, v_maps;
-  cudaError_t err = k_maps.get(&p.k_map, pool_k, 2, dims, strides, box);
+  cudaError_t err = encode_bf16_map(&p.k_map, pool_k, 2, dims, strides, box);
   if (err == cudaSuccess)
-    err = v_maps.get(&p.v_map, pool_v, 2, dims, strides, box);
+    err = encode_bf16_map(&p.v_map, pool_v, 2, dims, strides, box);
   if (err != cudaSuccess) return err;
   p.q = static_cast<const bf16*>(q);
   p.out = static_cast<bf16*>(out);
