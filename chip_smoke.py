@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-  python3 chip_smoke.py
+  python3 chip_smoke.py                  # every phase, as documented below
+  python3 chip_smoke.py --kernels-only   # phases 1-2 only, no result line
 
 1. builds the five Hopper kernels (three attention kernels, the Mamba2
    SSD scan and the int8 decode attention of the W8/KV8 path) from
@@ -59,6 +60,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
+# The decode kernels' times at the full-width shapes before their
+# split-KV redesign (one CTA per row and kv head; NVIDIA H100 80GB HBM3,
+# 700 W): printed beside this run's times, not measured by it.
+EARLIER_MS = {"decode": 0.1228, "dense_w8kv8_step": 0.0856}
+LONG_TOKENS = 4096                 # the decode kernels' long-context point
+LONG_SHAPES = ("qwen2-7b full width bf16",)   # the shapes that time it
 PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor-core bf16
               "float32": 67e12}    # f32 outside the tensor cores
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
@@ -110,6 +117,31 @@ def host_us(torch, fn, n: int = 60) -> float:
     dt = time.perf_counter() - t
     torch.cuda.synchronize()
     return dt / n * 1e6
+
+
+def profiler_ms(torch, fn, match: str = "splitkv_", iters: int = 20):
+    """Device time per call of ``fn``'s kernels whose names contain
+    ``match``, summed from ``torch.profiler``'s CUDA activity over
+    ``iters`` calls, each after an L2 flush as in ``time_ms``; with the
+    kernels' names.  None when the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    del flush
+    us, names = 0.0, []
+    for e in prof.key_averages():
+        if match in e.key:
+            t = getattr(e, "device_time_total", None)
+            us += t if t is not None else e.cuda_time_total
+            names.append(e.key[:80])
+    return dict(ms=us / iters / 1e3 if us > 0 else None, kernels=names)
 
 
 def bound_ms(n_bytes: float, flops: float, dtype_name: str):
@@ -207,21 +239,51 @@ def check_kernels(torch, np, shape: dict) -> dict:
     vg = pool_v[idx].reshape(rows, KV, W * 16, hd).repeat_interleave(G, 1)
     mask = (torch.arange(W * 16, device="cuda")[None, :]
             < seq[:, None])[:, None, None, :]
-    q4 = q[:, :, None, :]
-    tok = int(lens.sum())
-    flops = 4 * tok * H * hd
-    b, why = bound_ms(2 * rows * H * hd * es + 2 * tok * KV * hd * es
-                      + phys.numel() * 4 + rows * 4, flops, dname)
-    res["decode"] = dict(
-        max_abs_err=err, flops=flops,
-        ms=time_ms(torch, lambda: pa.fused_paged_decode_attention(
-            q, pool_k, pool_v, phys, seq)),
-        plain_ms=time_ms(torch, lambda: pa.decode_plain(
-            q, pool_k, pool_v, phys, seq)),
-        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q4, kg, vg, attn_mask=mask)),
-        bound_ms=b, bound_by=why)
+
+    def decode_row(q, pool_k, pool_v, phys, seq, err, kg, vg, mask, tok):
+        flops = 4 * tok * H * hd
+        b, why = bound_ms(2 * rows * H * hd * es + 2 * tok * KV * hd * es
+                          + phys.numel() * 4 + rows * 4, flops, dname)
+        kern = lambda: pa.fused_paged_decode_attention(q, pool_k, pool_v,
+                                                        phys, seq)
+        q4 = q[:, :, None, :]
+        return dict(
+            max_abs_err=err, flops=flops, cached_tokens=tok,
+            ms=time_ms(torch, kern),
+            plain_ms=time_ms(torch, lambda: pa.decode_plain(
+                q, pool_k, pool_v, phys, seq)),
+            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q4, kg, vg, attn_mask=mask)),
+            bound_ms=b, bound_by=why, host_us=host_us(torch, kern),
+            profiler=profiler_ms(torch, kern))
+
+    res["decode"] = decode_row(q, pool_k, pool_v, phys, seq, err, kg, vg,
+                               mask, int(lens.sum()))
+    if shape["label"] in LONG_SHAPES:
+        res["decode"]["earlier_ms"] = EARLIER_MS["decode"]
     del kg, vg
+    if shape["label"] in LONG_SHAPES:
+        # the long-context point: every row at LONG_TOKENS cached tokens
+        # (one layer's pool, so the pool is the bytes the kernel reads)
+        Wl = LONG_TOKENS // 16
+        lk, lv = randn(rows * Wl * KV, 16, hd), randn(rows * Wl * KV, 16, hd)
+        tl = (np.arange(rows * Wl, dtype=np.int32) * KV).reshape(rows, Wl)
+        tl = np.ascontiguousarray(tl[:, rng.permutation(Wl)])
+        lphys = resolve_physical_blocks(torch.from_numpy(tl).cuda(), 0, KV)
+        lseq = torch.full((rows,), LONG_TOKENS, dtype=torch.int32,
+                          device="cuda")
+        ql = randn(rows, H, hd)
+        out = pa.fused_paged_decode_attention(ql, lk, lv, lphys, lseq)
+        ref = pa.decode_plain(ql, lk, lv, lphys, lseq)
+        lerr = (out.float() - ref.float()).abs().max().item()
+        idx = lphys.long()
+        kg = lk[idx].reshape(rows, KV, LONG_TOKENS, hd).repeat_interleave(G, 1)
+        vg = lv[idx].reshape(rows, KV, LONG_TOKENS, hd).repeat_interleave(G, 1)
+        lmask = torch.ones((rows, 1, 1, LONG_TOKENS), dtype=torch.bool,
+                           device="cuda")
+        res["decode_long"] = decode_row(ql, lk, lv, lphys, lseq, lerr, kg, vg,
+                                        lmask, rows * LONG_TOKENS)
+        del kg, vg, lk, lv
 
     # chunk prefill: C-token chunks at mixed offsets
     offs = (rng.integers(0, (16 * W - C) // C, rows) * C).astype(np.int32)
@@ -347,7 +409,17 @@ def check_int8(torch, np, shape: dict) -> dict:
                 lambda: tuple((c.float() * sc[..., None]).transpose(1, 2)
                               for c, sc in ((ck, sk), (cv, sv))),
                 lens_t, ck.shape[1])
+    cases = {}
+    if shape["label"] in LONG_SHAPES:
+        # the long-context point: a one-layer dense cache, every row at
+        # LONG_TOKENS cached tokens
+        dl = [int8_cache(1, rows, LONG_TOKENS, KV, hd) for _ in range(2)]
+        cases["dense_long"] = dense_case(
+            dl[0][0][0], dl[1][0][0], dl[0][1][0], dl[1][1][0],
+            torch.full((rows,), LONG_TOKENS, dtype=torch.int32,
+                       device="cuda"))
     cases = {
+        **cases,
         "paged": (lambda: pi8.fused_paged_decode_attention_int8(
                       q, pk, pv, psk, psv, phys, seq),
                   lambda: pi8.paged_int8_plain(q, pk, pv, psk, psv, phys,
@@ -390,7 +462,10 @@ def check_int8(torch, np, shape: dict) -> dict:
             library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
                 q4, kd, vd, attn_mask=mask)),
             bound_ms=b, bound_by=why, bytes=n_bytes,
-            cached_tokens=[int(lens_t.min()), int(lens_t.max())])
+            cached_tokens=[int(lens_t.min()), int(lens_t.max())],
+            host_us=host_us(torch, kern), profiler=profiler_ms(torch, kern))
+        if shape["label"] in LONG_SHAPES and name in EARLIER_MS:
+            res[name]["earlier_ms"] = EARLIER_MS[name]
         del kd, vd
     res["dense"]["max_abs_diff_vs_paged"] = (
         outs["dense"].float() - outs["paged"].float()).abs().max().item()
@@ -978,6 +1053,9 @@ def main() -> int:
         for name, r in res.items():
             print(f"check [{label}] int8 decode, {name}: " + json.dumps(r))
 
+    if "--kernels-only" in sys.argv[1:]:
+        return 0
+
     print(reduced_steps_match(torch, np))
     print(reduced_ssm_steps_match(torch, np))
     print(reduced_w8kv8_match(torch, np))
@@ -1063,10 +1141,12 @@ def main() -> int:
             r = int8[full["label"]]
             main_r = r["dense_w8kv8_step"]
             rows.append({
-                "name": "paged_decode_attention_int8", **base, **main_r,
+                "name": "paged_decode_attention_int8", **base,
+                **{k: v for k, v in main_r.items() if k != "earlier_ms"},
                 "kernel_ms": main_r["ms"],
                 "shapes": full["label"] + ", dense cache layer of the "
                 "W8/KV8 decode (S 544)",
+                "long_context": r["dense_long"],
                 "paged": r["paged"], "dense": r["dense"],
                 "reduced": {"shapes": small["label"],
                             **int8[small["label"]]}})
@@ -1081,7 +1161,10 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "tflops": r["tflops"],
             **({"host_us": r["host_us"]} if "host_us" in r else {}),
+            **({"profiler": r["profiler"]} if "profiler" in r else {}),
             "shapes": full["label"],
+            **({"long_context": checks[full["label"]]["decode_long"]}
+               if key == "decode" else {}),
             "other_shapes": [{"shapes": zamba["label"],
                               **checks[zamba["label"]][key]}],
             "reduced": {"shapes": small["label"], **s}})

@@ -5,8 +5,9 @@ Port of ``repro/kernels/paged_attention.py``.  The plain version is the
 JAX package's oracle, ``paging.fused_paged_decode_attention``; it runs
 for CPU tensors (the tests and the CPU engine) and is the reference the
 kernel is held to on the card.  For CUDA tensors the wrapper launches
-the kernel (one CTA per row and kv head; see the source for the design
-and what bounds it).
+the split-KV kernel (each row's tokens spread over CTAs and merged; the
+split is planned from shapes by ``decode_splits``; see the source for
+the design and what bounds it).
 """
 from __future__ import annotations
 
@@ -15,13 +16,14 @@ import math
 import torch
 
 from repro_torch.config import BLOCK_TOKENS
+from repro_torch.kernels import decode_splits
 from repro_torch.kernels.build import CudaKernel, check_operands, dtype_code
 from repro_torch.kernels.ops import runs_kernel
 from repro_torch.paging import fused_paged_decode_attention as decode_plain
 from repro_torch.paging import resolve_physical_blocks
 
 DECODE_KERNEL = CudaKernel(
-    "repro_paged_decode", "paged_decode.cu", "ppppppiiiiiif",
+    "repro_paged_decode", "paged_decode.cu", "pppppppiiiiiifii",
     replaces="src/repro/kernels/paged_attention.py:79")
 MAX_GROUP = 8           # query heads per kv head the kernel keeps resident
 HEAD_DIMS = (64, 128)
@@ -35,7 +37,8 @@ def fused_paged_decode_attention(q, pool_k, pool_v, phys, seq_lens):
     pool_k/v: [N, BT, hd] head-block arena
     phys: [B, n_kv, max_blocks] int32 physical ids (invalid entries
         point at a valid block, e.g. 0, and are masked via seq_lens)
-    seq_lens: [B] int32 (length including the current token, >= 1)
+    seq_lens: [B] int32 (length including the current token; a row of
+        length 0 comes out 0 from the kernel, as from the Pallas kernel)
     Returns [B, H, hd].
     """
     if not runs_kernel("fused_paged_decode_attention", q, pool_k, pool_v,
@@ -60,11 +63,15 @@ def fused_paged_decode_attention(q, pool_k, pool_v, phys, seq_lens):
     check_operands("fused_paged_decode_attention", q.device, q=q,
                    pool_k=pool_k, pool_v=pool_v, phys=phys,
                    seq_lens=seq_lens)
+    plan = decode_splits.plan_splits(B, n_kv, max_blocks * BLOCK_TOKENS,
+                                     BLOCK_TOKENS)
+    ws = decode_splits.workspace(plan, B, n_kv, H // n_kv, hd, q.device)
     out = torch.empty_like(q)
     DECODE_KERNEL(q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
                   phys.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-                  B, H, n_kv, max_blocks, hd, dtype_code(q.dtype),
-                  1.0 / math.sqrt(hd), device=q.device)
+                  None if ws is None else ws.data_ptr(), B, H, n_kv,
+                  max_blocks, hd, dtype_code(q.dtype), 1.0 / math.sqrt(hd),
+                  *plan, device=q.device)
     return out
 
 

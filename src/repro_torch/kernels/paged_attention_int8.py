@@ -23,6 +23,7 @@ import math
 
 import torch
 
+from repro_torch.kernels import decode_splits
 from repro_torch.kernels.build import CudaKernel, check_operands, dtype_code
 from repro_torch.kernels.ops import runs_kernel
 from repro_torch.paging import dense_decode_attention
@@ -30,7 +31,7 @@ from repro_torch.paging import fused_paged_decode_attention as _paged_plain
 from repro_torch.paging import resolve_physical_blocks
 
 DECODE_INT8_KERNEL = CudaKernel(
-    "repro_decode_int8", "paged_decode_int8.cu", "ppppppppiiiiiilllliif",
+    "repro_decode_int8", "paged_decode_int8.cu", "pppppppppiiiiiilllliifii",
     replaces="src/repro/kernels/paged_attention_int8.py:69")
 MAX_GROUP = 8           # query heads per kv head the kernel keeps resident
 HEAD_DIMS = (64, 128)
@@ -106,6 +107,22 @@ def _check(name, q, k, v, sk, sv, seq_lens, n_kv):
     check_operands(name, q.device, align=4, sk=sk, sv=sv, seq_lens=seq_lens)
 
 
+def _launch(q, k, v, sk, sv, table, seq_lens, n_kv, layout, table_bt):
+    """Plan the splits from shapes (``layout[2]`` is max_tok), allocate
+    the output and the workspace, launch."""
+    B, H, hd = q.shape
+    plan = decode_splits.plan_splits(B, n_kv, layout[2], table_bt)
+    ws = decode_splits.workspace(plan, B, n_kv, H // n_kv, hd, q.device)
+    out = torch.empty_like(q)
+    DECODE_INT8_KERNEL(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), sk.data_ptr(),
+        sv.data_ptr(), None if table is None else table.data_ptr(),
+        seq_lens.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(), B, H, n_kv, *layout, hd,
+        dtype_code(q.dtype), 1.0 / math.sqrt(hd), *plan, device=q.device)
+    return out
+
+
 def fused_paged_decode_attention_int8(q, pool_k, pool_v, pool_sk, pool_sv,
                                       phys, seq_lens):
     """Decode attention over int8 head-blocks picked by pre-resolved
@@ -130,14 +147,9 @@ def fused_paged_decode_attention_int8(q, pool_k, pool_v, pool_sk, pool_sv,
            pool_sv, seq_lens, n_kv)
     check_operands("paged_decode_attention_int8", q.device, align=4,
                    phys=phys)
-    out = torch.empty_like(q)
-    DECODE_INT8_KERNEL(
-        q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
-        pool_sk.data_ptr(), pool_sv.data_ptr(), phys.data_ptr(),
-        seq_lens.data_ptr(), out.data_ptr(), B, H, n_kv,
-        *paged_layout(pool_k.shape[1], max_blocks), hd, dtype_code(q.dtype),
-        1.0 / math.sqrt(hd), device=q.device)
-    return out
+    bt = pool_k.shape[1]
+    return _launch(q, pool_k, pool_v, pool_sk, pool_sv, phys, seq_lens, n_kv,
+                   paged_layout(bt, max_blocks), table_bt=bt)
 
 
 def paged_decode_attention_int8(q, pool_k, pool_v, pool_sk, pool_sv, table,
@@ -170,10 +182,5 @@ def dense_decode_attention_int8(q, ckq, cvq, sk, sv, lens):
                          f"{tuple(q.shape)}")
     S, KV = ckq.shape[1], ckq.shape[2]
     _check("dense_decode_attention_int8", q, ckq, cvq, sk, sv, lens, KV)
-    out = torch.empty_like(q)
-    DECODE_INT8_KERNEL(
-        q.data_ptr(), ckq.data_ptr(), cvq.data_ptr(), sk.data_ptr(),
-        sv.data_ptr(), None, lens.data_ptr(), out.data_ptr(), B, H, KV,
-        *dense_layout(S, KV), hd, dtype_code(q.dtype), 1.0 / math.sqrt(hd),
-        device=q.device)
-    return out
+    return _launch(q, ckq, cvq, sk, sv, None, lens, KV, dense_layout(S, KV),
+                   table_bt=None)

@@ -340,3 +340,115 @@ def test_int8_decode_kernel_refuses_bad_operands(dev):
     with pytest.raises(ValueError):                # mixed devices
         pi8.dense_decode_attention_int8(q, ck.cpu(), ck, sk, sk, lens)
     assert pi8.DECODE_INT8_KERNEL.launches == n0
+
+
+# Split-KV cases: rows of 1, 17 and ~4096 cached tokens in one launch,
+# so most of a long row's splits run while the short rows' later splits
+# are empty (they exit at once); a row of no token, a padded row (table
+# -1, length 1), group 1 at hd 64 and group 7 at hd 128.
+SPLIT_LENS = [1, 17, 4096, 0, 1, 700, 2049, 4000]
+SPLIT_PADDED, SPLIT_EMPTY = 4, 3
+
+
+def _split_tables(rng, lens, max_blocks, group_size):
+    """Disjoint random group bases for each row's blocks, −1 past them;
+    the padded row's table is all −1.  Returns (table, pool blocks)."""
+    need = [0 if i == SPLIT_PADDED else -(-n // 16)
+            for i, n in enumerate(lens)]
+    bases = rng.permutation(sum(need))
+    t = np.full((len(lens), max_blocks), -1, np.int32)
+    used = 0
+    for r, k in enumerate(need):
+        t[r, :k] = bases[used:used + k] * group_size
+        used += k
+    return t, max(1, sum(need)) * group_size
+
+
+@pytest.mark.parametrize("dtype,hd,H,n_kv", [
+    (torch.float32, 64, 4, 2),        # reduced qwen2-7b pool
+    (torch.bfloat16, 128, 28, 4),     # full-width qwen2-7b: group 7
+    (torch.bfloat16, 64, 32, 32),     # zamba2-1.2b's shared attention: group 1
+])
+def test_decode_kernel_splits_match_plain(dev, dtype, hd, H, n_kv):
+    rng = np.random.default_rng(5)
+    max_blocks, layers = 256, 2
+    table, n_blocks = _split_tables(rng, SPLIT_LENS, max_blocks,
+                                    layers * n_kv)
+    pool_k, pool_v = _pool(n_blocks, hd, dtype, dev, 6)
+    phys = resolve_physical_blocks(torch.from_numpy(table).to(dev), 1, n_kv)
+    seq = torch.tensor(SPLIT_LENS, dtype=torch.int32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(7)
+    q = torch.randn((len(SPLIT_LENS), H, hd), generator=g,
+                    device=dev).to(dtype)
+    n0 = pa.DECODE_KERNEL.launches
+    out = pa.fused_paged_decode_attention(q, pool_k, pool_v, phys, seq)
+    ref = pa.decode_plain(q, pool_k, pool_v, phys, seq)
+    torch.cuda.synchronize()
+    assert pa.DECODE_KERNEL.launches == n0 + 1
+    assert torch.isfinite(out.float()).all()
+    # a row of no token is 0, as the Pallas kernel's acc / max(l, 1e-30);
+    # the plain version (the reference's XLA oracle) averages instead
+    assert not out[SPLIT_EMPTY].any()
+    keep = [i for i in range(len(SPLIT_LENS)) if i != SPLIT_EMPTY]
+    err = (out[keep].float() - ref[keep].float()).abs().max().item()
+    assert err <= TOL[dtype], err
+
+
+@pytest.mark.parametrize("dtype,hd,H,n_kv", [
+    (torch.float32, 64, 4, 2),
+    (torch.bfloat16, 128, 28, 4),
+    (torch.bfloat16, 64, 32, 32),
+])
+def test_int8_decode_kernel_splits_match_plain_paged(dev, dtype, hd, H, n_kv):
+    rng = np.random.default_rng(8)
+    max_blocks, layers = 256, 2
+    table, n_blocks = _split_tables(rng, SPLIT_LENS, max_blocks,
+                                    layers * n_kv)
+    k8, sk = _int8_cache(dev, (n_blocks, 16, hd), 9)
+    v8, sv = _int8_cache(dev, (n_blocks, 16, hd), 10)
+    g = torch.Generator(device=dev).manual_seed(11)
+    q = torch.randn((len(SPLIT_LENS), H, hd), generator=g,
+                    device=dev).to(dtype)
+    tab = torch.from_numpy(table).to(dev)
+    seq = torch.tensor(SPLIT_LENS, dtype=torch.int32, device=dev)
+    n0 = pi8.DECODE_INT8_KERNEL.launches
+    out = pi8.paged_decode_attention_int8(q, k8, v8, sk, sv, tab, seq, 1,
+                                          n_kv=n_kv)
+    phys = resolve_physical_blocks(tab, 1, n_kv)
+    ref = pi8.paged_int8_plain(q, k8, v8, sk, sv, phys, seq)
+    torch.cuda.synchronize()
+    assert pi8.DECODE_INT8_KERNEL.launches == n0 + 1
+    assert out.dtype == dtype and torch.isfinite(out.float()).all()
+    assert not out[SPLIT_EMPTY].any() and not ref[SPLIT_EMPTY].any()
+    scale = ref.float().abs().max().item()
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= TOL[dtype] * scale, (err, scale)
+
+
+# the W8/KV8 step's S 544 (8.5 splits of 64) and S that no split size
+# divides, with a row at the cache's end, one of no token and short rows
+@pytest.mark.parametrize("dtype,hd,H,KV,S", [
+    (torch.bfloat16, 128, 28, 4, 544),
+    (torch.bfloat16, 128, 28, 4, 4133),
+    (torch.float32, 64, 4, 2, 1000),
+    (torch.bfloat16, 64, 32, 32, 1000),
+])
+def test_int8_decode_kernel_splits_match_plain_dense(dev, dtype, hd, H, KV,
+                                                     S):
+    lens_np = np.array([1, 17, S, 0, 1, min(700, S), S - 37, S // 2],
+                       np.int32)
+    B, L = len(lens_np), 2
+    ck, sk = _int8_cache(dev, (L, B, S, KV, hd), 12)
+    cv, sv = _int8_cache(dev, (L, B, S, KV, hd), 13)
+    lens = torch.from_numpy(lens_np).to(dev)
+    g = torch.Generator(device=dev).manual_seed(14)
+    q = torch.randn((B, H, hd), generator=g, device=dev).to(dtype)
+    n0 = pi8.DECODE_INT8_KERNEL.launches
+    out = pi8.dense_decode_attention_int8(q, ck[1], cv[1], sk[1], sv[1], lens)
+    ref = pi8.dense_int8_plain(q, ck[1], cv[1], sk[1], sv[1], lens)
+    torch.cuda.synchronize()
+    assert pi8.DECODE_INT8_KERNEL.launches == n0 + 1
+    assert torch.isfinite(out.float()).all() and not out[3].any()
+    scale = ref.float().abs().max().item()
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= TOL[dtype] * scale, (err, scale)
