@@ -3,6 +3,8 @@
 
   python3 chip_smoke.py                  # every phase, as documented below
   python3 chip_smoke.py --kernels-only   # phases 1-2 only, no result line
+  python3 chip_smoke.py --decode-sweep   # the decode kernels over the
+                                         # split planner's grid, no result line
 
 1. builds the five Hopper kernels (three attention kernels, the Mamba2
    SSD scan and the int8 decode attention of the W8/KV8 path) from
@@ -83,16 +85,25 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def _cold_l2(torch, buf):
+    """Evict the L2 cache as the serving loop does between attention
+    calls: by reading 256 MB (streamed weights), which leaves clean
+    lines.  Then keep the card busy ~0.2 ms, so the host has enqueued
+    the timed call before the card reaches it: the window then holds
+    the call's device time, not the host's enqueue."""
+    buf.sum()
+    torch.cuda._sleep(400_000)
+
+
 def time_ms(torch, fn, iters: int = 25) -> float:
-    """Median device time of ``fn`` over ``iters`` launches, each after
-    an L2 flush (the serving loop streams weights between attention
-    calls, so the kernels find L2 cold)."""
-    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+    """Median device time of ``fn`` over ``iters`` launches, each with
+    L2 cold (``_cold_l2``), between CUDA events."""
+    flush = torch.ones(64 << 20, dtype=torch.int32, device="cuda")
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(iters):
-        flush.zero_()
+        _cold_l2(torch, flush)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -121,27 +132,30 @@ def host_us(torch, fn, n: int = 60) -> float:
 
 def profiler_ms(torch, fn, match: str = "splitkv_", iters: int = 20):
     """Device time per call of ``fn``'s kernels whose names contain
-    ``match``, summed from ``torch.profiler``'s CUDA activity over
-    ``iters`` calls, each after an L2 flush as in ``time_ms``; with the
-    kernels' names.  None when the trace holds no device time."""
+    ``match``, from ``torch.profiler``'s CUDA activity over ``iters``
+    calls, each with L2 cold as in ``time_ms``: the sum (``ms``) and
+    each kernel's.  ``ms`` is None when the trace holds no device
+    time."""
     from torch.profiler import ProfilerActivity, profile
-    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+    flush = torch.ones(64 << 20, dtype=torch.int32, device="cuda")
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
-            flush.zero_()
+            _cold_l2(torch, flush)
             fn()
         torch.cuda.synchronize()
     del flush
-    us, names = 0.0, []
+    per = {}
     for e in prof.key_averages():
         if match in e.key:
             t = getattr(e, "device_time_total", None)
-            us += t if t is not None else e.cuda_time_total
-            names.append(e.key[:80])
-    return dict(ms=us / iters / 1e3 if us > 0 else None, kernels=names)
+            t = t if t is not None else e.cuda_time_total
+            name = re.sub(r"^void repro::|\(.*$", "", e.key)
+            per[name] = per.get(name, 0.0) + t / iters / 1e3
+    total = sum(per.values())
+    return dict(ms=total if total > 0 else None, kernels_ms=per)
 
 
 def bound_ms(n_bytes: float, flops: float, dtype_name: str):
@@ -529,6 +543,67 @@ def check_ssd(torch, shape: dict) -> dict:
                              f"magnitudes)")
     torch.cuda.synchronize()
     return res
+
+
+def decode_sweep(torch, np) -> None:
+    """Time the two decode kernels at full-width qwen2-7b (bf16, 28/4
+    heads, hd 128, 8 rows) over the split planner's target grid size:
+    kernel 1 at 16-1008 and 4096 cached tokens, kernel 5 on a dense
+    cache layer at S 544 and 4096.  Prints one line per point."""
+    from repro_torch.kernels import decode_splits as dsp
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import paged_attention_int8 as pi8
+    from repro_torch.paging import resolve_physical_blocks
+    rng = np.random.default_rng(0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows, H, KV, hd = 8, 28, 4, 128
+    cases = {}
+    cases_tok = {"k1 16-1008": 1024, "k1 4096": 4096, "k5 S544": 544,
+                 "k5 4096": 4096}
+    for label, W, lens in (("k1 16-1008", 64, rng.integers(16, 1008, rows)),
+                           ("k1 4096", 256, np.full(rows, 4096))):
+        n = rows * W * KV
+        pk = torch.randn((n, 16, hd), generator=gen, device="cuda").bfloat16()
+        pv = torch.randn((n, 16, hd), generator=gen, device="cuda").bfloat16()
+        t = (rng.permutation(rows * W) * KV).astype(np.int32).reshape(rows, W)
+        phys = resolve_physical_blocks(torch.from_numpy(t).cuda(), 0, KV)
+        seq = torch.from_numpy(lens.astype(np.int32)).cuda()
+        q = torch.randn((rows, H, hd), generator=gen, device="cuda").bfloat16()
+        cases[label] = (lambda q=q, pk=pk, pv=pv, phys=phys, seq=seq:
+                        pa.fused_paged_decode_attention(q, pk, pv, phys, seq),
+                        2 * int(lens.sum()) * KV * hd * 2,
+                        pa.decode_plain(q, pk, pv, phys, seq).float())
+    for label, S, lo in (("k5 S544", 544, 513), ("k5 4096", 4096, 4096)):
+        ck = torch.randint(-127, 128, (rows, S, KV, hd), generator=gen,
+                           device="cuda", dtype=torch.int8)
+        cv = torch.randint(-127, 128, (rows, S, KV, hd), generator=gen,
+                           device="cuda", dtype=torch.int8)
+        sk = torch.rand((rows, S, KV), generator=gen, device="cuda") * 0.05
+        sv = torch.rand((rows, S, KV), generator=gen, device="cuda") * 0.05
+        lens = rng.integers(lo, S + 1, rows).astype(np.int32)
+        seq = torch.from_numpy(lens).cuda()
+        q = torch.randn((rows, H, hd), generator=gen, device="cuda").bfloat16()
+        cases[label] = (lambda q=q, ck=ck, cv=cv, sk=sk, sv=sv, seq=seq:
+                        pi8.dense_decode_attention_int8(q, ck, cv, sk, sv,
+                                                        seq),
+                        2 * int(lens.sum()) * KV * (hd + 4),
+                        pi8.dense_int8_plain(q, ck, cv, sk, sv, seq).float())
+    target0 = dsp.TARGET_CTAS
+    try:
+        for target in (66, 132, 264, 528):
+            dsp.TARGET_CTAS = target
+            for label, (fn, n_bytes, ref) in cases.items():
+                err = (fn().float() - ref).abs().max().item()
+                if not err <= TOL["bfloat16"] * ref.abs().max().item():
+                    raise AssertionError(f"sweep {label} {target}: |Δ| {err}")
+                print("sweep " + json.dumps(dict(
+                    case=label, target_ctas=target, max_abs_err=err,
+                    plan=dsp.plan_splits(rows, KV, cases_tok[label]),
+                    ms=time_ms(torch, fn), host_us=host_us(torch, fn),
+                    profiler=profiler_ms(torch, fn),
+                    bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3)))
+    finally:
+        dsp.TARGET_CTAS = target0
 
 
 # ---------------------------------------------------------------------------
@@ -1018,6 +1093,10 @@ def main() -> int:
           f"(per source: {json.dumps({k: round(v, 1) for k, v in took.items()})})")
     print("tensor cores (HGMMA instructions in cuobjdump -sass): "
           + json.dumps(tensor_core_sass()))
+
+    if "--decode-sweep" in sys.argv[1:]:
+        decode_sweep(torch, np)
+        return 0
 
     full = dict(label="qwen2-7b full width bf16", dtype=torch.bfloat16, H=28,
                 KV=4, hd=128, layers=28, rows=8, max_blocks=64, C=64, S=512,

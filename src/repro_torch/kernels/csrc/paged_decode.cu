@@ -61,7 +61,8 @@ extern "C" int repro_paged_decode(const void* q, const void* pool_k,
       max_blocks <= 0)
     return cudaErrorInvalidValue;
   const DecodeLayout lay{static_cast<const int*>(phys), BLOCK_TOKENS, 0, 0, 1,
-                         max_blocks, BLOCK_TOKENS, max_blocks * BLOCK_TOKENS};
+                         max_blocks, BLOCK_TOKENS, max_blocks * BLOCK_TOKENS,
+                         bt_shift_of(BLOCK_TOKENS)};
   if (!plan_ok(split, n_splits, lay, ws)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;

@@ -76,8 +76,11 @@ extern "C" int repro_decode_int8(const void* q, const void* k, const void* v,
   if (B <= 0 || n_kv <= 0 || H % n_kv != 0 || H / n_kv > SK_MAX_GROUP ||
       bt <= 0 || max_tok < 0 || (table != nullptr && max_blocks <= 0))
     return cudaErrorInvalidValue;
+  // a block of max_tok tokens or more (the dense layer) is block 0 for
+  // every token: t >> 31
   const DecodeLayout lay{static_cast<const int*>(table), blk_rows, row_rows,
-                         head_rows, tok_rows, max_blocks, bt, max_tok};
+                         head_rows, tok_rows, max_blocks, bt, max_tok,
+                         bt >= max_tok ? 31 : bt_shift_of(bt)};
   if (!plan_ok(split, n_splits, lay, ws)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;

@@ -7,10 +7,12 @@ plan is a function of shapes only: the longest row the cache can hold
 (``max_tok``), never ``seq_lens``, whose values live on the card —
 reading them would cost a host sync per layer of the serving loop.
 
-``split`` starts at 64 tokens (two 32-token ring chunks) and doubles
-while the grid still holds at least two CTAs per SM of an H100 (132),
-so a short tick fills the card and a long context gets fewer, longer
-splits.  It is capped so a split's block ids fit the kernel's shared
+``split`` starts at 64 tokens (one ring chunk of the bf16 body, two of
+the f32 body's) and doubles while the grid still holds at least one
+CTA per SM of an H100 (132), so a short tick fills the card and a long
+context gets fewer, longer splits.  (A sweep over the target, 66 to
+528 CTAs, put the best at 132 for both kernels at full-width qwen2-7b,
+16-1008 and 4096 cached tokens: ``chip_smoke.py --decode-sweep``.)  It is capped so a split's block ids fit the kernel's shared
 memory (``split / bt + 2 <= MAX_IDS``).
 """
 from __future__ import annotations
@@ -20,8 +22,8 @@ from typing import NamedTuple, Optional
 import torch
 
 SM_COUNT = 132          # H100 SXM
-TARGET_CTAS = 2 * SM_COUNT
-CHUNK = 32              # tokens of one ring stage (SK_CHUNK)
+TARGET_CTAS = SM_COUNT
+ALIGN = 64              # SK_SPLIT_ALIGN: a split is whole ring chunks
 MIN_SPLIT = 64
 MAX_SPLIT = 4096
 MAX_IDS = 258           # SK_MAX_IDS
@@ -29,7 +31,7 @@ MAX_GROUP = 8           # SK_MAX_GROUP: (m, l) slots per split in the workspace
 
 
 class SplitPlan(NamedTuple):
-    split: int          # tokens per split, a multiple of CHUNK
+    split: int          # tokens per split, a multiple of ALIGN
     n_splits: int       # splits per (row, kv head): split * n_splits >= max_tok
 
 
@@ -43,10 +45,10 @@ def plan_splits(rows: int, n_kv: int, max_tok: int,
     pairs of at most ``max_tok`` cached tokens; ``bt`` is the block
     size when the kernel reads a block table (None: no table)."""
     cap = MAX_SPLIT if bt is None else min(MAX_SPLIT, (MAX_IDS - 2) * bt)
-    cap = max(CHUNK, cap // CHUNK * CHUNK)
+    cap = max(ALIGN, cap // ALIGN * ALIGN)
     split = min(MIN_SPLIT, cap)
     pairs = rows * n_kv
-    while (split * 2 <= cap
+    while (split < max_tok and split * 2 <= cap
            and pairs * _cdiv(max_tok, split * 2) >= TARGET_CTAS):
         split *= 2
     return SplitPlan(split, max(1, _cdiv(max_tok, split)))
@@ -73,3 +75,4 @@ def live_splits(seq_len: int, max_tok: int, split: int) -> int:
     """Splits of a row that hold at least one token (the kernel's
     ``n_live``); the rest exit at once."""
     return _cdiv(min(max(seq_len, 0), max_tok), split)
+
