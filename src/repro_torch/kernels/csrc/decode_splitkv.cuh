@@ -34,8 +34,8 @@
 //   accumulator fragments, P rounded to bf16 and kept in registers as
 //   the A operand of O += P V (the m16n8 accumulators of two key tiles
 //   are exactly one m16k16 A fragment).  Each warp keeps its own
-//   (m, l, O) and the four merge at the end.  int8 keys and values are
-//   converted to bf16 on the way into the fragments (exact), the key
+//   (m, l, O) and the four merge at the end.  int8 keys and values
+//   enter f16 fragments (exact, made by integer operations), the key
 //   scale applied to S and the value scale folded into P.
 // * float32 queries (the reduced test models): CUDA cores, 32-token
 //   chunks, a lane per key in the scores and 4 output dims a thread in
@@ -58,6 +58,8 @@
 // sk[r], sv[r].  Tokens at or past min(seq_len[b], max_tok) are neither
 // loaded nor counted.
 #pragma once
+
+#include <cuda_fp16.h>
 
 #include <type_traits>
 
@@ -103,14 +105,34 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_u32(p)));
 }
-// d += a b, m16n8k16, bf16 in, f32 accumulate
+// d += a b, m16n8k16, bf16 (F16 false) or f16 in, f32 accumulate
+template <bool F16>
 __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
                                           uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  if constexpr (F16)
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  else
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  const __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+// Two signed int8 (bytes `sel` of w, after w ^ 0x80808080 made them
+// x + 128) as an exact f16x2: 0x64XX is 1024 + XX, less 1152.
+__device__ __forceinline__ uint32_t i8x2_f16(uint32_t wx, uint32_t sel) {
+  const uint32_t h = __byte_perm(wx, 0x64646464u, sel);
+  uint32_t r;
+  asm("sub.f16x2 %0, %1, %2;\n" : "=r"(r) : "r"(h), "r"(0x64806480u));
+  return r;
 }
 
 // Physical 16-byte unit of unit u in ring row r: rows of 8+ units XOR
@@ -137,6 +159,10 @@ __device__ __forceinline__ const unsigned char* ring_at(
 template <typename E> struct FloatKV {
   using Elem = E;
   static constexpr bool kScaled = false;
+  static constexpr bool kF16 = false;       // the fragments are bf16
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    return pack_bf16(lo, hi);
+  }
   const E* k;
   const E* v;
   template <int N>
@@ -176,14 +202,21 @@ template <typename E> struct FloatKV {
 
 // int8 keys and values with one f32 scale per (token, kv head) (kernel
 // 5): the key scale multiplies the token's score, the value scale its
-// probability, so the int8 values enter the products as they are
-// (exactly representable in bf16).  The fragments permute dims so that
-// a thread reads contiguous bytes: k-slots (2c, 2c+1, 2c+8, 2c+9) of a
-// k-step are dims 4c .. 4c+3, and output tiles 2p, 2p + 1 take the
-// even and odd dims of 16p .. 16p + 15.
+// probability, so the int8 values enter the products as they are.  The
+// fragments are f16, which holds every int8 exactly and is made from
+// bytes by integer operations alone (i8x2_f16; bf16 would need the
+// quarter-rate int-to-float conversions); q enters scaled by a power
+// of two that keeps it inside f16's range.  The fragments permute dims
+// so that a thread reads contiguous bytes: k-slots (2c, 2c+1, 2c+8,
+// 2c+9) of a k-step are dims 4c .. 4c+3, and output tiles 2p, 2p + 1
+// take the even and odd dims of 16p .. 16p + 15.
 struct Int8KV {
   using Elem = int8_t;
   static constexpr bool kScaled = true;
+  static constexpr bool kF16 = true;
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    return pack_f16(lo, hi);
+  }
   const int8_t* k;
   const int8_t* v;
   const float* sk;
@@ -206,11 +239,10 @@ struct Int8KV {
                                                  uint32_t (&b)[2][2]) {
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
-      const int word = *reinterpret_cast<const int*>(
+      const uint32_t wx = 0x80808080u ^ *reinterpret_cast<const uint32_t*>(
           ring_at<HD>(ks, tr0 + 8 * j + lane / 4, step * 16 + (lane % 4) * 4));
-      const int8_t* e = reinterpret_cast<const int8_t*>(&word);
-      b[j][0] = pack_bf16(e[0], e[1]);
-      b[j][1] = pack_bf16(e[2], e[3]);
+      b[j][0] = i8x2_f16(wx, 0x4140);     // dims 4c, 4c + 1
+      b[j][1] = i8x2_f16(wx, 0x4342);     // dims 4c + 2, 4c + 3
     }
   }
   template <int HD>
@@ -218,16 +250,17 @@ struct Int8KV {
                                                  int tr0, int p, int lane,
                                                  uint32_t (&b)[2][2]) {
     const int c = lane % 4, byte = p * 16 + (lane / 4) * 2;
-    short w[4];   // rows 2c, 2c + 1, 2c + 8, 2c + 9: dims byte, byte + 1
+    uint32_t w[4];   // rows 2c, 2c + 1, 2c + 8, 2c + 9: dims byte, byte + 1
 #pragma unroll
     for (int i = 0; i < 4; ++i)
-      w[i] = *reinterpret_cast<const short*>(
+      w[i] = *reinterpret_cast<const unsigned short*>(
           ring_at<HD>(vs, tr0 + 2 * c + (i / 2) * 8 + i % 2, byte));
-    const int8_t* e = reinterpret_cast<const int8_t*>(w);
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {     // tile 2p + j: dim byte + j
-      b[j][0] = pack_bf16(e[j], e[2 + j]);
-      b[j][1] = pack_bf16(e[4 + j], e[6 + j]);
+    for (int k = 0; k < 2; ++k) {     // key rows 2c, 2c+1 (k 0); +8 (k 1)
+      const uint32_t wx = 0x80808080u ^ __byte_perm(w[2 * k], w[2 * k + 1],
+                                                    0x5410);
+      b[0][k] = i8x2_f16(wx, 0x4240);     // tile 2p: dim byte
+      b[1][k] = i8x2_f16(wx, 0x4341);     // tile 2p + 1: dim byte + 1
     }
   }
   static __device__ __forceinline__ int o_dim(int j, int col) {
@@ -263,7 +296,7 @@ template <typename KV, int HD, int CHUNK> struct SkSmem {
   static constexpr int KV_BYTES = CHUNK * ROW_BYTES;
   static constexpr int STAGE_BYTES =
       2 * KV_BYTES + (KV::kScaled ? 2 * CHUNK * 4 : 0);
-  static constexpr int FIT = 65536 / STAGE_BYTES;
+  static constexpr int FIT = 65536 / STAGE_BYTES;      // a 64 KB ring
   static constexpr int STAGES = FIT < 2 ? 2 : (FIT > 4 ? 4 : FIT);
   static constexpr int RING = STAGES * STAGE_BYTES;
   static constexpr int RED = 4 * SK_MAX_GROUP * HD * 4;  // 4 partial accs
@@ -406,6 +439,25 @@ splitkv_tc_kernel(const __grid_constant__ DecodeArgs<T, KV> a) {
   const int c = lane % 4, n = lane / 4;         // n: this thread's head row
   __syncthreads();
 
+  // f16 fragments: q times a power of two (exact) that keeps its
+  // largest magnitude below 2^14, the score multiplier divided by it
+  float qs = 1.f, mult0 = a.scale;
+  if constexpr (KV::kF16) {
+    float mx = 0.f;
+    for (int i = tid; i < w.G * HD; i += SK_THREADS)
+      mx = fmaxf(mx, fabsf(w.q_s()[i]));
+    mx = warp_max(mx);
+    float* red4 = reinterpret_cast<float*>(smem + L::M_OFF);
+    if (lane == 0) red4[warp] = mx;
+    __syncthreads();
+    mx = fmaxf(fmaxf(red4[0], red4[1]), fmaxf(red4[2], red4[3]));
+    int e;
+    frexpf(mx, &e);                             // mx < 2^e
+    if (e > 14) {
+      qs = ldexpf(1.f, 14 - e);
+      mult0 = a.scale / qs;
+    }
+  }
   // Q's A fragments (rows = heads, rows >= G and 8..15 zero), per k-step
   uint32_t qa[HD / 16][2];
   {
@@ -414,10 +466,10 @@ splitkv_tc_kernel(const __grid_constant__ DecodeArgs<T, KV> a) {
 #pragma unroll
     for (int s = 0; s < HD / 16; ++s) {
       const int d0 = s * 16;
-      qa[s][0] = live ? pack_bf16(q[d0 + KV::k_dim(2 * c)],
-                                  q[d0 + KV::k_dim(2 * c + 1)]) : 0u;
-      qa[s][1] = live ? pack_bf16(q[d0 + KV::k_dim(2 * c + 8)],
-                                  q[d0 + KV::k_dim(2 * c + 9)]) : 0u;
+      qa[s][0] = live ? KV::pack(q[d0 + KV::k_dim(2 * c)] * qs,
+                                 q[d0 + KV::k_dim(2 * c + 1)] * qs) : 0u;
+      qa[s][1] = live ? KV::pack(q[d0 + KV::k_dim(2 * c + 8)] * qs,
+                                 q[d0 + KV::k_dim(2 * c + 9)] * qs) : 0u;
     }
   }
 
@@ -451,8 +503,8 @@ splitkv_tc_kernel(const __grid_constant__ DecodeArgs<T, KV> a) {
       uint32_t kb[2][2];
       KV::template k_frags<HD>(ks, tr0, st, lane, kb);
       const uint32_t qf[4] = {qa[st][0], 0u, qa[st][1], 0u};
-      mma_16816(s[0], qf, kb[0][0], kb[0][1]);
-      mma_16816(s[1], qf, kb[1][0], kb[1][1]);
+      mma_16816<KV::kF16>(s[0], qf, kb[0][0], kb[0][1]);
+      mma_16816<KV::kF16>(s[1], qf, kb[1][0], kb[1][1]);
     }
     // online softmax of head row n over the 16 keys (4 a thread, the
     // quad holds the row); key tr0 + 8j + 2c + e is s[j][e]
@@ -463,7 +515,7 @@ splitkv_tc_kernel(const __grid_constant__ DecodeArgs<T, KV> a) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int r = tr0 + 8 * j + 2 * c + e;
-        float mult = a.scale;
+        float mult = mult0;
         if constexpr (KV::kScaled)
           mult *= reinterpret_cast<const float*>(ks + 2 * L::KV_BYTES)[r];
         x[j][e] = t0 - tr0 + r < w.end ? s[j][e] * mult : NEG_INF;
@@ -488,8 +540,8 @@ splitkv_tc_kernel(const __grid_constant__ DecodeArgs<T, KV> a) {
       }
     l = l * corr + sum;
     // P as the A fragment of the 16 keys (rows 8..15 zero)
-    const uint32_t pa[4] = {pack_bf16(p[0][0], p[0][1]), 0u,
-                            pack_bf16(p[1][0], p[1][1]), 0u};
+    const uint32_t pa[4] = {KV::pack(p[0][0], p[0][1]), 0u,
+                            KV::pack(p[1][0], p[1][1]), 0u};
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
       o[j][0] *= corr;
@@ -499,8 +551,8 @@ splitkv_tc_kernel(const __grid_constant__ DecodeArgs<T, KV> a) {
     for (int pp = 0; pp < NT / 2; ++pp) {
       uint32_t vb[2][2];
       KV::template v_frags<HD>(vs, tr0, pp, lane, vb);
-      mma_16816(o[2 * pp], pa, vb[0][0], vb[0][1]);
-      mma_16816(o[2 * pp + 1], pa, vb[1][0], vb[1][1]);
+      mma_16816<KV::kF16>(o[2 * pp], pa, vb[0][0], vb[0][1]);
+      mma_16816<KV::kF16>(o[2 * pp + 1], pa, vb[1][0], vb[1][1]);
     }
   }
   cp_async_wait<0>();
@@ -738,17 +790,21 @@ splitkv_combine_kernel(const float* __restrict__ ws,
   if (n_live <= 1) return;       // written by its split
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
   const int bh = b * n_kv + h;
-  const float* ml = ws + ((long long)bh * n_splits * SK_MAX_GROUP + g) * 2;
+  const float2* ml = reinterpret_cast<const float2*>(ws) +
+                     (long long)bh * n_splits * SK_MAX_GROUP + g;
   const float* acc = ws + ws_ml_floats(gridDim.z * n_kv, n_splits) +
                      ((long long)bh * n_splits * group + g) * HD + d;
-  float mx = NEG_INF;
-  for (int s = 0; s < n_live; ++s) mx = fmaxf(mx, ml[s * SK_MAX_GROUP * 2]);
-  float den = 0.f, num = 0.f;
-#pragma unroll 4
+  // one pass, online: the loads of 8 splits are issued together
+  float mx = NEG_INF, den = 0.f, num = 0.f;
+#pragma unroll 8
   for (int s = 0; s < n_live; ++s) {
-    const float f = expf(ml[s * SK_MAX_GROUP * 2] - mx);
-    den += ml[s * SK_MAX_GROUP * 2 + 1] * f;
-    num += acc[(long long)s * group * HD] * f;
+    const float2 st = ml[s * SK_MAX_GROUP];
+    const float x = acc[(long long)s * group * HD];
+    const float m_new = fmaxf(mx, st.x);
+    const float c = expf(mx - m_new), f = expf(st.x - m_new);
+    den = den * c + st.y * f;
+    num = num * c + x * f;
+    mx = m_new;
   }
   out[((size_t)b * H + (size_t)h * group + g) * HD + d] =
       from_float<T>(num / fmaxf(den, 1e-30f));

@@ -76,3 +76,10 @@ def live_splits(seq_len: int, max_tok: int, split: int) -> int:
     ``n_live``); the rest exit at once."""
     return _cdiv(min(max(seq_len, 0), max_tok), split)
 
+
+def prepare(q: torch.Tensor, n_kv: int, max_tok: int, bt: Optional[int]):
+    """The plan and the workspace of one launch over queries ``q`` [B,
+    H, hd], from shapes alone (no tensor's values are read)."""
+    B, H, hd = q.shape
+    plan = plan_splits(B, n_kv, max_tok, bt)
+    return plan, workspace(plan, B, n_kv, H // n_kv, hd, q.device)

@@ -63,9 +63,8 @@ def fused_paged_decode_attention(q, pool_k, pool_v, phys, seq_lens):
     check_operands("fused_paged_decode_attention", q.device, q=q,
                    pool_k=pool_k, pool_v=pool_v, phys=phys,
                    seq_lens=seq_lens)
-    plan = decode_splits.plan_splits(B, n_kv, max_blocks * BLOCK_TOKENS,
+    plan, ws = decode_splits.prepare(q, n_kv, max_blocks * BLOCK_TOKENS,
                                      BLOCK_TOKENS)
-    ws = decode_splits.workspace(plan, B, n_kv, H // n_kv, hd, q.device)
     out = torch.empty_like(q)
     DECODE_KERNEL(q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
                   phys.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),

@@ -111,8 +111,7 @@ def _launch(q, k, v, sk, sv, table, seq_lens, n_kv, layout, table_bt):
     """Plan the splits from shapes (``layout[2]`` is max_tok), allocate
     the output and the workspace, launch."""
     B, H, hd = q.shape
-    plan = decode_splits.plan_splits(B, n_kv, layout[2], table_bt)
-    ws = decode_splits.workspace(plan, B, n_kv, H // n_kv, hd, q.device)
+    plan, ws = decode_splits.prepare(q, n_kv, layout[2], table_bt)
     out = torch.empty_like(q)
     DECODE_INT8_KERNEL(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), sk.data_ptr(),
