@@ -131,11 +131,13 @@ def host_us(torch, fn, n: int = 60) -> float:
 
 
 def profiler_ms(torch, fn, match: str = "splitkv_", iters: int = 20):
-    """Device time per call of ``fn``'s kernels whose names contain
-    ``match``, from ``torch.profiler``'s CUDA activity over ``iters``
-    calls, each with L2 cold as in ``time_ms``: the sum (``ms``) and
-    each kernel's.  ``ms`` is None when the trace holds no device
-    time."""
+    """Device time of ``fn``'s kernels whose names contain ``match``,
+    from ``torch.profiler``'s CUDA activity over ``iters`` calls, each
+    with L2 cold as in ``time_ms``: ``ms``, the mean span of a call
+    (its first kernel's start to its last kernel's end: the merge
+    kernel's launch overlaps the split kernel), and each kernel's mean
+    duration.  ``ms`` is None when the trace holds no device time."""
+    import tempfile
     from torch.profiler import ProfilerActivity, profile
     flush = torch.ones(64 << 20, dtype=torch.int32, device="cuda")
     fn()
@@ -147,15 +149,29 @@ def profiler_ms(torch, fn, match: str = "splitkv_", iters: int = 20):
             fn()
         torch.cuda.synchronize()
     del flush
-    per = {}
-    for e in prof.key_averages():
-        if match in e.key:
-            t = getattr(e, "device_time_total", None)
-            t = t if t is not None else e.cuda_time_total
-            name = re.sub(r"^void repro::|\(.*$", "", e.key)
-            per[name] = per.get(name, 0.0) + t / iters / 1e3
-    total = sum(per.values())
-    return dict(ms=total if total > 0 else None, kernels_ms=per)
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.unlink(path)
+    kern = sorted((e for e in events if str(e.get("cat", "")).lower()
+                   == "kernel" and match in e.get("name", "")),
+                  key=lambda e: e["ts"])
+    spans, per = [], {}
+    for e in kern:                     # a call opens with its split kernel
+        name = re.sub(r"^void repro::|\(.*$", "", e["name"])
+        per.setdefault(name, []).append(e["dur"])
+        if "combine" not in name or not spans:
+            spans.append([e["ts"], e["ts"] + e["dur"]])
+        else:
+            spans[-1][1] = max(spans[-1][1], e["ts"] + e["dur"])
+    return dict(ms=(sum(b - a for a, b in spans) / len(spans) / 1e3
+                    if spans else None),
+                calls=len(spans),
+                kernels_ms={k: sum(v) / len(v) / 1e3 for k, v in per.items()})
 
 
 def bound_ms(n_bytes: float, flops: float, dtype_name: str):

@@ -425,7 +425,7 @@ template <typename T, typename KV, int HD, int CHUNK> struct SplitWalk {
 constexpr int TC_CHUNK = 64;
 
 template <typename T, typename KV, int HD>
-__global__ void __launch_bounds__(SK_THREADS)
+__global__ void __launch_bounds__(SK_THREADS, 3)   // three CTAs an SM
 splitkv_tc_kernel(const __grid_constant__ DecodeArgs<T, KV> a) {
   using W = SplitWalk<T, KV, HD, TC_CHUNK>;
   using L = typename W::L;

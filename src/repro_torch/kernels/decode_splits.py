@@ -8,12 +8,14 @@ plan is a function of shapes only: the longest row the cache can hold
 reading them would cost a host sync per layer of the serving loop.
 
 ``split`` starts at 64 tokens (one ring chunk of the bf16 body, two of
-the f32 body's) and doubles while the grid still holds at least one
-CTA per SM of an H100 (132), so a short tick fills the card and a long
-context gets fewer, longer splits.  (A sweep over the target, 66 to
-528 CTAs, put the best at 132 for both kernels at full-width qwen2-7b,
-16-1008 and 4096 cached tokens: ``chip_smoke.py --decode-sweep``.)  It is capped so a split's block ids fit the kernel's shared
-memory (``split / bt + 2 <= MAX_IDS``).
+the f32 body's) and doubles while the grid still holds at least one CTA
+per SM of an H100 (132), so a short tick fills the card and a long
+context gets fewer, longer splits.  (``chip_smoke.py --decode-sweep``
+times the kernels over this target: 132 beat 66, 264 and 528 at
+full-width qwen2-7b, and beat filling one wave of three CTAs an SM
+with 64-multiple splits.)  It is capped so a split's
+block ids fit the kernel's shared memory (``split / bt + 2 <=
+MAX_IDS``).
 """
 from __future__ import annotations
 

@@ -213,7 +213,7 @@ def test_decode_replay_matches_plain_and_pallas(dt, hd, H, n_kv):
     layer = 1
     phys = resolve_physical_blocks(torch.from_numpy(table), layer, n_kv)
     plan = dsp.plan_splits(len(LENS), n_kv, MAX_BLOCKS * BT, BT)
-    assert plan.n_splits >= 5 and plan.split == 64
+    assert plan.n_splits == 5 and plan.split == 64
     got = replay(q, pk, pv, None, None, phys.numpy(), LENS,
                  pi8.paged_layout(BT, MAX_BLOCKS), n_kv,
                  "f32" if dt == "f32" else "tc")
