@@ -3,8 +3,8 @@
 
   python3 chip_smoke.py                  # every phase, as documented below
   python3 chip_smoke.py --kernels-only   # phases 1-2 only, no result line
-  python3 chip_smoke.py --decode-sweep   # the decode kernels over the
-                                         # split planner's grid, no result line
+  python3 chip_smoke.py --decode-sweep   # the decode kernels over the split
+                                         # planner's target, no result line
 
 1. builds the five Hopper kernels (three attention kernels, the Mamba2
    SSD scan and the int8 decode attention of the W8/KV8 path) from
@@ -24,7 +24,12 @@
    work where one exists (scaled_dot_product_attention on gathered,
    dequantized K/V, a yardstick only; none computes SSD), the card's
    bound for the work and the kernel's achieved TFLOP/s, and for the bf16
-   prefill kernels the host's enqueue time per wrapper call;
+   prefill kernels and the two decode kernels the host's enqueue time
+   per wrapper call; the decode rows also carry the span of a call in
+   ``torch.profiler``'s CUDA trace (split kernel to merge kernel, beside
+   the CUDA-event time), the kernel's time before its split-KV redesign
+   (``earlier_ms``, a constant) and a long-context point, 8 rows of
+   4096 cached tokens;
 3. checks the serving steps on the card against the same steps on the
    CPU (plain versions) on the reduced models (qwen2-7b; the SSM
    chunk, prefill and decode steps of mamba2-2.7b and zamba2-1.2b; the
