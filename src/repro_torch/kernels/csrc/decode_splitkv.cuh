@@ -105,6 +105,15 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_u32(p)));
 }
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2],
+                                                  const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(smem_u32(p)));
+}
 // d += a b, m16n8k16, bf16 (F16 false) or f16 in, f32 accumulate
 template <bool F16>
 __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
@@ -237,10 +246,13 @@ struct Int8KV {
   static __device__ __forceinline__ void k_frags(const unsigned char* ks,
                                                  int tr0, int step, int lane,
                                                  uint32_t (&b)[2][2]) {
+    // an 8x8 b16 matrix per key tile: lane gets bytes 4c .. 4c + 3 of
+    // key n's 16 dims
+    uint32_t x[2];
+    ldmatrix_x2(x, ring_at<HD>(ks, tr0 + lane % 16, step * 16));
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
-      const uint32_t wx = 0x80808080u ^ *reinterpret_cast<const uint32_t*>(
-          ring_at<HD>(ks, tr0 + 8 * j + lane / 4, step * 16 + (lane % 4) * 4));
+      const uint32_t wx = 0x80808080u ^ x[j];
       b[j][0] = i8x2_f16(wx, 0x4140);     // dims 4c, 4c + 1
       b[j][1] = i8x2_f16(wx, 0x4342);     // dims 4c + 2, 4c + 3
     }
@@ -249,18 +261,15 @@ struct Int8KV {
   static __device__ __forceinline__ void v_frags(const unsigned char* vs,
                                                  int tr0, int p, int lane,
                                                  uint32_t (&b)[2][2]) {
-    const int c = lane % 4, byte = p * 16 + (lane / 4) * 2;
-    uint32_t w[4];   // rows 2c, 2c + 1, 2c + 8, 2c + 9: dims byte, byte + 1
+    // transposed 8x8 b16 matrices (keys 0-7, then 8-15): lane gets
+    // dims 16p + 2n, + 1 of keys 2c (low half) and 2c + 1 (high half)
+    uint32_t x[2];
+    ldmatrix_x2_trans(x, ring_at<HD>(vs, tr0 + lane % 16, p * 16));
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      w[i] = *reinterpret_cast<const unsigned short*>(
-          ring_at<HD>(vs, tr0 + 2 * c + (i / 2) * 8 + i % 2, byte));
-#pragma unroll
-    for (int k = 0; k < 2; ++k) {     // key rows 2c, 2c+1 (k 0); +8 (k 1)
-      const uint32_t wx = 0x80808080u ^ __byte_perm(w[2 * k], w[2 * k + 1],
-                                                    0x5410);
-      b[0][k] = i8x2_f16(wx, 0x4240);     // tile 2p: dim byte
-      b[1][k] = i8x2_f16(wx, 0x4341);     // tile 2p + 1: dim byte + 1
+    for (int k = 0; k < 2; ++k) {     // keys 2c, 2c+1 (k 0); +8 (k 1)
+      const uint32_t wx = 0x80808080u ^ x[k];
+      b[0][k] = i8x2_f16(wx, 0x4240);     // tile 2p: dim 16p + 2n
+      b[1][k] = i8x2_f16(wx, 0x4341);     // tile 2p + 1: dim 16p + 2n + 1
     }
   }
   static __device__ __forceinline__ int o_dim(int j, int col) {
