@@ -299,15 +299,21 @@ def check_kernels(torch, np, shape: dict) -> dict:
     del kg, vg
     if shape["label"] in LONG_SHAPES:
         # the long-context point: every row at LONG_TOKENS cached tokens
-        # (one layer's pool, so the pool is the bytes the kernel reads)
+        # (one layer's pool, so the pool is the bytes the kernel reads),
+        # from generators of its own: the other shapes' inputs stay
+        lgen = torch.Generator(device="cuda").manual_seed(1)
+
+        def lrandn(*s):
+            return torch.randn(s, generator=lgen, device="cuda").to(dt)
         Wl = LONG_TOKENS // 16
-        lk, lv = randn(rows * Wl * KV, 16, hd), randn(rows * Wl * KV, 16, hd)
+        lk, lv = lrandn(rows * Wl * KV, 16, hd), lrandn(rows * Wl * KV, 16, hd)
         tl = (np.arange(rows * Wl, dtype=np.int32) * KV).reshape(rows, Wl)
-        tl = np.ascontiguousarray(tl[:, rng.permutation(Wl)])
+        tl = np.ascontiguousarray(
+            tl[:, np.random.default_rng(1).permutation(Wl)])
         lphys = resolve_physical_blocks(torch.from_numpy(tl).cuda(), 0, KV)
         lseq = torch.full((rows,), LONG_TOKENS, dtype=torch.int32,
                           device="cuda")
-        ql = randn(rows, H, hd)
+        ql = lrandn(rows, H, hd)
         out = pa.fused_paged_decode_attention(ql, lk, lv, lphys, lseq)
         ref = pa.decode_plain(ql, lk, lv, lphys, lseq)
         lerr = (out.float() - ref.float()).abs().max().item()
@@ -410,10 +416,10 @@ def check_int8(torch, np, shape: dict) -> dict:
     rng = np.random.default_rng(0)
     gen = torch.Generator(device="cuda").manual_seed(0)
 
-    def int8_cache(*s):
-        q = torch.randint(-127, 128, s, generator=gen, device="cuda",
+    def int8_cache(*s, g=gen):
+        q = torch.randint(-127, 128, s, generator=g, device="cuda",
                           dtype=torch.int8)
-        return q, torch.rand(s[:-1], generator=gen, device="cuda") * 0.05 + 1e-3
+        return q, torch.rand(s[:-1], generator=g, device="cuda") * 0.05 + 1e-3
 
     gsz = L * KV
     n_groups = rows * W
@@ -447,8 +453,10 @@ def check_int8(torch, np, shape: dict) -> dict:
     cases = {}
     if shape["label"] in LONG_SHAPES:
         # the long-context point: a one-layer dense cache, every row at
-        # LONG_TOKENS cached tokens
-        dl = [int8_cache(1, rows, LONG_TOKENS, KV, hd) for _ in range(2)]
+        # LONG_TOKENS cached tokens (a generator of its own)
+        lgen = torch.Generator(device="cuda").manual_seed(1)
+        dl = [int8_cache(1, rows, LONG_TOKENS, KV, hd, g=lgen)
+              for _ in range(2)]
         cases["dense_long"] = dense_case(
             dl[0][0][0], dl[1][0][0], dl[0][1][0], dl[1][1][0],
             torch.full((rows,), LONG_TOKENS, dtype=torch.int32,
