@@ -317,6 +317,12 @@ template <typename KV, int HD, int CHUNK> struct SkSmem {
   static constexpr int L_OFF = M_OFF + 4 * SK_MAX_GROUP * 4;
   static constexpr int ROWS_OFF = L_OFF + 4 * SK_MAX_GROUP * 4;
   static constexpr int BYTES = ROWS_OFF + SK_MAX_IDS * 8;
+  // CTAs an SM, the tensor-core body's launch bound: as many as an
+  // H100's 228 KB of shared memory holds (1 KB of it reserved per CTA),
+  // at most 3, which leaves 168 registers a thread.  bf16 K/V: 2 at
+  // hd 128, 3 at hd 64; int8 K/V: 3.
+  static constexpr int SM_FIT = 228 * 1024 / (BYTES + 1024);
+  static constexpr int RESIDENT = SM_FIT < 1 ? 1 : (SM_FIT > 3 ? 3 : SM_FIT);
   static_assert(UNITS >= 4, "a cache row must hold at least 64 bytes");
   static_assert(SK_SPLIT_ALIGN % CHUNK == 0, "a split is whole chunks");
 };
@@ -434,7 +440,8 @@ template <typename T, typename KV, int HD, int CHUNK> struct SplitWalk {
 constexpr int TC_CHUNK = 64;
 
 template <typename T, typename KV, int HD>
-__global__ void __launch_bounds__(SK_THREADS, 3)   // three CTAs an SM
+__global__ void __launch_bounds__(SK_THREADS,
+                                  (SkSmem<KV, HD, TC_CHUNK>::RESIDENT))
 splitkv_tc_kernel(const __grid_constant__ DecodeArgs<T, KV> a) {
   using W = SplitWalk<T, KV, HD, TC_CHUNK>;
   using L = typename W::L;
@@ -782,22 +789,25 @@ splitkv_f32_kernel(const __grid_constant__ DecodeArgs<T, KV> a) {
   });
 }
 
-// The merge, a kernel of its own: one CTA per (head, kv head, row)
-// with two or more live splits, a thread per output dim.  It is
-// launched as a programmatic dependent of the split kernel, so its
-// CTAs are placed while the split kernel runs and wait there
-// (griddepcontrol.wait) until every split has written its state.
+// The merge, a kernel of its own: one CTA per (head, kv head, row), a
+// thread per output dim; rows of two or more live splits are merged.
+// It is launched as a programmatic dependent of the split kernel, so
+// its CTAs are placed while the split kernel runs, and every CTA waits
+// there (griddepcontrol.wait) until the split grid has completed and
+// its writes are visible, before it reads or exits: a CTA that exits
+// early must wait too, or the merge grid could complete, and release
+// the stream's next kernel, before the splits have written ``out``.
 template <typename T, int HD>
 __global__ void __launch_bounds__(HD)
 splitkv_combine_kernel(const float* __restrict__ ws,
                        const int* __restrict__ seq_lens, T* __restrict__ out,
                        int H, int n_kv, int group, int split, int n_splits,
                        int max_tok) {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
   const int g = blockIdx.x, h = blockIdx.y, b = blockIdx.z, d = threadIdx.x;
   const int n_tok = min(max(seq_lens[b], 0), max_tok);
   const int n_live = (n_tok + split - 1) / split;
   if (n_live <= 1) return;       // written by its split
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
   const int bh = b * n_kv + h;
   const float2* ml = reinterpret_cast<const float2*>(ws) +
                      (long long)bh * n_splits * SK_MAX_GROUP + g;

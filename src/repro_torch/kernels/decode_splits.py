@@ -9,22 +9,21 @@ reading them would cost a host sync per layer of the serving loop.
 
 ``split`` starts at 64 tokens (one ring chunk of the bf16 body, two of
 the f32 body's) and doubles while the grid still holds at least one CTA
-per SM of an H100 (132), so a short tick fills the card and a long
-context gets fewer, longer splits.  (``chip_smoke.py --decode-sweep``
-times the kernels over this target: 132 beat 66, 264 and 528 at
-full-width qwen2-7b, and beat filling one wave of three CTAs an SM
-with 64-multiple splits.)  It is capped so a split's
-block ids fit the kernel's shared memory (``split / bt + 2 <=
+per SM of the card (``sms``: 132 on an H100 SXM, read from the device's
+properties), so a short tick fills the card and a long context gets
+fewer, longer splits.  (On an H100 at full-width qwen2-7b, one CTA an
+SM timed faster than a half, two and four, and than one wave of three
+CTAs an SM with 64-multiple splits; see PERF.md.)  It is capped so a
+split's block ids fit the kernel's shared memory (``split / bt + 2 <=
 MAX_IDS``).
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
 
-SM_COUNT = 132          # H100 SXM
-TARGET_CTAS = SM_COUNT
 ALIGN = 64              # SK_SPLIT_ALIGN: a split is whole ring chunks
 MIN_SPLIT = 64
 MAX_SPLIT = 4096
@@ -41,17 +40,18 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def plan_splits(rows: int, n_kv: int, max_tok: int,
-                bt: Optional[int] = None) -> SplitPlan:
+def plan_splits(rows: int, n_kv: int, max_tok: int, bt: Optional[int],
+                sms: int) -> SplitPlan:
     """The split of a launch over ``rows`` x ``n_kv`` (row, kv head)
-    pairs of at most ``max_tok`` cached tokens; ``bt`` is the block
-    size when the kernel reads a block table (None: no table)."""
+    pairs of at most ``max_tok`` cached tokens on a card of ``sms`` SMs;
+    ``bt`` is the block size when the kernel reads a block table (None:
+    no table)."""
     cap = MAX_SPLIT if bt is None else min(MAX_SPLIT, (MAX_IDS - 2) * bt)
     cap = max(ALIGN, cap // ALIGN * ALIGN)
     split = min(MIN_SPLIT, cap)
     pairs = rows * n_kv
     while (split < max_tok and split * 2 <= cap
-           and pairs * _cdiv(max_tok, split * 2) >= TARGET_CTAS):
+           and pairs * _cdiv(max_tok, split * 2) >= sms):
         split *= 2
     return SplitPlan(split, max(1, _cdiv(max_tok, split)))
 
@@ -73,15 +73,19 @@ def workspace(plan: SplitPlan, rows: int, n_kv: int, group: int, hd: int,
                        dtype=torch.float32, device=device)
 
 
-def live_splits(seq_len: int, max_tok: int, split: int) -> int:
-    """Splits of a row that hold at least one token (the kernel's
-    ``n_live``); the rest exit at once."""
-    return _cdiv(min(max(seq_len, 0), max_tok), split)
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The SM count of CUDA ``device`` (a tensor's: it has an index),
+    read once per device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def prepare(q: torch.Tensor, n_kv: int, max_tok: int, bt: Optional[int]):
+def prepare(q: torch.Tensor, n_kv: int, max_tok: int, bt: Optional[int],
+            sms: Optional[int] = None):
     """The plan and the workspace of one launch over queries ``q`` [B,
-    H, hd], from shapes alone (no tensor's values are read)."""
+    H, hd], from shapes alone (no tensor's values are read); ``sms``
+    defaults to ``q``'s card's SM count."""
     B, H, hd = q.shape
-    plan = plan_splits(B, n_kv, max_tok, bt)
+    plan = plan_splits(B, n_kv, max_tok, bt,
+                       sm_count(q.device) if sms is None else sms)
     return plan, workspace(plan, B, n_kv, H // n_kv, hd, q.device)

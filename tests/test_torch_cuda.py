@@ -17,12 +17,15 @@ the same bf16 inputs.
 The SSD scan's output sums up to a chunk's worth of terms, and the int8
 decode kernel's output scales with the cache's scales, so their
 tolerance is relative to the plain output's largest magnitude (the same
-1e-4 and 2e-2).
+1e-4 and 2e-2).  So is the decode kernels' on rows of thousands of
+tokens, whose outputs are ~sqrt(e / n_tokens) in size, as large as an
+absolute 2e-2.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import decode_splits as dsp
 from repro_torch.kernels import flash_prefill as fp
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pa
@@ -348,6 +351,16 @@ def test_int8_decode_kernel_refuses_bad_operands(dev):
 # -1, length 1), group 1 at hd 64 and group 7 at hd 128.
 SPLIT_LENS = [1, 17, 4096, 0, 1, 700, 2049, 4000]
 SPLIT_PADDED, SPLIT_EMPTY = 4, 3
+SPLIT_LONG = [i for i, n in enumerate(SPLIT_LENS) if n > 2048]
+
+
+def _long_rows_close(out, ref, dtype):
+    """The long rows held relative to their plain outputs' largest
+    magnitude."""
+    o, r = out[SPLIT_LONG].float(), ref[SPLIT_LONG].float()
+    scale = r.abs().max().item()
+    err = (o - r).abs().max().item()
+    assert err <= TOL[dtype] * scale, (err, scale)
 
 
 def _split_tables(rng, lens, max_blocks, group_size):
@@ -392,6 +405,7 @@ def test_decode_kernel_splits_match_plain(dev, dtype, hd, H, n_kv):
     keep = [i for i in range(len(SPLIT_LENS)) if i != SPLIT_EMPTY]
     err = (out[keep].float() - ref[keep].float()).abs().max().item()
     assert err <= TOL[dtype], err
+    _long_rows_close(out, ref, dtype)
 
 
 @pytest.mark.parametrize("dtype,hd,H,n_kv", [
@@ -423,6 +437,7 @@ def test_int8_decode_kernel_splits_match_plain_paged(dev, dtype, hd, H, n_kv):
     scale = ref.float().abs().max().item()
     err = (out.float() - ref.float()).abs().max().item()
     assert err <= TOL[dtype] * scale, (err, scale)
+    _long_rows_close(out, ref, dtype)
 
 
 # the W8/KV8 step's S 544 (8.5 splits of 64) and S that no split size
@@ -452,3 +467,50 @@ def test_int8_decode_kernel_splits_match_plain_dense(dev, dtype, hd, H, KV,
     scale = ref.float().abs().max().item()
     err = (out.float() - ref.float()).abs().max().item()
     assert err <= TOL[dtype] * scale, (err, scale)
+
+
+# Every row within one split while the plan has several: the merge
+# kernel's CTAs all find their row written by its split, and its grid
+# must still not complete before the split grid has (it is launched as a
+# programmatic dependent).  Its output feeds the next op on the stream
+# (a projection, as o_proj takes it) with no synchronize between.
+@pytest.mark.parametrize("kernel", ["paged", "int8_dense"])
+def test_decode_kernels_one_live_split_feed_next_op(dev, kernel):
+    B, H, n_kv, hd, max_tok = 8, 28, 4, 128, 4096
+    plan = dsp.plan_splits(B, n_kv, max_tok, 16 if kernel == "paged"
+                           else None, dsp.sm_count(dev))
+    assert plan.n_splits > 1
+    rng = np.random.default_rng(15)
+    lens_np = rng.integers(1, plan.split + 1, B).astype(np.int32)
+    lens_np[0] = plan.split
+    lens = torch.from_numpy(lens_np).to(dev)
+    g = torch.Generator(device=dev).manual_seed(16)
+    q = torch.randn((B, H, hd), generator=g, device=dev).bfloat16()
+    w = torch.randn((H * hd, 512), generator=g, device=dev).bfloat16()
+    if kernel == "paged":
+        mb = max_tok // 16
+        table = (rng.permutation(B * mb) * n_kv).astype(np.int32)
+        phys = resolve_physical_blocks(
+            torch.from_numpy(table.reshape(B, mb)).to(dev), 0, n_kv)
+        pool_k, pool_v = _pool(B * mb * n_kv, hd, torch.bfloat16, dev, 17)
+        args = (q, pool_k, pool_v, phys, lens)
+        counter, kern, plain = (pa.DECODE_KERNEL,
+                                pa.fused_paged_decode_attention,
+                                pa.decode_plain)
+    else:
+        ck, sk = _int8_cache(dev, (B, max_tok, n_kv, hd), 18)
+        cv, sv = _int8_cache(dev, (B, max_tok, n_kv, hd), 19)
+        args = (q, ck, cv, sk, sv, lens)
+        counter, kern, plain = (pi8.DECODE_INT8_KERNEL,
+                                pi8.dense_decode_attention_int8,
+                                pi8.dense_int8_plain)
+    torch.cuda.synchronize()
+    n0 = counter.launches
+    y = kern(*args).reshape(B, H * hd) @ w
+    torch.cuda.synchronize()
+    assert counter.launches == n0 + 1
+    y_ref = plain(*args).reshape(B, H * hd) @ w
+    scale = y_ref.float().abs().max().item()
+    err = (y.float() - y_ref.float()).abs().max().item()
+    assert torch.isfinite(y.float()).all()
+    assert err <= TOL[torch.bfloat16] * scale, (err, scale)

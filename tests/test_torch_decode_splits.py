@@ -37,6 +37,7 @@ torch.set_num_threads(2)
 NEG_INF = np.float32(-1e30)
 TOL = {"f32": 2e-5, "bf16": 2e-2}
 BT = 16
+SMS = 132            # an H100 SXM's SM count
 
 
 # ---------------------------------------------------------------------------
@@ -53,14 +54,14 @@ BT = 16
     (4, 2, 320, 16),
 ])
 def test_plan_respects_the_kernels_limits(rows, n_kv, max_tok, bt):
-    split, n = dsp.plan_splits(rows, n_kv, max_tok, bt)
+    split, n = dsp.plan_splits(rows, n_kv, max_tok, bt, SMS)
     assert split % dsp.ALIGN == 0 and split >= dsp.MIN_SPLIT
     assert n >= 1 and split * n >= max_tok
     assert split * (n - 1) < max(max_tok, 1)          # no split wholly past
     if bt is not None:
         assert split // bt + 2 <= dsp.MAX_IDS         # block ids fit smem
     if split > dsp.MIN_SPLIT:                         # it doubled: the grid
-        assert rows * n_kv * n >= dsp.TARGET_CTAS     # still fills the card
+        assert rows * n_kv * n >= SMS                 # still fills the card
 
 
 def test_plan_reads_shapes_only():
@@ -68,12 +69,12 @@ def test_plan_reads_shapes_only():
     (which hold no values) give the same plan as real ones, and the
     planner takes no length tensor at all."""
     q = torch.empty((8, 28, 128), dtype=torch.bfloat16, device="meta")
-    plan, ws = dsp.prepare(q, 4, 64 * BT, BT)
-    assert plan == dsp.plan_splits(8, 4, 64 * BT, BT)
+    plan, ws = dsp.prepare(q, 4, 64 * BT, BT, SMS)
+    assert plan == dsp.plan_splits(8, 4, 64 * BT, BT, SMS)
     assert ws.device.type == "meta"
     assert ws.numel() == dsp.workspace_floats(plan, 8, 4, 7, 128)
     q1 = torch.empty((2, 4, 64), device="meta")
-    plan1, ws1 = dsp.prepare(q1, 2, 16, BT)
+    plan1, ws1 = dsp.prepare(q1, 2, 16, BT, SMS)
     assert plan1.n_splits == 1 and ws1 is None
 
 
@@ -149,7 +150,7 @@ def replay(q, k, v, sk, sv, table, lens, layout, n_kv, body):
     B, H, hd = q.shape
     G, max_tok = H // n_kv, layout[2]
     plan = dsp.plan_splits(B, n_kv, max_tok,
-                           layout[1] if table is not None else None)
+                           layout[1] if table is not None else None, SMS)
     out = np.zeros((B, H, hd), np.float32)
     for b in range(B):
         n_tok = min(max(int(lens[b]), 0), max_tok)
@@ -212,7 +213,7 @@ def test_decode_replay_matches_plain_and_pallas(dt, hd, H, n_kv):
         q, pk, pv = (_round(x, "bf16") for x in (q, pk, pv))
     layer = 1
     phys = resolve_physical_blocks(torch.from_numpy(table), layer, n_kv)
-    plan = dsp.plan_splits(len(LENS), n_kv, MAX_BLOCKS * BT, BT)
+    plan = dsp.plan_splits(len(LENS), n_kv, MAX_BLOCKS * BT, BT, SMS)
     assert plan.n_splits == 5 and plan.split == 64
     got = replay(q, pk, pv, None, None, phys.numpy(), LENS,
                  pi8.paged_layout(BT, MAX_BLOCKS), n_kv,
@@ -275,7 +276,7 @@ def test_int8_dense_replay_matches_plain(dt, S):
     if dt == "bf16":
         q = _round(q, "bf16")
     lens = np.array([0, 1, S, S - 37, 65], np.int32)
-    plan = dsp.plan_splits(B, KV, S)
+    plan = dsp.plan_splits(B, KV, S, None, SMS)
     assert S % plan.split and plan.n_splits >= 4
     got = replay(q, ck, cv, sk, sv, None, lens, pi8.dense_layout(S, KV), KV,
                  "f32" if dt == "f32" else "tc_i8")
