@@ -1229,8 +1229,7 @@ def main() -> int:
             "ms": r["ms"], "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "tflops": r["tflops"],
-            **({"host_us": r["host_us"]} if "host_us" in r else {}),
-            **({"profiler": r["profiler"]} if "profiler" in r else {}),
+            **{k: r[k] for k in ("host_us", "call_us", "profiler") if k in r},
             "shapes": full["label"],
             **({"long_context": checks[full["label"]]["decode_long"]}
                if key == "decode" else {}),
