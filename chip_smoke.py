@@ -6,29 +6,32 @@
 1. builds the five Hopper kernels (three attention kernels, the Mamba2
    SSD scan and the int8 decode attention of the W8/KV8 path) from
    ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel),
-   and counts the tensor-core instructions (``HGMMA``, from
-   ``cuobjdump -sass``) of each prefill kernel instantiation: every bf16
-   one must have some, the f32 ones (CUDA-core tile) none;
+   and counts the tensor-core instructions (from ``cuobjdump -sass``) of
+   each prefill (``HGMMA``) and SSD (``HMMA``) kernel instantiation:
+   every bf16 one must have some, the f32 ones (CUDA-core bodies) none;
 2. holds each kernel against its plain PyTorch version at the serving
    path's shapes — full-width qwen2-7b (bf16, head_dim 128), zamba2-1.2b's
    shared attention (bf16, 32 heads of 64, group 1, a 272-token
    whole-prompt bucket) and the reduced CPU-test model (f32, head_dim
    64) for attention, the int8
    decode through both of its addressings (paged pool and dense cache
-   layer); the mamba2-2.7b chunk step, a zamba2-1.2b whole-prompt bucket
-   and a reduced ragged f32 case for the SSD scan — and times the
+   layer); the mamba2-2.7b chunk step with 4, 2 and 1 slots, a
+   zamba2-1.2b whole-prompt bucket of 2 rows and of 1, and a reduced
+   ragged f32 case for the SSD scan — and times the
    kernel, the plain version, one PyTorch library call over the same
    work where one exists (scaled_dot_product_attention on gathered,
    dequantized K/V, a yardstick only; none computes SSD), the card's
    bound for the work and the kernel's achieved TFLOP/s, and for the bf16
-   prefill kernels and the two decode kernels the host's enqueue time
-   per wrapper call; the decode rows also carry the wall time of one
-   call met with the card idle (enqueue, launch and device time in
-   series), the span of a call in ``torch.profiler``'s CUDA trace (split
-   kernel to merge kernel, beside the CUDA-event time), the kernel's
-   time before its split-KV redesign (``earlier_ms``, a constant) and a
+   prefill kernels, the two decode kernels and the SSD scan the host's
+   enqueue time per wrapper call and the wall time of one call met with
+   the card idle (enqueue, launch and device time in series); the decode
+   and SSD rows also carry the span of a call in ``torch.profiler``'s
+   CUDA trace (beside the CUDA-event time) and the kernel's time before
+   its redesign (``earlier_ms``, a constant), the decode rows a
    long-context point, 8 rows of 4096 cached tokens, held to a tolerance
-   relative to the plain output's largest magnitude;
+   relative to the plain output's largest magnitude, and the bf16 SSD
+   rows the launch's plan (P-slice, warps, CTAs), whose shared memory
+   by the host's copy of the layout must equal the built source's;
 3. checks the serving steps on the card against the same steps on the
    CPU (plain versions) on the reduced models (qwen2-7b; the SSM
    chunk, prefill and decode steps of mamba2-2.7b and zamba2-1.2b; the
@@ -68,9 +71,15 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 # The decode kernels' times at the full-width shapes before their
 # split-KV redesign (one CTA per row and kv head; NVIDIA H100 80GB HBM3,
-# 700 W; timed with an L2 flush by writing and no card sleep): printed
-# beside this run's times, not measured by it.
-EARLIER_MS = {"decode": 0.1228, "dense_w8kv8_step": 0.0856}
+# 700 W; timed with an L2 flush by writing and no card sleep), and the
+# SSD scan's: printed beside this run's times, not measured by it.
+EARLIER_MS = {"decode": 0.1228, "dense_w8kv8_step": 0.0856,
+              # the SSD scan's CUDA-core kernel before its tensor-core
+              # redesign, by its own smoke script on the same card: the
+              # mean of the two turns PERF.md's kernel table gives as
+              # kernel 4's earlier time (NVIDIA H100 80GB HBM3, 700 W)
+              "mamba2-2.7b chunk step bf16": 0.17495,
+              "zamba2-1.2b whole-prompt bucket bf16": 0.4526}
 LONG_TOKENS = 4096                 # the decode kernels' long-context point
 LONG_SHAPES = ("qwen2-7b full width bf16",)   # the shapes that time it
 PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor-core bf16
@@ -208,38 +217,54 @@ def bound_ms(n_bytes: float, flops: float, dtype_name: str):
                                        else "operations")
 
 
-def tensor_core_sass() -> dict:
-    """HGMMA (wgmma) instructions per kernel in the SASS of the two
-    prefill libraries, by demangled name.  Raises unless every bf16
-    instantiation (``tc_attention_kernel``) has some and every float32
-    one (the CUDA-core tile) has none."""
+def _sass_counts(src: str, opcode: str) -> dict:
+    """Instructions of ``opcode`` per kernel in the SASS of ``src``'s
+    library (``cuobjdump -sass``), by demangled name."""
     from repro_torch.kernels import build
     tool = Path(build._nvcc()).with_name("cuobjdump")
-    counts = {}
-    for src in ("flash_prefill.cu", "paged_prefill.cu"):
-        sass = subprocess.run([str(tool), "-sass", str(build.library_path(src))],
-                              capture_output=True, text=True, check=True,
-                              timeout=300).stdout
-        fn = None
-        for line in sass.splitlines():
-            m = re.search(r"Function : (\S+)", line)
-            if m:
-                fn = m.group(1)
-                counts[fn] = 0
-            elif fn is not None and re.search(r"\bHGMMA\b", line):
-                counts[fn] += 1
+    sass = subprocess.run([str(tool), "-sass", str(build.library_path(src))],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn is not None and re.search(rf"\b{opcode}\b", line):
+            counts[fn] += 1
     if shutil.which("c++filt"):
         names = subprocess.run(["c++filt"], input="\n".join(counts),
                                capture_output=True, text=True, check=True,
                                timeout=60).stdout.splitlines()
         counts = dict(zip(names, counts.values()))
+    return counts
+
+
+def tensor_core_sass() -> dict:
+    """Tensor-core instructions per kernel instantiation: HGMMA (wgmma)
+    in the two prefill libraries, HMMA (mma.sync) in the SSD scan's.
+    Raises unless every bf16 instantiation (``tc_attention_kernel``,
+    ``ssd_scan_tc_kernel``) has some and every float32 one (the
+    CUDA-core bodies) has none."""
+    counts = {}
+    for src in ("flash_prefill.cu", "paged_prefill.cu"):
+        counts.update(_sass_counts(src, "HGMMA"))
     tc = {k: v for k, v in counts.items() if "tc_attention_kernel" in k}
     f32 = {k: v for k, v in counts.items() if "prefill_kernel" in k}
     if len(tc) != 4 or min(tc.values()) == 0:
         raise AssertionError(f"bf16 prefill kernels without HGMMA: {tc}")
     if len(f32) != 4 or max(f32.values()) != 0:
         raise AssertionError(f"float32 prefill kernels with HGMMA: {f32}")
-    return {"bf16": tc, "float32": f32}
+    ssd = _sass_counts("ssd_scan.cu", "HMMA")
+    ssd_tc = {k: v for k, v in ssd.items() if "ssd_scan_tc_kernel" in k}
+    ssd_f32 = {k: v for k, v in ssd.items() if "ssd_scan_kernel" in k}
+    if len(ssd_tc) != 3 or min(ssd_tc.values()) == 0:
+        raise AssertionError(f"bf16 SSD kernels without HMMA: {ssd_tc}")
+    if len(ssd_f32) != 1 or max(ssd_f32.values()) != 0:
+        raise AssertionError(f"float32 SSD kernel with HMMA: {ssd_f32}")
+    return {"HGMMA": {"bf16": tc, "float32": f32},
+            "HMMA": {"bf16": ssd_tc, "float32": ssd_f32}}
 
 
 # ---------------------------------------------------------------------------
@@ -387,8 +412,10 @@ def check_kernels(torch, np, shape: dict) -> dict:
             qt, kg, vg, attn_mask=mask)),
         bound_ms=b, bound_by=why)
     if dname == "bfloat16":   # checks, output, two TMA maps, launch
-        res["chunk"]["host_us"] = host_us(torch, lambda: (
-            fp.fused_paged_flash_prefill(q, pool_k, pool_v, phys, qo)))
+        kern = lambda: fp.fused_paged_flash_prefill(q, pool_k, pool_v, phys,
+                                                    qo)
+        res["chunk"]["host_us"] = host_us(torch, kern)
+        res["chunk"]["call_us"] = call_us(torch, kern)
     del kg, vg, pool_k, pool_v
 
     # dense flash prefill: a whole-prompt bucket
@@ -410,8 +437,9 @@ def check_kernels(torch, np, shape: dict) -> dict:
             qt, kt, vt, is_causal=True)),
         bound_ms=b, bound_by=why)
     if dname == "bfloat16":
-        res["flash"]["host_us"] = host_us(
-            torch, lambda: fp.flash_prefill(q, k, v))
+        kern = lambda: fp.flash_prefill(q, k, v)
+        res["flash"]["host_us"] = host_us(torch, kern)
+        res["flash"]["call_us"] = call_us(torch, kern)
     for name, r in res.items():
         tol = r.setdefault("tolerance", TOL[dname])
         if not r["max_abs_err"] <= tol:
@@ -547,9 +575,14 @@ def check_int8(torch, np, shape: dict) -> dict:
 
 def check_ssd(torch, shape: dict) -> dict:
     """Hold the SSD-scan kernel against its plain version at one shape;
-    returns its numbers.  No single PyTorch call computes SSD, so there
-    is no library yardstick (``library_ms`` null)."""
+    returns its numbers: the kernel's time, the plain version's, the
+    bound, the wrapper's host time and one call's wall time, the
+    profiler's span and the launch's plan (P-slice, warps) and CTA count.
+    No single
+    PyTorch call computes SSD, so there is no library yardstick
+    (``library_ms`` null)."""
     from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.kernels.build import sm_count
     dt_ = shape["dtype"]
     dname = str(dt_).replace("torch.", "")
     es = torch.empty((), dtype=dt_).element_size()
@@ -584,16 +617,30 @@ def check_ssd(torch, shape: dict) -> dict:
         flops += (q * (q + 1) // 2) * (2 * N + 2 * P) + 4 * q * P * N
     flops *= b * H
     bnd, why = bound_ms(n_bytes, flops, dname)
+    kern = lambda: ss.ssd_scan(x, dt, a_log, B, C, d_skip, Q, st)
+    plan = (ss.plan_launch(b, H, Q, N, sm_count(x.device))
+            if dt_ == torch.bfloat16 else ss.F32_PLAN)
     res = dict(max_abs_err=errs[0], tolerance=tols[0],
                state_max_abs_err=errs[1], state_tolerance=tols[1],
-               tolerance_rel=rel,
-               ms=time_ms(torch, lambda: ss.ssd_scan(x, dt, a_log, B, C,
-                                                     d_skip, Q, st)),
+               tolerance_rel=rel, ms=time_ms(torch, kern),
                plain_ms=time_ms(torch, lambda: ss.ssd_plain(
                    x, dt, a_log, B, C, d_skip, Q, st)),
                library_ms=None, bound_ms=bnd, bound_by=why,
-               bytes=n_bytes, flops=flops)
+               bytes=n_bytes, flops=flops, p_slice=plan[0], warps=plan[1],
+               ctas=ss.grid_ctas(b, H, plan[0]),
+               host_us=host_us(torch, kern), call_us=call_us(torch, kern),
+               profiler=profiler_ms(torch, kern, match="ssd_scan"))
     res["tflops"] = flops / res["ms"] / 1e9
+    if shape["label"] in EARLIER_MS:
+        res["earlier_ms"] = EARLIER_MS[shape["label"]]
+    if dt_ == torch.bfloat16:
+        # the plan was made from the host's copy of the shared-memory
+        # layout: it must be the built source's
+        smem = (ss.tc_smem_bytes(Q, N, plan[0]), ss.source_smem(Q, N, plan[0]))
+        if smem[0] != smem[1] or ss.source_smem(0, 0, 0) != ss.MAX_SMEM:
+            raise AssertionError(f"ssd_scan: the host's shared-memory "
+                                 f"layout {smem[0]} B is not the source's "
+                                 f"{smem[1]} B at {shape['label']}")
     if not all(e <= t for e, t in zip(errs, tols)):
         raise AssertionError(f"ssd_scan disagrees with its plain version at "
                              f"{shape['label']}: |Δ| {errs} > {tols} "
@@ -1088,7 +1135,7 @@ def main() -> int:
     took = build.build_all()
     print(f"kernels built in {time.perf_counter() - t0:.1f}s "
           f"(per source: {json.dumps({k: round(v, 1) for k, v in took.items()})})")
-    print("tensor cores (HGMMA instructions in cuobjdump -sass): "
+    print("tensor cores (HGMMA and HMMA instructions in cuobjdump -sass): "
           + json.dumps(tensor_core_sass()))
 
     full = dict(label="qwen2-7b full width bf16", dtype=torch.bfloat16, H=28,
@@ -1111,8 +1158,17 @@ def main() -> int:
     ssd_shapes = [
         dict(label="mamba2-2.7b chunk step bf16", dtype=torch.bfloat16, b=4,
              S=64, chunk=64, H=80, G=1, N=128, init=True),
+        dict(label="mamba2-2.7b chunk step bf16, two slots",
+             dtype=torch.bfloat16, b=2, S=64, chunk=64, H=80, G=1, N=128,
+             init=True),
+        dict(label="mamba2-2.7b chunk step bf16, one slot",
+             dtype=torch.bfloat16, b=1, S=64, chunk=64, H=80, G=1, N=128,
+             init=True),
         dict(label="zamba2-1.2b whole-prompt bucket bf16",
              dtype=torch.bfloat16, b=2, S=512, chunk=256, H=64, G=1, N=64,
+             init=False),
+        dict(label="zamba2-1.2b whole-prompt bucket bf16, one row",
+             dtype=torch.bfloat16, b=1, S=512, chunk=256, H=64, G=1, N=64,
              init=False),
         dict(label="reduced f32, 2 groups, ragged chunk", dtype=torch.float32,
              b=2, S=72, chunk=32, H=8, G=2, N=16, init=True),
@@ -1196,13 +1252,18 @@ def main() -> int:
                 "source": f"src/repro_torch/kernels/csrc/{k.source}",
                 "replaces": k.replaces, "launches": launches[k.symbol]}
         if k.symbol == "repro_ssd_scan":
+            # earlier_ms is a constant, not this run's: the check lines
+            # print it, the kernels line does not
             main_shape, *others = ssd_shapes
-            r = ssd[main_shape["label"]]
+            measured = {label: {k: v for k, v in r.items()
+                                if k != "earlier_ms"}
+                        for label, r in ssd.items()}
+            r = measured[main_shape["label"]]
             rows.append({
                 "name": "ssd_scan", **base, **r, "kernel_ms": r["ms"],
                 "shapes": main_shape["label"],
-                "other_shapes": [{"shapes": o["label"], **ssd[o["label"]]}
-                                 for o in others]})
+                "other_shapes": [{"shapes": o["label"],
+                                  **measured[o["label"]]} for o in others]})
             continue
         if k.symbol == "repro_decode_int8":
             # the main path's shape (one dense cache layer of the W8/KV8

@@ -137,6 +137,13 @@ class CudaKernel:
         self.launches += 1
 
 
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The SM count of CUDA ``device`` (a tensor's: it has an index),
+    read once per device; the kernels' grids are planned from it."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def dtype_code(dtype: torch.dtype) -> int:
     """The kernels' element-type code (0 f32, 1 bf16)."""
     codes = {torch.float32: 0, torch.bfloat16: 1}

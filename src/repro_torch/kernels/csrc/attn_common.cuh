@@ -1,13 +1,14 @@
-// Shared pieces of the Hopper attention kernels (sm_90a): element
-// conversion, 4/8/16-byte vector loads, warp reductions, the
+// Shared pieces of the Hopper kernels (sm_90a): element conversion,
+// 4/8/16-byte vector loads, warp reductions, the cp.async, ldmatrix
+// and mma.sync (m16n8k16) helpers of the decode and SSD kernels, the
 // CUDA-core row-tile online-softmax step of the two prefill kernels'
 // float32 instantiations, and the tensor-core (wgmma + TMA) tile of
 // their bf16 instantiations.
 //
-// Every kernel accumulates in float32 with the finite NEG_INF = -1e30
-// and the max(l, 1e-30) guard of the JAX package's kernels, so padded
-// rows (decode rows of length 1 over block 0, chunk rows with table -1)
-// produce finite output, as the reference does.
+// Every attention kernel accumulates in float32 with the finite NEG_INF
+// = -1e30 and the max(l, 1e-30) guard of the JAX package's kernels, so
+// padded rows (decode rows of length 1 over block 0, chunk rows with
+// table -1) produce finite output, as the reference does.
 #pragma once
 
 #include <cuda.h>
@@ -275,6 +276,45 @@ __device__ __forceinline__ void cp_async_16(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0)
                : "memory");
+}
+
+// cp.async groups, ldmatrix and mma.sync (m16n8k16) -------------------
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// d += a b, m16n8k16, bf16 (F16 false) or f16 in, f32 accumulate
+template <bool F16>
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  if constexpr (F16)
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  else
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // wgmma -----------------------------------------------------------------

@@ -19,10 +19,11 @@ MAX_IDS``).
 """
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple, Optional
 
 import torch
+
+from repro_torch.kernels.build import sm_count
 
 ALIGN = 64              # SK_SPLIT_ALIGN: a split is whole ring chunks
 MIN_SPLIT = 64
@@ -71,13 +72,6 @@ def workspace(plan: SplitPlan, rows: int, n_kv: int, group: int, hd: int,
         return None
     return torch.empty(workspace_floats(plan, rows, n_kv, group, hd),
                        dtype=torch.float32, device=device)
-
-
-@functools.lru_cache(maxsize=None)
-def sm_count(device: torch.device) -> int:
-    """The SM count of CUDA ``device`` (a tensor's: it has an index),
-    read once per device."""
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def prepare(q: torch.Tensor, n_kv: int, max_tok: int, bt: Optional[int],

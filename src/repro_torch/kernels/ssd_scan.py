@@ -5,8 +5,10 @@ Port of ``repro/kernels/ssd_scan.py`` (the Pallas kernel) and of its
 oracle ``repro.models.mamba2.ssd_chunked``, with the serving path's
 carried state: ``init_state`` (None = zeros) is the SSM state the scan
 starts from.  CPU tensors run ``ssd_plain``; CUDA tensors launch the
-kernel (one CTA per (batch row, head); see the source for the design
-and what bounds it).
+kernel (see the source for the design and what bounds it): for bf16,
+the tensor-core body, one CTA per (batch row, head, P-slice), the slice
+and the CTA's warps planned by ``plan_launch`` from shapes alone; for
+float32, the CUDA-core body, one CTA per (batch row, head).
 
 Both accept any sequence length: where ``S > chunk`` is not a multiple
 of the chunk, the plain version pads the time axis with ``dt = 0`` and
@@ -16,20 +18,75 @@ state, so both are exact.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.build import CudaKernel, check_operands, dtype_code
+from repro_torch.kernels.build import (CudaKernel, check_operands,
+                                      dtype_code, library, sm_count)
 from repro_torch.kernels.ops import runs_kernel
 
 SSD_KERNEL = CudaKernel(
-    "repro_ssd_scan", "ssd_scan.cu", "pppppppppiiiiiiii",
+    "repro_ssd_scan", "ssd_scan.cu", "pppppppppiiiiiiiiii",
     replaces="src/repro/kernels/ssd_scan.py:79")
 HEAD_DIM = 64           # P: channels per SSM head the kernel takes
 MAX_CHUNK = 256         # longest chunk the kernel keeps in shared memory
 MAX_STATE = 128         # largest d_state (N), a multiple of 16
+MAX_SMEM = 232448       # shared memory one CTA may use on an H100
+F32_PLAN = (HEAD_DIM, 8)        # the CUDA-core body: whole heads, 8 warps
+
+
+class SsdPlan(NamedTuple):
+    p_slice: int        # state rows (of a head's 64) one CTA owns
+    warps: int          # warps of a CTA
+
+
+def tc_smem_bytes(chunk: int, d_state: int, p_slice: int) -> int:
+    """Shared memory of one CTA of the bf16 body (``ssd_tc_smem_bytes``
+    in the source)."""
+    qp = -(-chunk // 16) * 16
+    return (p_slice * (d_state + 4) * 4 + 4 * qp * 4 + 64
+            + (2 * qp * (d_state + 8) + 2 * qp * (p_slice + 8)
+               + p_slice * (d_state + 8)) * 2)
+
+
+def source_smem(chunk: int, d_state: int, p_slice: int) -> int:
+    """``tc_smem_bytes`` as the built source computes it, or (``chunk``
+    0) the source's ``MAX_SMEM``: the card tests hold the two copies of
+    the layout equal.  Builds the kernel's library if needed."""
+    fn = library(SSD_KERNEL.source).repro_ssd_tc_smem
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_longlong
+    return fn(chunk, d_state, p_slice)
+
+
+def plan_launch(batch: int, heads: int, chunk: int, d_state: int,
+                sms: int) -> SsdPlan:
+    """The bf16 body's launch on a card of ``sms`` SMs, from shapes alone.
+
+    A CTA of 8 warps takes one SM (its registers); the grid has
+    ``batch * heads`` CTAs of whole heads.  Where that fills at most half
+    the SMs, each head splits into two 32-row slices (twice the CTAs,
+    each recomputing C.B^T); where it is more than one CTA an SM but at
+    most two, CTAs of 4 warps (two fit an SM) run the grid in one wave;
+    otherwise whole heads on 8 warps.  A whole head that does not fit in
+    shared memory (chunk 256 with d_state 128) takes two slices.  (On an
+    H100 these were the fastest of slices 16, 32, 64 by 4 or 8 warps at
+    the mamba2-2.7b chunk step, b 1, 2, 4, and the zamba2-1.2b bucket,
+    b 1, 2; PERF.md.)"""
+    pairs = batch * heads
+    if 2 * pairs <= sms or tc_smem_bytes(chunk, d_state, HEAD_DIM) > MAX_SMEM:
+        return SsdPlan(32, 8)
+    if pairs <= sms or pairs > 2 * sms:
+        return SsdPlan(HEAD_DIM, 8)
+    return SsdPlan(HEAD_DIM, 4)
+
+
+def grid_ctas(batch: int, heads: int, p_slice: int) -> int:
+    """CTAs of one launch."""
+    return batch * heads * (HEAD_DIM // p_slice)
 
 
 def ssd_plain(x, dt, a_log, B, C, d_skip, chunk: int,
@@ -136,14 +193,29 @@ def ssd_scan(x, dt, a_log, B, C, d_skip, chunk: int,
         raise ValueError(f"ssd_scan: init_state {tuple(init_state.shape)} "
                          f"is not {(b, H, P, N)}")
     extra = {} if init_state is None else {"init_state": init_state}
-    # scalar loads: element alignment is all the kernel needs
-    check_operands("ssd_scan", x.device, align=4, x=x, dt=dt, a_log=a_log,
-                   B=B, C=C, d_skip=d_skip, **extra)
+    # x, B, C and the state move in 16-byte units; dt, a_log and d_skip
+    # are read one element at a time
+    check_operands("ssd_scan", x.device, x=x, B=B, C=C, **extra)
+    check_operands("ssd_scan", x.device, align=4, dt=dt, a_log=a_log,
+                   d_skip=d_skip)
+    plan = (plan_launch(b, H, chunk, N, sm_count(x.device))
+            if x.dtype == torch.bfloat16 else F32_PLAN)
+    return launch(x, dt, a_log, B, C, d_skip, chunk, init_state, *plan)
+
+
+def launch(x, dt, a_log, B, C, d_skip, chunk: int,
+           init_state: Optional[torch.Tensor], p_slice: int, warps: int
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the kernel on operands ``ssd_scan`` has checked, at
+    a given plan (``ssd_scan`` makes it: bf16 one of ``plan_launch``'s,
+    float32 ``F32_PLAN``; the kernel refuses any other)."""
+    b, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
     y = torch.empty_like(x)
     final = torch.empty((b, H, P, N), dtype=torch.float32, device=x.device)
     SSD_KERNEL(x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), B.data_ptr(),
                C.data_ptr(), d_skip.data_ptr(),
                None if init_state is None else init_state.data_ptr(),
                y.data_ptr(), final.data_ptr(), b, S, H, G, N, P, chunk,
-               dtype_code(x.dtype), device=x.device)
+               dtype_code(x.dtype), p_slice, warps, device=x.device)
     return y, final

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.kernels import decode_splits as dsp
 from repro_torch.kernels import flash_prefill as fp
 from repro_torch.kernels import ops
@@ -215,11 +216,23 @@ def _ssd_inputs(dev, dtype, b, S, H, G, N, init, seed=0):
 
 # the chip smoke's shapes: mamba2-2.7b chunk step (4 slots, 64-token
 # chunk, carried state), a zamba2-1.2b whole-prompt bucket, and a
-# reduced float32 case with two groups and a ragged last chunk
+# reduced float32 case with two groups and a ragged last chunk; then the
+# tensor-core body's cases: the chunk step at one slot, a ragged chunk
+# step, zamba2 buckets whose last chunk holds 16 and 160 rows, two
+# groups, d_state 16, a state carried over eight chunks, and chunk 256 at
+# d_state 128 (a whole head does not fit in shared memory)
 @pytest.mark.parametrize("dtype,b,S,H,G,N,chunk,init", [
     (torch.bfloat16, 4, 64, 80, 1, 128, 64, True),
     (torch.bfloat16, 2, 512, 64, 1, 64, 256, False),
     (torch.float32, 2, 72, 8, 2, 16, 32, True),
+    (torch.bfloat16, 1, 64, 80, 1, 128, 64, True),
+    (torch.bfloat16, 2, 17, 80, 1, 128, 64, True),
+    (torch.bfloat16, 2, 272, 64, 1, 64, 256, False),
+    (torch.bfloat16, 1, 416, 64, 1, 64, 256, True),
+    (torch.bfloat16, 2, 72, 8, 2, 32, 32, True),
+    (torch.bfloat16, 2, 100, 16, 1, 16, 64, False),
+    (torch.bfloat16, 1, 512, 16, 1, 64, 64, True),
+    (torch.bfloat16, 1, 300, 4, 1, 128, 256, True),   # two slices a head
 ])
 def test_ssd_kernel_matches_plain(dev, dtype, b, S, H, G, N, chunk, init):
     x, dt, a_log, B, C, d_skip, st = _ssd_inputs(dev, dtype, b, S, H, G, N,
@@ -238,6 +251,36 @@ def test_ssd_kernel_matches_plain(dev, dtype, b, S, H, G, N, chunk, init):
         assert err <= TOL[dtype] * scale, (err, scale)
 
 
+@pytest.mark.parametrize("plan", [(64, 8), (32, 8), (64, 4)])
+def test_ssd_kernel_every_plan_matches_plain(dev, plan):
+    """Each (P-slice, warps) the plan may choose, at a shape none of the
+    served ones gives it: two groups, d_state 48, a carried state and
+    five chunks, the last of 8 rows, so every launch walks chunks whole
+    and ragged."""
+    x, dt, a_log, B, C, d_skip, st = _ssd_inputs(dev, torch.bfloat16, 2, 264,
+                                                 8, 2, 48, True)
+    y, fs = ss.launch(x, dt, a_log, B, C, d_skip, 64, st, *plan)
+    y_ref, fs_ref = ss.ssd_plain(x, dt, a_log, B, C, d_skip, 64, st)
+    torch.cuda.synchronize()
+    for out, ref in ((y, y_ref), (fs, fs_ref)):
+        out, ref = out.float(), ref.float()
+        assert torch.isfinite(out).all()
+        err = (out - ref).abs().max().item()
+        assert err <= TOL[torch.bfloat16] * ref.abs().max().item()
+
+
+def test_ssd_smem_layout_matches_source(dev):
+    """The host plans from its copy of the bf16 body's shared-memory
+    layout: it must equal the built source's at every chunk, d_state and
+    slice the kernel takes, or a plan could be refused at launch."""
+    assert ss.source_smem(0, 0, 0) == ss.MAX_SMEM
+    for chunk in range(1, ss.MAX_CHUNK + 1):
+        for n in range(16, ss.MAX_STATE + 1, 16):
+            for ps in (32, ss.HEAD_DIM):
+                assert (ss.source_smem(chunk, n, ps)
+                        == ss.tc_smem_bytes(chunk, n, ps)), (chunk, n, ps)
+
+
 def test_ssd_kernel_refuses_bad_operands(dev):
     x, dt, a_log, B, C, d_skip, st = _ssd_inputs(dev, torch.float32, 1, 32,
                                                  4, 1, 16, True)
@@ -251,7 +294,16 @@ def test_ssd_kernel_refuses_bad_operands(dev):
                     a_log, B, C, d_skip, 32)
     with pytest.raises(ValueError):                # chunk past the kernel's
         ss.ssd_scan(x, dt, a_log, B, C, d_skip, 512)
+    # x 8 bytes off 16-byte alignment (the kernel copies 16-byte units)
+    xb = torch.empty(x.numel() + 2, dtype=x.dtype, device=x.device)
+    x_off = xb[2:].view(x.shape)
+    x_off.copy_(x)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ss.ssd_scan(x_off, dt, a_log, B, C, d_skip, 32)
     assert ss.SSD_KERNEL.launches == n0
+    with pytest.raises(RuntimeError, match="launch failed"):   # no such plan
+        ss.launch(x.bfloat16(), dt, a_log, B.bfloat16(), C.bfloat16(),
+                  d_skip, 32, st, 16, 8)
 
 
 def _int8_cache(dev, shape, seed):
@@ -478,7 +530,7 @@ def test_int8_decode_kernel_splits_match_plain_dense(dev, dtype, hd, H, KV,
 def test_decode_kernels_one_live_split_feed_next_op(dev, kernel):
     B, H, n_kv, hd, max_tok = 8, 28, 4, 128, 4096
     plan = dsp.plan_splits(B, n_kv, max_tok, 16 if kernel == "paged"
-                           else None, dsp.sm_count(dev))
+                           else None, build.sm_count(dev))
     assert plan.n_splits > 1
     rng = np.random.default_rng(15)
     lens_np = rng.integers(1, plan.split + 1, B).astype(np.int32)
