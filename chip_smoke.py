@@ -43,7 +43,17 @@
    full-width qwen2-7b + mamba2-2.7b (chunked, ADBS, serial: no
    fusable pair), and full-width zamba2-1.2b with whole-prompt prefill,
    counting kernel launches in each;
-5. runs the W8/KV8 decode of full-width qwen2-7b: the weights quantized
+5. plans full-width qwen2-7b ×2 + mamba2-2.7b for one H100 with the
+   paper's placement algorithm (``core/placement.place``, H100
+   constants), round-trips the plan through its JSON file, serves ~16
+   requests of the plan's rates through the placement → runtime bridge
+   with the plan's compute shares enforced (kernels 1, 2 and 4), and
+   prints the discrete-event simulator's prediction for the same plan
+   and trace beside the served result; then the serve CLI's
+   ``--save-placement`` / ``--placement`` flags at reduced width plan
+   two meshes and serve the plan on the card and on the CPU to the same
+   report;
+6. runs the W8/KV8 decode of full-width qwen2-7b: the weights quantized
    to int8 on the card, 8 prompts of 512 tokens prefilled, then 32
    decode steps with int8 weights and an int8 KV cache in lockstep with
    the bf16 decode and with a W8-only control (the int8 weights
@@ -1112,6 +1122,215 @@ def serve_full_width(torch, archs, chunk_tokens: int, n_target: int,
     return res
 
 
+PLACED = ["qwen2-7b#0", "qwen2-7b#1", "mamba2-2.7b"]
+
+
+def serve_placement(torch, seed: int = 1) -> dict:
+    """The paper's pipeline on the card: Alg. 1 plans the three
+    full-width LLMs of ``PLACED`` (power-law rates, α 1, max 8 req/s)
+    for one H100, the plan goes through its JSON file and back, the
+    placement → runtime bridge builds its unit with the plan's shares
+    enforced, and ~16 requests of the plan's rates are served under the
+    logical clock; then the simulator predicts the same plan on the same
+    trace.  Every request must finish, the pool must be freed, the
+    report must carry the plan's shares and kernels 1, 2 and 4 must have
+    launched.  Returns the run's numbers, the served and simulated
+    results side by side (printed, not compared: the cost model's
+    efficiencies are assumptions, not measurements)."""
+    import dataclasses
+    import tempfile
+    from repro_torch import configs
+    from repro_torch.config import replace
+    from repro_torch.core.costmodel import H100
+    from repro_torch.core.placement import (load_placement, place,
+                                            placement_to_json,
+                                            save_placement)
+    from repro_torch.core.simulator import simulate
+    from repro_torch.core.workload import (Workload, poisson_trace,
+                                           power_law_rates)
+    from repro_torch.kernels import ops
+    from repro_torch.serving import driver
+
+    rates = power_law_rates(PLACED, alpha=1.0, max_rate=8.0)
+    models = [(replace(configs.get(n.split("#")[0]), name=n), rates[n])
+              for n in PLACED]
+    t0 = time.perf_counter()
+    pl = place(models, n_devices=1, hw=H100, mean_prompt=256, mean_output=40)
+    place_s = time.perf_counter() - t0
+    want = placement_to_json(pl)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "plan.json")
+        save_placement(pl, path)
+        pl = load_placement(path, configs.get)
+    if placement_to_json(pl) != want:
+        raise AssertionError("the plan changed through its JSON file")
+    meshes = [m for m in pl.meshes if m.specs]
+    specs = [s for m in meshes for s in m.specs]
+    if (len(meshes) != 1 or sorted(s.name for s in specs) != sorted(PLACED)
+            or any(s.tp != 1 or not 0.0 < s.sm_frac <= 1.0
+                   for s in specs)):
+        raise AssertionError(f"unexpected plan:\n{pl.describe()}")
+    shares = {s.name: s.sm_frac for s in specs}
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    units = driver.units_from_placement(
+        pl, pool_blocks=196608, max_slots=4, chunk_tokens=64, fused=True,
+        reduced=False, dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    (unit,) = units
+    if not unit.enforce_shares or unit.sm_frac != shares:
+        raise AssertionError(f"unit shares {unit.sm_frac} != plan {shares}")
+    wl = poisson_trace({s.name: s.rate for s in specs}, horizon=1.1,
+                       seed=seed, mean_prompt=256, mean_output=40,
+                       max_len=512)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = driver.serve_workload(units, wl, seed=seed, max_new_cap=64,
+                                cost=driver.TickCostModel())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    agg = rep.aggregate
+    if agg.finished != agg.submitted or agg.submitted == 0:
+        raise AssertionError(f"served {agg.finished}/{agg.submitted}")
+    if unit.pool.allocator.used != 0:
+        raise AssertionError(f"pool not freed: {unit.pool.allocator.used}")
+    for symbol in ("repro_paged_decode", "repro_paged_prefill",
+                   "repro_ssd_scan"):
+        if launches[symbol] <= 0:
+            raise AssertionError(f"{symbol} never launched in this run")
+    if rep.sm_frac != shares:
+        raise AssertionError(f"report shares {rep.sm_frac} != {shares}")
+    fin = unit.stats.finished
+    n_prompt = sum(len(r.prompt) for r in fin)
+    n_out = sum(len(r.output) for r in fin)
+    # the simulator replays the trace as it was served: outputs capped
+    # at the served cap
+    served = Workload(rates=dict(wl.rates), horizon=wl.horizon, requests=[
+        dataclasses.replace(r, output_len=min(r.output_len, 64))
+        for r in wl.requests])
+    t0 = time.perf_counter()
+    sim = simulate(pl, served, mode="spatial-temporal", policy="adbs",
+                   hw=H100)
+    sim_s = time.perf_counter() - t0
+    res = dict(
+        plan=placement_to_json(pl), place_s=place_s, simulate_s=sim_s,
+        requests_per_model={n: sum(r.model == n for r in fin)
+                            for n in PLACED},
+        requests=agg.submitted, ticks=rep.ticks, prompt_tokens=n_prompt,
+        output_tokens=n_out, build_s=build_s, wall_s=wall,
+        wall_tok_s=(n_prompt + n_out) / wall, wall_out_tok_s=n_out / wall,
+        fused_groups=len(unit.fused_groups),
+        pool_head_blocks=unit.pool.n_head_blocks,
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+        launches=launches,
+        served={"attainment": {f"{float(k):g}": v for k, v in
+                               agg.attainment.items()},
+                "logical_s": rep.horizon,
+                "throughput_req_s": agg.throughput,
+                "e2e_p99_s": agg.e2e.p99},
+        simulated={"attainment": {f"{float(k):g}": v for k, v in
+                                  sim.slo_attainment.items()},
+                   "throughput_req_s": sim.throughput,
+                   "p99_latency_s": sim.p99_latency,
+                   "finished": sim.finished},
+        describe=pl.describe(), summary=rep.summary(),
+        sim_summary=sim.summary())
+    del units, unit, rep
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def print_placement(placed: dict) -> None:
+    """Print the placement phase's plan, served run and the simulator's
+    prediction beside it."""
+    print("placement plan (Alg. 1, H100 constants, one device; place took "
+          f"{placed['place_s']:.3f} s on the host):")
+    print(placed["describe"])
+    print("placement serve: " + json.dumps(
+        {k: v for k, v in placed.items()
+         if k not in ("describe", "summary", "sim_summary")}))
+    for line in placed["summary"].splitlines():
+        print(f"  {line}")
+    print(f"  simulated (spatial-temporal, adbs, H100): "
+          f"{placed['sim_summary']}")
+    sv, sm = placed["served"], placed["simulated"]
+    print("served vs simulated, same plan and trace (printed, not "
+          "compared): attainment "
+          + ", ".join(f"{k}x {sv['attainment'][k]:.2f} vs "
+                      f"{sm['attainment'][k]:.2f}" for k in sv["attainment"])
+          + f"; throughput {sv['throughput_req_s']:.2f} vs "
+          f"{sm['throughput_req_s']:.2f} req/s (served in logical s); "
+          f"p99 latency {sv['e2e_p99_s']:.3f} vs "
+          f"{sm['p99_latency_s']:.3f} s; served wall "
+          f"{placed['wall_s']:.1f} s ("
+          f"{placed['requests'] / placed['wall_s']:.2f} req/s, "
+          f"{placed['wall_tok_s']:.0f} tok/s), peak "
+          f"{placed['max_memory_allocated_gb']:.1f} GB")
+
+
+def cli_placement(torch) -> str:
+    """The serve CLI's placement flags on the card, at reduced width:
+    ``--save-placement`` plans ``PLACED`` on two devices (two meshes)
+    and serves the plan, then ``--placement`` serves the saved plan on
+    the card and on the CPU; the two reports must agree on submitted,
+    finished, ticks and attainment (the logical clock depends on
+    lengths only; the devices draw different random weights)."""
+    import contextlib
+    import io
+    import tempfile
+    from repro_torch.launch import serve
+
+    def run(argv):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = serve.main(argv)
+        if rc != 0:
+            raise AssertionError(f"serve {argv} exited {rc}")
+        return out.getvalue()
+
+    common = ["--fused", "--chunk-tokens", "16", "--deterministic",
+              "--pool-blocks", "16000", "--max-new", "8"]
+    with tempfile.TemporaryDirectory() as tmp:
+        plan = os.path.join(tmp, "plan.json")
+        log = run(["--save-placement", plan, "--devices", "2", "--archs",
+                   ",".join(a.split("#")[0] for a in PLACED), "--alpha",
+                   "1", "--rate", "8", "--mean-prompt", "256",
+                   "--mean-output", "40", "--horizon", "0.5", *common])
+        with open(plan) as f:
+            n_meshes = sum(1 for m in json.load(f)["meshes"] if m["specs"])
+        if n_meshes != 2:
+            raise AssertionError(f"CLI plan has {n_meshes} meshes, not 2")
+        reports = {}
+        for dev in ("cuda", "cpu"):
+            path = os.path.join(tmp, f"{dev}.json")
+            log += run(["--placement", plan, "--device", dev, "--horizon",
+                        "1", "--report", path, *common])
+            with open(path) as f:
+                reports[dev] = json.load(f)
+    keys = [(r["aggregate"]["submitted"], r["aggregate"]["finished"],
+             r["ticks"], r["aggregate"]["attainment"])
+            for r in (reports["cuda"], reports["cpu"])]
+    if keys[0] != keys[1]:
+        raise AssertionError(f"CLI plan: card and CPU reports differ {keys}")
+    agg = reports["cuda"]["aggregate"]
+    if agg["finished"] != agg["submitted"] or not agg["submitted"]:
+        raise AssertionError(f"CLI plan served {agg['finished']}/"
+                             f"{agg['submitted']}")
+    lines = [ln for ln in log.splitlines()
+             if ln.startswith(("[serve] optimized", "  mesh[",
+                               "[serve] unit mesh", "[serve] finished"))]
+    return "\n".join(["CLI placement round trip (reduced, two meshes):"]
+                     + [f"  {ln}" for ln in lines]
+                     + [f"  card and CPU reports agree: {agg['submitted']} "
+                        f"submitted and finished, "
+                        f"{reports['cuda']['ticks']} ticks, attainment "
+                        f"{agg['attainment']}"])
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -1225,6 +1444,10 @@ def main() -> int:
     print("every served step had finite logits (engine.greedy_tokens "
           "raises otherwise); every request finished; pools freed")
 
+    placed = serve_placement(torch)
+    print_placement(placed)
+    print(cli_placement(torch))
+
     w8 = w8kv8_full_width(torch, np)
     print("W8/KV8 decode, qwen2-7b full width: " + json.dumps(w8))
     fl = w8["greedy_flips"]
@@ -1238,7 +1461,7 @@ def main() -> int:
           f"spread (the W8 control alone: {fl['w8_control_vs_bf16']['all']}"
           f", {fl['w8_control_vs_bf16']['beyond_1pct_spread']})")
 
-    runs = list(served.values()) + [w8]
+    runs = list(served.values()) + [placed, w8]
     launches = {k.symbol: sum(r["launches"][k.symbol] for r in runs)
                 for k in ops.path_kernels()}
     attn_names = {"repro_paged_decode": ("fused_paged_decode_attention",

@@ -2,12 +2,22 @@
 ``repro/launch/serve.py``, the subset the ported families support:
 dense, SSM and hybrid).
 
-Colocates the requested architectures' reduced variants on one unified
-KV pool, replays a popularity-skewed Poisson workload
-(``core/workload.py``) and reports per-LLM and aggregate TTFT/TPOT/E2E
-percentiles, goodput and SLO attainment.  Runs on the GPU by default (``--device cuda``, random bf16
-weights); ``--device cpu`` runs the plain versions of the kernels in
-f32.
+Replays a popularity-skewed Poisson workload (``core/workload.py``)
+over the requested architectures' reduced variants and reports per-LLM
+and aggregate TTFT/TPOT/E2E percentiles, goodput and SLO attainment.
+Runs on the GPU by default (``--device cuda``, random bf16 weights);
+``--device cpu`` runs the plain versions of the kernels in f32.
+
+Units come from one of two sources:
+
+  * ``--archs a,b,...`` — one colocated unit holding every listed
+    architecture on one unified KV pool, rates power-law over the list;
+  * ``--placement plan.json`` — the placement → runtime bridge: a
+    ``core/placement.py`` plan instantiates one real unit per mesh with
+    the plan's rates and compute shares.  ``--save-placement`` plans
+    ``--archs`` at the workload rates on ``--devices`` devices (full
+    width, A100 constants, as the JAX package does), writes the JSON,
+    and serves from it.
 
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --archs qwen2-7b,mamba2-2.7b --policy adbs --fused \\
@@ -20,11 +30,13 @@ import json
 
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import configs, resolve_device
+from repro_torch.config import replace
+from repro_torch.core.placement import load_placement, place, save_placement
 from repro_torch.core.workload import poisson_trace, power_law_rates
 from repro_torch.kernels import ops
 from repro_torch.serving.driver import (TickCostModel, build_unit_from_specs,
-                                        serve_workload)
+                                        serve_workload, units_from_placement)
 from repro_torch.serving.engine import TRACE_COUNTS, unique_tree_bytes
 
 
@@ -65,6 +77,24 @@ def main(argv=None) -> int:
                     help="logical tick-cost clock instead of wall time")
     ap.add_argument("--pool-blocks", type=int, default=200_000)
     ap.add_argument("--max-slots", type=int, default=4)
+    ap.add_argument("--sm-frac", default=None, metavar="SHARES",
+                    help="per-LLM compute-share overrides: a comma list "
+                         "aligned with --archs (e.g. 0.5,0.3,0.2) or "
+                         "name=frac pairs (e.g. qwen2-7b#0=0.5); with "
+                         "--placement the overrides patch the plan's "
+                         "shares, without it they turn on share "
+                         "enforcement for the colocated unit")
+    ap.add_argument("--no-enforce-shares", action="store_true",
+                    help="ignore planned sm_frac at runtime (temporal "
+                         "accounting: every job is charged as if it held "
+                         "the whole mesh — the pure-temporal baseline)")
+    ap.add_argument("--placement", default=None, metavar="PLAN_JSON",
+                    help="build units from a core/placement.py plan")
+    ap.add_argument("--save-placement", default=None, metavar="PLAN_JSON",
+                    help="optimize a placement for --archs at the "
+                         "workload rates, save it, and serve from it")
+    ap.add_argument("--devices", type=int, default=8,
+                    help="cluster size for --save-placement")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default: the Hopper kernels) or cpu")
     ap.add_argument("--report", default=None, metavar="OUT_JSON",
@@ -76,7 +106,8 @@ def main(argv=None) -> int:
                     ("--pool-blocks", args.pool_blocks),
                     ("--max-slots", args.max_slots),
                     ("--mean-prompt", args.mean_prompt),
-                    ("--mean-output", args.mean_output)]:
+                    ("--mean-output", args.mean_output),
+                    ("--devices", args.devices)]:
         if v <= 0:
             ap.error(f"{flag} must be > 0 (got {v})")
     for flag, v in [("--chunk-tokens", args.chunk_tokens),
@@ -95,38 +126,119 @@ def main(argv=None) -> int:
         ap.error(str(e))
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
 
+    if args.placement and args.save_placement:
+        ap.error("--placement and --save-placement are mutually "
+                 "exclusive (load a plan OR optimize and save one)")
     archs = args.archs.split(",")
     names = _unit_names(archs)
-    rates = power_law_rates(names, args.alpha, args.rate)
+
+    # ---- per-LLM compute-share overrides -----------------------------
+    sm_overrides = {}
+    if args.sm_frac:
+        parts = args.sm_frac.split(",")
+        try:
+            if any("=" in p for p in parts):
+                for p in parts:
+                    k, eq, v = p.partition("=")
+                    if not eq:
+                        raise ValueError(p)
+                    sm_overrides[k.strip()] = float(v)
+            else:
+                if len(parts) != len(names):
+                    ap.error(f"--sm-frac has {len(parts)} values for "
+                             f"{len(names)} archs (use name=frac pairs to "
+                             "override a subset)")
+                sm_overrides = {n: float(v) for n, v in zip(names, parts)}
+        except ValueError:
+            ap.error(f"--sm-frac could not be parsed: {args.sm_frac!r} "
+                     "(use a comma list of fractions aligned with --archs, "
+                     "or name=frac pairs — not a mix)")
+        bad = [f"{n}={v}" for n, v in sm_overrides.items()
+               if not 0.0 < v <= 1.0]
+        if bad:
+            ap.error(f"--sm-frac values must be in (0, 1]: {', '.join(bad)}")
+
+    # ---- units: placement bridge or a single colocated unit ----------
+    pl = None
     try:
-        unit = build_unit_from_specs(
-            [(n, a, rates[n]) for n, a in zip(names, archs)],
-            pool_blocks=args.pool_blocks, max_slots=args.max_slots,
-            chunk_tokens=args.chunk_tokens, seed=args.seed,
-            policy=args.policy, fused=args.fused, dtype=dtype,
-            device=device)
+        if args.placement:
+            pl = load_placement(args.placement, configs.get_reduced)
+            print(f"[serve] placement plan {args.placement} "
+                  f"(est. {pl.total_tpt:.2f} req/s):\n{pl.describe()}")
+            rates = {s.name: s.rate for m in pl.meshes for s in m.specs}
+        else:
+            rates = power_law_rates(names, args.alpha, args.rate)
+            if args.save_placement:
+                models_rates = [(replace(configs.get(a), name=n), rates[n])
+                                for n, a in zip(names, archs)]
+                pl = place(models_rates, n_devices=args.devices,
+                           mean_prompt=args.mean_prompt,
+                           mean_output=args.mean_output)
+                save_placement(pl, args.save_placement)
+                print(f"[serve] optimized placement for {args.devices} "
+                      f"devices (est. {pl.total_tpt:.2f} req/s) → "
+                      f"{args.save_placement}:\n{pl.describe()}")
+        if pl is not None:
+            plan_names = {s.name for m in pl.meshes for s in m.specs}
+            unknown = sorted(set(sm_overrides) - plan_names)
+            if unknown:
+                ap.error(f"--sm-frac names not in the plan: {unknown} "
+                         f"(plan has {sorted(plan_names)})")
+            for m in pl.meshes:
+                for s in m.specs:
+                    if s.name in sm_overrides:
+                        s.sm_frac = sm_overrides[s.name]
+            units = units_from_placement(
+                pl, pool_blocks=args.pool_blocks, max_slots=args.max_slots,
+                chunk_tokens=args.chunk_tokens, seed=args.seed,
+                policy=args.policy, fused=args.fused,
+                enforce_shares=not args.no_enforce_shares, dtype=dtype,
+                device=device)
+        else:
+            unknown = sorted(set(sm_overrides) - set(names))
+            if unknown:
+                ap.error(f"--sm-frac names not in --archs: {unknown} "
+                         f"(unit names are {names})")
+            # a bare-archs unit enforces shares only when the user
+            # supplies them (there is no plan to take shares from)
+            sm_fracs = None
+            if sm_overrides and not args.no_enforce_shares:
+                sm_fracs = {n: sm_overrides.get(n, 1.0) for n in names}
+            units = [build_unit_from_specs(
+                [(n, a, rates[n]) for n, a in zip(names, archs)],
+                pool_blocks=args.pool_blocks, max_slots=args.max_slots,
+                chunk_tokens=args.chunk_tokens, seed=args.seed,
+                policy=args.policy, fused=args.fused, sm_fracs=sm_fracs,
+                dtype=dtype, device=device)]
     except ValueError as e:
         ap.error(str(e))
-    for g in unit.fused_groups:
-        print(f"[serve] fused group ({len(g.engines)} engines): "
-              f"{[e.cfg.name for e in g.engines]}, "
-              f"{'fused' if g.chunk_tokens else 'serial'} prefill, "
-              f"{g.weight_bytes() / 1e6:.1f} MB shared weights")
-    if unit.reclaimed_weight_bytes:
-        print(f"[serve] weight de-dup reclaimed "
-              f"{unit.reclaimed_weight_bytes / 1e6:.1f} MB → pool grew to "
-              f"{unit.pool.n_head_blocks} head-blocks")
+    for u in units:
+        for g in u.fused_groups:
+            print(f"[serve] fused group ({len(g.engines)} engines): "
+                  f"{[e.cfg.name for e in g.engines]}, "
+                  f"{'fused' if g.chunk_tokens else 'serial'} prefill, "
+                  f"{g.weight_bytes() / 1e6:.1f} MB shared weights")
+        if u.reclaimed_weight_bytes:
+            print(f"[serve] weight de-dup reclaimed "
+                  f"{u.reclaimed_weight_bytes / 1e6:.1f} MB → pool grew to "
+                  f"{u.pool.n_head_blocks} head-blocks")
+        if u.enforce_shares:
+            print(f"[serve] unit mesh[{u.mesh_id}] enforces compute "
+                  f"shares: "
+                  + ", ".join(f"{n}:{f:.2f}" for n, f in u.sm_frac.items()))
 
     wl = poisson_trace(rates, args.horizon, seed=args.seed,
                        mean_prompt=args.mean_prompt,
                        mean_output=args.mean_output)
+    src = "plan rates" if args.placement else f"α={args.alpha}"
     print(f"[serve] {len(wl.requests)} requests over {args.horizon}s for "
-          f"{len(rates)} LLMs (α={args.alpha}), policy={args.policy}, "
-          f"fused={args.fused}, device={device}, "
+          f"{len(rates)} LLMs ({src}: "
+          f"{{{', '.join(f'{n}:{r:.2f}' for n, r in rates.items())}}}), "
+          f"policy={args.policy}, fused={args.fused}, device={device}, "
           f"clock={'logical' if args.deterministic else 'wall'}")
     cost = TickCostModel() if args.deterministic else None
     ops.reset_launch_counts()
-    report = serve_workload([unit], wl, seed=args.seed,
+    report = serve_workload(units, wl, seed=args.seed,
                             max_new_cap=args.max_new,
                             slo_scales=slo_scales, cost=cost)
 
@@ -135,15 +247,16 @@ def main(argv=None) -> int:
           f"{report.ticks} ticks in {report.wall_s:.1f}s wall")
     for line in report.summary().splitlines():
         print(f"[serve] {line}")
-    pool = unit.pool
-    print(f"[serve] pool: free={pool.allocator.free_blocks}"
-          f"/{pool.n_head_blocks} head-blocks")
-    for name, view in pool.views.items():
-        print(f"[serve]   {name}: quota={view.quota} used={view.used}")
-    print(f"[serve] memory: "
-          f"{unique_tree_bytes([e.params for e in unit.engines.values()]) / 1e6:.1f}"
-          f" MB weights (de-duplicated), {pool.hbm_bytes() / 1e6:.0f} MB "
-          f"pool arena")
+    for u in units:
+        pool = u.pool
+        print(f"[serve] pool: free={pool.allocator.free_blocks}"
+              f"/{pool.n_head_blocks} head-blocks")
+        for name, view in pool.views.items():
+            print(f"[serve]   {name}: quota={view.quota} used={view.used}")
+        print(f"[serve] memory: "
+              f"{unique_tree_bytes([e.params for e in u.engines.values()]) / 1e6:.1f}"
+              f" MB weights (de-duplicated), {pool.hbm_bytes() / 1e6:.0f} MB "
+              f"pool arena")
     print(f"[serve] shape buckets by step: {dict(TRACE_COUNTS)}")
     if device.type == "cuda":
         print(f"[serve] kernel launches: {ops.launch_counts()}")

@@ -19,8 +19,12 @@ Two time domains, one code path:
     behavior is exact and reproducible across machines — and across
     the two packages: the same trace yields the same report.
 
-The JAX package's placement bridge, reconfiguration, fault injection,
-sanitizer and metrics hooks arrive with later slices.
+  * **placement → runtime**: ``units_from_placement`` builds one real
+    unit per populated mesh of a ``core/placement.py`` plan, with the
+    plan's compute shares enforced.
+
+The JAX package's reconfiguration, fault injection, sanitizer and
+metrics hooks arrive with later slices.
 """
 from __future__ import annotations
 
@@ -33,6 +37,7 @@ import torch
 
 from repro_torch import configs, resolve_device
 from repro_torch.config import BLOCK_TOKENS, replace
+from repro_torch.core.placement import Placement
 from repro_torch.core.workload import Workload
 from repro_torch.models.transformer import init_params
 from repro_torch.serving.engine import Engine, Request
@@ -385,6 +390,55 @@ def build_unit_from_specs(specs: Sequence[Tuple[str, str, float]],
     del tree
     return MuxScheduler(engines, pool, policy=policy, fused=fused,
                         sm_frac=sm_fracs)
+
+
+def units_from_placement(pl: Placement, pool_blocks: int = 200_000,
+                         max_slots: int = 4, chunk_tokens: int = 0,
+                         seed: int = 0, policy: str = "adbs",
+                         fused: bool = False,
+                         enforce_shares: bool = True,
+                         reduced: bool = True, dtype=torch.bfloat16,
+                         device="cuda",
+                         params: Optional[Dict[str, dict]] = None
+                         ) -> List[MuxScheduler]:
+    """The placement → runtime bridge: one real unit per non-empty mesh
+    of an optimizer plan (group membership = the mesh's LLM set, fused
+    where architectures match).  Pool blocks are split across meshes ∝
+    mesh size (at least 4096 each) — the runtime stand-in for per-mesh
+    HBM — and mesh ``m`` draws its weights from seed ``seed + m.mesh_id``
+    as the JAX package's bridge does.
+
+    Each spec's planned ``sm_frac`` is threaded into its unit: the
+    scheduler enforces the shares and the deterministic clock charges
+    phases by them.  ``enforce_shares=False`` builds the same units
+    with temporal accounting — the pure-temporal baseline.  ``reduced``,
+    ``dtype`` and ``device`` pass through to ``build_unit_from_specs``;
+    ``params`` maps spec names to weight trees (e.g. the JAX package's
+    carried across by ``models.transformer.params_to_torch``)."""
+    total_dev = sum(m.n_devices for m in pl.meshes if m.specs) or 1
+    units: List[MuxScheduler] = []
+    for m in pl.meshes:
+        if not m.specs:
+            continue
+        blocks = max(int(pool_blocks * m.n_devices / total_dev), 4096)
+        unit_specs = [(s.name, s.arch_id, s.rate) for s in m.specs]
+        sm = {s.name: float(s.sm_frac) for s in m.specs}
+        u = build_unit_from_specs(
+            unit_specs, pool_blocks=blocks, max_slots=max_slots,
+            chunk_tokens=chunk_tokens, seed=seed + m.mesh_id,
+            policy=policy, fused=fused, reduced=reduced,
+            sm_fracs=(sm if enforce_shares else None), dtype=dtype,
+            device=device,
+            params=(None if params is None
+                    else [params[s.name] for s in m.specs]))
+        # mesh identity, and mesh size for the deterministic clock's
+        # per-unit tick scaling
+        u.mesh_id = m.mesh_id
+        u.n_devices = m.n_devices
+        units.append(u)
+    if not units:
+        raise ValueError("placement has no populated mesh")
+    return units
 
 
 # ---------------------------------------------------------------------------

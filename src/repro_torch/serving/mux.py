@@ -200,8 +200,11 @@ class MuxScheduler:
         self._serial_names = list(engines)          # serial decode set
         self._prefill_serial_names = list(engines)  # serial prefill set
         self.reclaimed_weight_bytes = 0
-        # devices of the unit's mesh (1 for a hand-built unit): the
-        # deterministic clock divides a tick's per-token cost by it
+        # mesh identity and device count inside a placement
+        # (units_from_placement tags both); −1 / 1 for a hand-built
+        # unit.  The deterministic clock divides a tick's per-token cost
+        # by n_devices.
+        self.mesh_id = -1
         self.n_devices = 1
         if self.fused:
             self._build_fused_groups()

@@ -566,3 +566,39 @@ def test_decode_kernels_one_live_split_feed_next_op(dev, kernel):
     err = (y.float() - y_ref.float()).abs().max().item()
     assert torch.isfinite(y.float()).all()
     assert err <= TOL[torch.bfloat16] * scale, (err, scale)
+
+
+# A reduced two-mesh optimizer plan served on the card: one unit per
+# mesh in one session, the plan's shares enforced, every request done.
+def test_two_mesh_plan_serves_on_the_card(dev):
+    from repro_torch import configs
+    from repro_torch.config import replace
+    from repro_torch.core.placement import place, placement_from_json, \
+        placement_to_json
+    from repro_torch.core.workload import poisson_trace
+    from repro_torch.serving.driver import (TickCostModel, serve_workload,
+                                            units_from_placement)
+
+    rates = {"qwen2-7b#0": 8.0, "qwen2-7b#1": 4.0, "mamba2-2.7b": 8 / 3}
+    plan = place([(replace(configs.get(n.split("#")[0]), name=n), r)
+                  for n, r in rates.items()], 2, mean_prompt=256,
+                 mean_output=40)
+    pl = placement_from_json(placement_to_json(plan), configs.get_reduced)
+    units = units_from_placement(pl, pool_blocks=8000, chunk_tokens=16,
+                                 fused=True, dtype=torch.bfloat16,
+                                 device=dev)
+    assert [u.mesh_id for u in units] == [0, 1]
+    wl = poisson_trace(rates, 1.0, seed=0, mean_prompt=24, mean_output=8,
+                       max_len=128)
+    ops.reset_launch_counts()
+    rep = serve_workload(units, wl, cost=TickCostModel(), max_new_cap=8)
+    launches = ops.launch_counts()
+    assert rep.aggregate.finished == rep.aggregate.submitted \
+        == len(wl.requests) > 5
+    assert rep.sm_frac == {s.name: s.sm_frac for m in pl.meshes
+                           for s in m.specs}
+    assert all(u.enforce_shares and u.pool.allocator.used == 0
+               for u in units)
+    for symbol in ("repro_paged_decode", "repro_paged_prefill",
+                   "repro_ssd_scan"):
+        assert launches[symbol] > 0, launches
