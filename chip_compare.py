@@ -1,0 +1,100 @@
+#!/usr/bin/env python3
+"""Kernel times of two or more trees of this repository on one GPU, in
+turns, at the kernel table's shapes (PERF.md §6).
+
+  python3 chip_compare.py <tree>[:<tag>] <tree>[:<tag>] ...
+
+Each argument is the root of a checkout (``.`` for this one; an older
+commit unpacked with ``git archive`` under a git-ignored directory).
+Trees run in the order given, each in a fresh process, so a call like
+``build/parent:parent . . build/parent:parent`` gives parent, change,
+change, parent on one card.  Each process builds that tree's kernels and
+runs that tree's own ``chip_smoke.check_kernels`` at full-width
+qwen2-7b and zamba2-1.2b's shared attention and ``check_int8`` at
+full-width qwen2-7b, the shapes ``FULL`` and ``ZAMBA`` of this
+checkout's ``chip_smoke.py`` (the same shapes for every tree); the
+kernel times (``time_ms``: median of 25 calls, L2 evicted before each),
+the plain and library times and the bound are printed per tree, then
+one table of kernel times side by side, and the card's name and power
+limit.  Exits non-zero when a tree fails or no
+GPU is present.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+from chip_smoke import FULL, ZAMBA
+
+FIELDS = ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")
+
+_CHILD = r'''
+import importlib.util, json, sys
+root = sys.argv[1]
+sys.path.insert(0, root + "/src")
+spec = importlib.util.spec_from_file_location("tree_smoke",
+                                              root + "/chip_smoke.py")
+cs = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)
+import numpy as np, torch
+if not torch.cuda.is_available():
+    sys.exit("no CUDA device")
+torch.backends.cuda.matmul.allow_tf32 = False
+from repro_torch.kernels import build
+build.build_all()
+fields = json.loads(sys.argv[2])
+full, zamba = ({**s, "dtype": getattr(torch, s["dtype"])}
+               for s in json.loads(sys.argv[3]))
+out = {}
+for shape in (full, zamba):
+    for k, r in cs.check_kernels(torch, np, shape).items():
+        out[f"{shape['label']}: {k}"] = {f: r.get(f) for f in fields}
+for k, r in cs.check_int8(torch, np, full).items():
+    out[f"{full['label']}: int8 {k}"] = {f: r.get(f) for f in fields}
+print("RESULT " + json.dumps(out), flush=True)
+'''
+
+
+def run_tree(root: str) -> dict:
+    proc = subprocess.run([sys.executable, "-c", _CHILD, root,
+                           json.dumps(FIELDS), json.dumps([FULL, ZAMBA])],
+                          capture_output=True,
+                          text=True, timeout=1200)
+    for line in proc.stdout.splitlines():
+        if line.startswith("RESULT "):
+            return json.loads(line[len("RESULT "):])
+    raise RuntimeError(f"tree {root} failed (exit {proc.returncode}):\n"
+                       f"{proc.stderr[-4000:]}")
+
+
+def main(argv) -> int:
+    if not argv:
+        print(__doc__, file=sys.stderr)
+        return 2
+    trees = [(a.split(":")[0], a.split(":")[1] if ":" in a else a)
+             for a in argv]
+    for root, _ in trees:
+        if not (Path(root) / "chip_smoke.py").is_file():
+            print(f"chip_compare.py: no chip_smoke.py under {root}",
+                  file=sys.stderr)
+            return 2
+    results = []
+    for root, tag in trees:
+        res = run_tree(root)
+        print(f"tree {tag} ({root}): " + json.dumps(res), flush=True)
+        results.append((tag, res))
+    print("kernel ms, in turns: " + ", ".join(t for t, _ in results))
+    for key in results[0][1]:
+        print(f"  {key}: " + ", ".join(
+            f"{r[key]['ms']:.4f}" if key in r else "-" for _, r in results))
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    print(card.splitlines()[0] if card else "nvidia-smi: no card")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

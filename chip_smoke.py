@@ -7,13 +7,18 @@
    SSD scan and the int8 decode attention of the W8/KV8 path) from
    ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel),
    and counts the tensor-core instructions (from ``cuobjdump -sass``) of
-   each prefill (``HGMMA``) and SSD (``HMMA``) kernel instantiation:
-   every bf16 one must have some, the f32 ones (CUDA-core bodies) none;
+   each prefill (``HGMMA``), decode and SSD (``HMMA``) kernel
+   instantiation: every bf16 one must have some, the f32 ones
+   (CUDA-core bodies) none;
 2. holds each kernel against its plain PyTorch version at the serving
    path's shapes — full-width qwen2-7b (bf16, head_dim 128), zamba2-1.2b's
    shared attention (bf16, 32 heads of 64, group 1, a 272-token
-   whole-prompt bucket) and the reduced CPU-test model (f32, head_dim
-   64) for attention, the int8
+   whole-prompt bucket), the reduced CPU-test model (f32, head_dim
+   64), and the shapes of the configs beyond them: phi-3-vision-4.2b
+   (head_dim 96, 32 heads, group 1), command-r-plus-104b (96/8 heads
+   of 128: group 12), qwen3-moe-235b-a22b (64/4: group 16) and reduced
+   f32 cases at head_dim 96 and at group 16 — for attention (the decode
+   kernels' CTAs an SM, shared memory and registers printed), the int8
    decode through both of its addressings (paged pool and dense cache
    layer); the mamba2-2.7b chunk step with 4, 2 and 1 slots, a
    zamba2-1.2b whole-prompt bucket of 2 rows and of 1, and a reduced
@@ -35,14 +40,23 @@
 3. checks the serving steps on the card against the same steps on the
    CPU (plain versions) on the reduced models (qwen2-7b; the SSM
    chunk, prefill and decode steps of mamba2-2.7b and zamba2-1.2b; the
-   W8/KV8 prefill and decode of qwen2-7b), and that both devices serve a
-   small qwen2 trace to the same report;
+   W8/KV8 prefill and decode of qwen2-7b and granite-moe-3b-a800m), and
+   that both devices serve a small qwen2 trace to the same report;
 4. serves two colocated full-width qwen2-7b (random bf16 weights) with
    the fused chunked-prefill ADBS loop under the logical clock, then
    one with whole-prompt prefill; then the JAX CLI's default pair,
    full-width qwen2-7b + mamba2-2.7b (chunked, ADBS, serial: no
-   fusable pair), and full-width zamba2-1.2b with whole-prompt prefill,
-   counting kernel launches in each;
+   fusable pair), and full-width zamba2-1.2b with whole-prompt prefill;
+   then the MoE family and the configs beyond them at full width:
+   granite-moe-3b-a800m + musicgen-medium (chunked, full depth, the
+   MoE FFN counted on every layer), qwen3-moe-235b-a22b cut to 4 of 94
+   layers (chunked; group 16), two phi-3-vision-4.2b fused (chunked)
+   and one whole-prompt (head_dim 96), and command-r-plus-104b (4 of
+   64 layers; group 12) beside deepseek-coder-33b (16 of 62 layers;
+   group 7), whole-prompt; a cut config is
+   ``config.replace(configs.get(arch), n_layers=k)`` served by a unit
+   this script assembles (``build_cut_unit``); launches are counted in
+   each phase;
 5. plans full-width qwen2-7b ×2 + mamba2-2.7b for one H100 with the
    paper's placement algorithm (``core/placement.place``, H100
    constants), round-trips the plan through its JSON file, serves ~16
@@ -99,6 +113,47 @@ TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # fixed absolute bf16 tolerance does not fit its range: its tolerance
 # is relative to the plain output's largest magnitude (same numbers).
 SSD_TOL_REL = TOL
+
+# The attention kernels' shapes, each named by its label, with its dtype
+# by name (``attn_shape`` resolves it): the kernel table's (PERF.md §6),
+# full-width qwen2-7b and zamba2-1.2b's shared attention, which
+# chip_compare.py also times, and the reduced f32 one.
+FULL = dict(label="qwen2-7b full width bf16", dtype="bfloat16", H=28, KV=4,
+            hd=128, layers=28, rows=8, max_blocks=64, C=64, S=512,
+            flash_rows=4)
+# zamba2-1.2b's shared attention block (6 applications, 32 heads of 64,
+# group 1) at a whole-prompt bucket that is not a multiple of 64
+ZAMBA = dict(label="zamba2-1.2b shared attention bf16", dtype="bfloat16",
+             H=32, KV=32, hd=64, layers=6, rows=8, max_blocks=64, C=64,
+             S=272, flash_rows=2)
+SMALL = dict(label="qwen2-7b reduced f32", dtype="float32", H=4, KV=2, hd=64,
+             layers=2, rows=8, max_blocks=64, C=16, S=64, flash_rows=4)
+# the shapes of the configs beyond qwen2-7b: head_dim 96 (phi-3-vision
+# -4.2b, MHA), group 12 (command-r-plus-104b) and group 16
+# (qwen3-moe-235b-a22b), at the depths their phases serve, and the
+# reduced f32 bodies at head_dim 96 and at group 16
+WIDE = [
+    dict(label="phi-3-vision-4.2b full width bf16", dtype="bfloat16", H=32,
+         KV=32, hd=96, layers=32, rows=8, max_blocks=64, C=64, S=512,
+         flash_rows=4),
+    dict(label="command-r-plus-104b full width bf16", dtype="bfloat16",
+         H=96, KV=8, hd=128, layers=4, rows=8, max_blocks=64, C=64, S=512,
+         flash_rows=4),
+    dict(label="qwen3-moe-235b-a22b full width bf16", dtype="bfloat16",
+         H=64, KV=4, hd=128, layers=4, rows=8, max_blocks=64, C=64, S=512,
+         flash_rows=4),
+    dict(label="reduced f32 head_dim 96", dtype="float32", H=4, KV=4, hd=96,
+         layers=2, rows=8, max_blocks=64, C=16, S=64, flash_rows=4),
+    dict(label="reduced f32 group 16", dtype="float32", H=16, KV=1, hd=64,
+         layers=2, rows=8, max_blocks=64, C=16, S=64, flash_rows=4),
+]
+
+
+def attn_shape(torch, shape: dict) -> dict:
+    """One of the shapes above with its dtype as a torch dtype, as
+    ``check_kernels`` and ``check_int8`` take it."""
+    return {**shape, "dtype": getattr(torch, shape["dtype"])}
+
 
 
 def card_line() -> str:
@@ -253,19 +308,30 @@ def _sass_counts(src: str, opcode: str) -> dict:
 
 def tensor_core_sass() -> dict:
     """Tensor-core instructions per kernel instantiation: HGMMA (wgmma)
-    in the two prefill libraries, HMMA (mma.sync) in the SSD scan's.
-    Raises unless every bf16 instantiation (``tc_attention_kernel``,
-    ``ssd_scan_tc_kernel``) has some and every float32 one (the
-    CUDA-core bodies) has none."""
+    in the two prefill libraries (head dims 64, 96, 128), HMMA
+    (mma.sync) in the two decode libraries (head dims 64, 96, 128, one
+    or two 8-head halves of the m16 tile) and the SSD scan's.  Raises
+    unless every bf16 instantiation (``tc_attention_kernel``,
+    ``splitkv_tc_kernel``, ``ssd_scan_tc_kernel``) has some and every
+    float32 one (the CUDA-core bodies) has none."""
     counts = {}
     for src in ("flash_prefill.cu", "paged_prefill.cu"):
         counts.update(_sass_counts(src, "HGMMA"))
     tc = {k: v for k, v in counts.items() if "tc_attention_kernel" in k}
     f32 = {k: v for k, v in counts.items() if "prefill_kernel" in k}
-    if len(tc) != 4 or min(tc.values()) == 0:
+    if len(tc) != 6 or min(tc.values()) == 0:
         raise AssertionError(f"bf16 prefill kernels without HGMMA: {tc}")
-    if len(f32) != 4 or max(f32.values()) != 0:
+    if len(f32) != 6 or max(f32.values()) != 0:
         raise AssertionError(f"float32 prefill kernels with HGMMA: {f32}")
+    dec = {}
+    for src in ("paged_decode.cu", "paged_decode_int8.cu"):
+        dec.update(_sass_counts(src, "HMMA"))
+    dec_tc = {k: v for k, v in dec.items() if "splitkv_tc_kernel" in k}
+    dec_f32 = {k: v for k, v in dec.items() if "splitkv_f32_kernel" in k}
+    if len(dec_tc) != 12 or min(dec_tc.values()) == 0:
+        raise AssertionError(f"bf16 decode kernels without HMMA: {dec_tc}")
+    if len(dec_f32) != 6 or max(dec_f32.values()) != 0:
+        raise AssertionError(f"float32 decode kernels with HMMA: {dec_f32}")
     ssd = _sass_counts("ssd_scan.cu", "HMMA")
     ssd_tc = {k: v for k, v in ssd.items() if "ssd_scan_tc_kernel" in k}
     ssd_f32 = {k: v for k, v in ssd.items() if "ssd_scan_kernel" in k}
@@ -274,7 +340,8 @@ def tensor_core_sass() -> dict:
     if len(ssd_f32) != 1 or max(ssd_f32.values()) != 0:
         raise AssertionError(f"float32 SSD kernel with HMMA: {ssd_f32}")
     return {"HGMMA": {"bf16": tc, "float32": f32},
-            "HMMA": {"bf16": ssd_tc, "float32": ssd_f32}}
+            "HMMA": {"bf16": {**dec_tc, **ssd_tc},
+                     "float32": {**dec_f32, **ssd_f32}}}
 
 
 # ---------------------------------------------------------------------------
@@ -843,8 +910,10 @@ def _near_tie_ok(logits_q, logits_ref) -> bool:
 def reduced_w8kv8_match(torch, np) -> str:
     """The W8/KV8 path on the card (flash-prefill and int8 decode
     kernels) against the same path on the CPU (plain versions): reduced
-    qwen2-7b, f32 weights drawn on the CPU and quantized on each device,
-    the same prompts, 3 decode steps fed the CPU run's greedy token.
+    qwen2-7b and reduced granite-moe-3b-a800m (the dropless MoE FFN, as
+    the engine runs it), f32 weights drawn on the CPU and quantized on
+    each device, the same prompts, 3 decode steps fed the CPU run's
+    greedy token.
     Tolerances: the f32 prefill 1e-3 (as the other reduced steps); the
     W8/KV8 step runs bf16 products, which cuBLAS and the CPU round at
     different places, so logits within 2e-2 of the CPU's largest
@@ -853,6 +922,11 @@ def reduced_w8kv8_match(torch, np) -> str:
     ``tests/test_torch_steps.py``: rounding, plus a step where the bf16
     K/V differ by about 1 % of the row's largest value), greedy tokens
     equal except on near-ties."""
+    return "; ".join(_reduced_w8kv8(torch, np, arch)
+                     for arch in ("qwen2-7b", "granite-moe-3b-a800m"))
+
+
+def _reduced_w8kv8(torch, np, arch) -> str:
     from repro_torch import configs
     from repro_torch.kernels import ops
     from repro_torch.launch import steps
@@ -860,15 +934,16 @@ def reduced_w8kv8_match(torch, np) -> str:
     from repro_torch.serving.engine import tree_map
     from repro_torch.serving.quantize import quantize_params
 
-    cfg = configs.get_reduced("qwen2-7b")
+    cfg = configs.get_reduced(arch)
     params = init_params(cfg, torch.Generator().manual_seed(11),
                          torch.float32, "cpu")
     rng = np.random.default_rng(12)
     B, S, n = 4, 40, 3
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)))
     lens = torch.tensor([40, 33, 17, 8], dtype=torch.int32)
-    prefill = steps.make_prefill_step(cfg)
-    decode = steps.make_decode_step_w8kv8(cfg)
+    moe = cfg.family == "moe"
+    prefill = steps.make_prefill_step(cfg, moe_dropless=moe)
+    decode = steps.make_decode_step_w8kv8(cfg, moe_dropless=moe)
     runs = {}
     nxt_cpu = []
     for dev in ("cpu", "cuda"):
@@ -904,10 +979,11 @@ def reduced_w8kv8_match(torch, np) -> str:
     if not (worst_prefill <= 1e-3 and worst_logit <= 2e-2 and worst_int8 <= 2
             and worst_scale <= 2e-2 and ties and got == want):
         raise AssertionError(
-            f"reduced W8/KV8 card vs CPU: prefill {worst_prefill}, logits "
+            f"reduced {arch} W8/KV8 card vs CPU: prefill {worst_prefill}, logits "
             f"{worst_logit}, int8 {worst_int8}, scales {worst_scale}, greedy "
             f"{ties}, launches {got} (want {want})")
-    return (f"reduced W8/KV8 card-vs-CPU: prefill max|Δ|={worst_prefill:.2e}, "
+    return (f"reduced {arch} W8/KV8 card-vs-CPU: prefill "
+            f"max|Δ|={worst_prefill:.2e}, "
             f"decode logits max|Δ|/max|logit|={worst_logit:.2e}, int8 cache "
             f"max|Δ|={worst_int8}, scales rel {worst_scale:.2e}, greedy tokens "
             f"equal except near-ties; kernel launches {got}")
@@ -1049,17 +1125,66 @@ def w8kv8_full_width(torch, np, rows: int = 8, prompt: int = 512,
     return res
 
 
-def serve_full_width(torch, archs, chunk_tokens: int, n_target: int,
-                     seed: int, must_launch, alpha: float = 2.1,
-                     pool_blocks: int = 16384) -> dict:
+def build_cut_unit(torch, specs, pool_blocks: int, chunk_tokens: int,
+                   seed: int):
+    """One colocated unit of ``(name, config, rate)`` specs whose configs
+    may be cut in depth (``config.replace(configs.get(arch),
+    n_layers=k)``), assembled from ``UnifiedKVPool``, ``Engine`` and
+    ``MuxScheduler`` as ``serving/driver.build_unit_from_specs`` does:
+    quotas ∝ rate, random bf16 weights from a ``torch.Generator`` seeded
+    ``seed + i``, fused ADBS (engines of one geometry fuse)."""
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.kvcache import UnifiedKVPool
+    from repro_torch.serving.mux import MuxScheduler
+    head_dims = {cfg.hd for _, cfg, _ in specs if not cfg.attn_free}
+    if len(head_dims) != 1:
+        raise ValueError(f"one pool, one head_dim: {sorted(head_dims)}")
+    pool = UnifiedKVPool(pool_blocks, head_dims.pop(), dtype=torch.bfloat16,
+                         device="cuda")
+    rate_sum = sum(max(r, 0.0) for _, _, r in specs)
+    min_quota = max(pool_blocks // (8 * len(specs)), 1)
+    engines = {}
+    for i, (name, cfg, rate) in enumerate(specs):
+        gen = torch.Generator(device="cuda").manual_seed(seed + i)
+        tree = init_params(cfg, gen, torch.bfloat16, "cuda")
+        quota = max(int(pool_blocks * max(rate, 0.0) / rate_sum), min_quota)
+        engines[name] = Engine(cfg, tree, pool.register_model(cfg, quota),
+                               max_slots=4, chunk_tokens=chunk_tokens or None)
+        del tree
+    return MuxScheduler(engines, pool, policy="adbs", fused=True)
+
+
+def serve_full_width(torch, *args, **kw) -> dict:
+    """One serve phase (``_serve_phase``), then the card's memory freed:
+    the unit dies with that function's frame, and the collector frees
+    what it leaves in reference cycles, so the next phase starts with
+    nothing of it held."""
+    res = _serve_phase(torch, *args, **kw)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _serve_phase(torch, archs, chunk_tokens: int, n_target: int, seed: int,
+                 must_launch, alpha: float = 2.1, pool_blocks: int = 16384,
+                 depth=None) -> dict:
     """Serve the colocated full-width ``archs`` (random bf16 weights)
     under the logical clock; every request must finish, the pool must
     be freed and each kernel of ``must_launch`` must have launched in
     this run (every step's logits are checked finite by
-    ``engine.greedy_tokens``, which raises otherwise).  Returns the
-    run's numbers and launch counts."""
+    ``engine.greedy_tokens``, which raises otherwise).  ``depth`` (arch
+    → layers) cuts configs in depth; such a unit is assembled by
+    ``build_cut_unit``.  A MoE model's dropless FFN is counted per
+    layer: every layer must have run it.  Returns the run's numbers and
+    launch counts."""
+    from collections import Counter
+
+    from repro_torch import configs
+    from repro_torch.config import replace
     from repro_torch.core.workload import synthesize
     from repro_torch.kernels import ops
+    from repro_torch.models import moe
     from repro_torch.serving import driver, engine
 
     names = [f"{a}#{i}" for i, a in enumerate(archs)]
@@ -1068,22 +1193,48 @@ def serve_full_width(torch, archs, chunk_tokens: int, n_target: int,
                     horizon=1.6, seed=seed, mean_prompt=256, mean_output=40,
                     max_len=512)
     torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9   # left by earlier work
     t0 = time.perf_counter()
-    unit = driver.build_unit_from_specs(
-        [(n, a, wl.rates[n]) for n, a in zip(names, archs)],
-        pool_blocks=pool_blocks, max_slots=4, chunk_tokens=chunk_tokens,
-        seed=seed, policy="adbs", fused=True, reduced=False,
-        dtype=torch.bfloat16, device="cuda")
+    if depth:
+        unit = build_cut_unit(torch, [
+            (n, replace(configs.get(a), name=n,
+                        n_layers=depth.get(a, configs.get(a).n_layers)),
+             wl.rates[n]) for n, a in zip(names, archs)],
+            pool_blocks, chunk_tokens, seed)
+    else:
+        unit = driver.build_unit_from_specs(
+            [(n, a, wl.rates[n]) for n, a in zip(names, archs)],
+            pool_blocks=pool_blocks, max_slots=4, chunk_tokens=chunk_tokens,
+            seed=seed, policy="adbs", fused=True, reduced=False,
+            dtype=torch.bfloat16, device="cuda")
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     buckets0 = set(engine._BUCKETS)
+    moe_calls = Counter()
+    moe_ffn = moe.moe_ffn_dropless     # what moe.ffn calls for the engine
+
+    def counted_moe(x, p, li, cfg):
+        moe_calls[(cfg, li)] += 1      # cfg: the step's geometry key
+        return moe_ffn(x, p, li, cfg)
+    moe.moe_ffn_dropless = counted_moe
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    rep = driver.serve_workload([unit], wl, seed=seed, max_new_cap=64,
-                                cost=driver.TickCostModel())
-    torch.cuda.synchronize()
+    try:
+        rep = driver.serve_workload([unit], wl, seed=seed, max_new_cap=64,
+                                    cost=driver.TickCostModel())
+        torch.cuda.synchronize()
+    finally:
+        moe.moe_ffn_dropless = moe_ffn
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
+    moe_layers = {}
+    for name, eng in unit.engines.items():
+        if eng.cfg.family == "moe":
+            ran = {li for (c, li) in moe_calls if c == eng.cfg_key}
+            if ran != set(range(eng.cfg.n_layers)):
+                raise AssertionError(f"{name}: the MoE FFN ran on layers "
+                                     f"{sorted(ran)} of {eng.cfg.n_layers}")
+            moe_layers[name] = eng.cfg.n_layers
     agg = rep.aggregate
     if agg.finished != agg.submitted or agg.submitted == 0:
         raise AssertionError(f"served {agg.finished}/{agg.submitted}")
@@ -1103,6 +1254,11 @@ def serve_full_width(torch, archs, chunk_tokens: int, n_target: int,
                                in engine._BUCKETS - buckets0
                                if kind == "prefill" and cfg.ssm})
     res = dict(models=archs, requests_per_model=per_model,
+               depth={n: e.cfg.n_layers for n, e in unit.engines.items()},
+               head_dim=unit.pool.head_dim,
+               groups={n: e.cfg.n_heads // e.cfg.n_kv_heads
+                       for n, e in unit.engines.items()
+                       if not e.cfg.attn_free},
                chunk_tokens=chunk_tokens,
                requests=agg.submitted, ticks=rep.ticks,
                prompt_tokens=n_prompt, output_tokens=n_out,
@@ -1114,11 +1270,15 @@ def serve_full_width(torch, archs, chunk_tokens: int, n_target: int,
                fused_groups=len(unit.fused_groups),
                pool_head_blocks=unit.pool.n_head_blocks,
                max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+               held_before_gb=held_gb,
+               phase_peak_gb=torch.cuda.max_memory_allocated() / 1e9 - held_gb,
                ssm_prefill_lens=ssm_prefill_lens,
+               # one host synchronisation per MoE FFN call (its
+               # per-expert counts)
+               moe_ffn_calls=sum(moe_calls.values()),
+               moe_ffn_layers=moe_layers,
+               serial_engines=sorted(unit._serial_names),
                launches=launches, summary=rep.summary())
-    del unit, rep
-    gc.collect()
-    torch.cuda.empty_cache()
     return res
 
 
@@ -1357,22 +1517,22 @@ def main() -> int:
     print("tensor cores (HGMMA and HMMA instructions in cuobjdump -sass): "
           + json.dumps(tensor_core_sass()))
 
-    full = dict(label="qwen2-7b full width bf16", dtype=torch.bfloat16, H=28,
-                KV=4, hd=128, layers=28, rows=8, max_blocks=64, C=64, S=512,
-                flash_rows=4)
-    # zamba2-1.2b's shared attention block (6 applications, 32 heads of
-    # 64, group 1) at a whole-prompt bucket that is not a multiple of 64
-    zamba = dict(label="zamba2-1.2b shared attention bf16",
-                 dtype=torch.bfloat16, H=32, KV=32, hd=64, layers=6, rows=8,
-                 max_blocks=64, C=64, S=272, flash_rows=2)
-    small = dict(label="qwen2-7b reduced f32", dtype=torch.float32, H=4,
-                 KV=2, hd=64, layers=2, rows=8, max_blocks=64, C=16, S=64,
-                 flash_rows=4)
+    full, zamba, small = (attn_shape(torch, s) for s in (FULL, ZAMBA, SMALL))
+    wide = [attn_shape(torch, s) for s in WIDE]
     checks = {s["label"]: check_kernels(torch, np, s)
-              for s in (full, zamba, small)}
+              for s in [full, zamba, small] + wide}
     for label, res in checks.items():
         for name, r in res.items():
             print(f"check [{label}] {name}: " + json.dumps(r))
+    # what the compiled decode kernels get on this card: CTAs an SM,
+    # shared memory, registers (the bf16 body at each head dim, with one
+    # and two 8-head halves of its m16 tile)
+    from repro_torch.kernels import decode_splits
+    occ = {f"{src} bf16 hd {hd} group {g}": decode_splits.occupancy(
+               src, hd, torch.bfloat16, g)
+           for src in ("paged_decode.cu", "paged_decode_int8.cu")
+           for hd in (64, 96, 128) for g in (8, 16)}
+    print("decode occupancy: " + json.dumps(occ))
 
     ssd_shapes = [
         dict(label="mamba2-2.7b chunk step bf16", dtype=torch.bfloat16, b=4,
@@ -1395,7 +1555,8 @@ def main() -> int:
     ssd = {s["label"]: check_ssd(torch, s) for s in ssd_shapes}
     for label, r in ssd.items():
         print(f"check [{label}] ssd_scan: " + json.dumps(r))
-    int8 = {s["label"]: check_int8(torch, np, s) for s in (full, small)}
+    int8 = {s["label"]: check_int8(torch, np, s)
+            for s in [full, small] + wide}
     for label, res in int8.items():
         for name, r in res.items():
             print(f"check [{label}] int8 decode, {name}: " + json.dumps(r))
@@ -1425,6 +1586,38 @@ def main() -> int:
             pool_blocks=131072,
             must_launch=("repro_ssd_scan", "repro_flash_prefill",
                          "repro_paged_decode"))),
+        # the MoE family: granite-moe (24/8 heads of 64, 32 experts
+        # top-8) beside musicgen-medium (audio, MHA 24 heads of 64), full
+        # depth; different architectures, so the ticks are serial
+        ("MoE A: granite-moe-3b-a800m + musicgen-medium, chunked", dict(
+            archs=["granite-moe-3b-a800m", "musicgen-medium"],
+            chunk_tokens=64, n_target=16, seed=4, alpha=1.0,
+            pool_blocks=524288,
+            must_launch=("repro_paged_decode", "repro_paged_prefill"))),
+        # qwen3-moe at full width, 4 of 94 layers: 128 experts of 4096 x
+        # 1536 a layer, group 16 at head_dim 128
+        ("MoE B: qwen3-moe-235b-a22b (4 of 94 layers), chunked", dict(
+            archs=["qwen3-moe-235b-a22b"], chunk_tokens=64, n_target=8,
+            seed=5, pool_blocks=65536, depth={"qwen3-moe-235b-a22b": 4},
+            must_launch=("repro_paged_decode", "repro_paged_prefill"))),
+        # head_dim 96: two phi-3-vision-4.2b fused (chunked), then one
+        # with whole-prompt prefill
+        ("hd 96: phi-3-vision-4.2b x2, fused chunked", dict(
+            archs=["phi-3-vision-4.2b", "phi-3-vision-4.2b"],
+            chunk_tokens=64, n_target=16, seed=6, pool_blocks=524288,
+            must_launch=("repro_paged_decode", "repro_paged_prefill"))),
+        ("hd 96: phi-3-vision-4.2b, whole-prompt", dict(
+            archs=["phi-3-vision-4.2b"], chunk_tokens=0, n_target=8, seed=7,
+            pool_blocks=262144,
+            must_launch=("repro_paged_decode", "repro_flash_prefill"))),
+        # group 12 (command-r-plus-104b, 4 of 64 layers, tied 256k vocab)
+        # beside group 7 (deepseek-coder-33b, 16 of 62 layers)
+        ("big dense pair: command-r-plus-104b (4/64) + deepseek-coder-33b "
+         "(16/62), whole-prompt", dict(
+            archs=["command-r-plus-104b", "deepseek-coder-33b"],
+            chunk_tokens=0, n_target=8, seed=8, pool_blocks=65536,
+            depth={"command-r-plus-104b": 4, "deepseek-coder-33b": 16},
+            must_launch=("repro_paged_decode", "repro_flash_prefill"))),
     ]
     served = {}
     for label, kw in phases:
@@ -1502,7 +1695,9 @@ def main() -> int:
                 "long_context": r["dense_long"],
                 "paged": r["paged"], "dense": r["dense"],
                 "reduced": {"shapes": small["label"],
-                            **int8[small["label"]]}})
+                            **int8[small["label"]]},
+                "other_shapes": [{"shapes": w["label"], **int8[w["label"]]}
+                                 for w in wide]})
             continue
         name, key = attn_names[k.symbol]
         r = checks[full["label"]][key]
@@ -1517,8 +1712,8 @@ def main() -> int:
             "shapes": full["label"],
             **({"long_context": checks[full["label"]]["decode_long"]}
                if key == "decode" else {}),
-            "other_shapes": [{"shapes": zamba["label"],
-                              **checks[zamba["label"]][key]}],
+            "other_shapes": [{"shapes": o["label"], **checks[o["label"]][key]}
+                             for o in [zamba] + wide],
             "reduced": {"shapes": small["label"], **s}})
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -183,9 +183,17 @@ __device__ __forceinline__ void store_row(float* out_row, int tx, float l,
 //   S = Q K^T   wgmma m64n64k16, A = Q and B = K from shared memory,
 //               both K-major in the 128-byte-swizzled layout (one
 //               64-column swizzle atom of 8 KB per 64 head dims);
-//   O += P V    wgmma m64n{HD}k16, A = P (bf16) from registers, B = V
+//   O += P V    wgmma m64n{HDP}k16, A = P (bf16) from registers, B = V
 //               from shared memory, token-major, read through the
 //               descriptor's transpose.
+//
+// Head dims 64, 96 and 128.  Q, K and V live in 64-column atoms, HDP =
+// 64 * ceil(HD / 64) columns: hd 96 is padded to two atoms (128).  Its
+// K and V arrive by TMA from maps whose inner extent is 96, so TMA
+// zero-fills columns 96-127 of the second atom; S = Q K^T stops after
+// HD / 16 = 6 k-steps, so Q's padding columns (never written) are
+// never read; P V runs at n128 over V's zero columns and only 96
+// columns are written back.
 //
 // S and O stay in f32 registers.  The only difference between the two
 // kernels is an addressing policy `Addr` (which query rows the tile
@@ -205,14 +213,20 @@ constexpr int TC_THREADS = TC_CONSUMERS + 32;   // + the producer warp
 constexpr int ATOM = 64;             // bf16 columns of a 128-byte atom
 constexpr int ATOM_BYTES = TC_KEYS * ATOM * 2;  // 64 rows x 128 bytes
 
+// 64-column atoms of a head dim (hd 96: 2, its second atom half padding)
+template <int HD>
+__host__ __device__ constexpr int atoms() { return (HD + ATOM - 1) / ATOM; }
+
 template <int HD> struct TcSmem {
-  bf16 q[HD / ATOM][TC_ROWS * ATOM];
-  bf16 k[TC_STAGES][HD / ATOM][TC_KEYS * ATOM];
-  bf16 v[TC_STAGES][HD / ATOM][TC_KEYS * ATOM];
+  static constexpr int NA = atoms<HD>();
+  bf16 q[NA][TC_ROWS * ATOM];
+  bf16 k[TC_STAGES][NA][TC_KEYS * ATOM];
+  bf16 v[TC_STAGES][NA][TC_KEYS * ATOM];
   uint64_t full_k[TC_STAGES], full_v[TC_STAGES];
   uint64_t empty_k[TC_STAGES], empty_v[TC_STAGES];
 };
-// 114,784 bytes at hd 128: two CTAs an SM (228 KB, 1 KB reserved each)
+// 114,784 bytes at hd 96 and 128: two CTAs an SM (228 KB, 1 KB reserved
+// each)
 template <int HD> constexpr int tc_smem_bytes() {
   return static_cast<int>(sizeof(TcSmem<HD>));
 }
@@ -547,12 +561,12 @@ __device__ __forceinline__ void issue_qk(float (&s)[32], TcSmem<HD>& sm,
 }
 
 template <int HD>
-__device__ __forceinline__ void issue_pv(float (&o)[HD / 2],
+__device__ __forceinline__ void issue_pv(float (&o)[atoms<HD>() * ATOM / 2],
                                          const uint32_t (&p)[4][4],
                                          TcSmem<HD>& sm, int st) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
-    WgmmaRs<HD>::run(o, p[kk],
+    WgmmaRs<atoms<HD>() * ATOM>::run(o, p[kk],
                      sw128_desc(sm.v[st][0] + kk * 16 * ATOM, ATOM_BYTES,
                                 1024));
 }
@@ -568,10 +582,12 @@ __device__ __forceinline__ void tc_consume(TcSmem<HD>& sm, const Addr& ad,
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int ra = warp * 16 + lane / 4, rb = ra + 8;
   const int cq = (lane % 4) * 2;
+  constexpr int HDP = atoms<HD>() * ATOM;   // O's columns (hd 96: 128)
 
   // Q tile -> shared memory: every 16-byte chunk in flight at once
   // (cp.async), each at its swizzled place; rows past the operand are
-  // zero-filled
+  // zero-filled (hd 96: the padding columns stay unwritten, S reads
+  // only the first 96)
   constexpr int CPR = HD / 8;
   const bf16* row0 = ad.q_row(0);   // a tile's first row always exists
 #pragma unroll
@@ -587,9 +603,9 @@ __device__ __forceinline__ void tc_consume(TcSmem<HD>& sm, const Addr& ad,
   asm volatile("bar.sync 1, %0;\n" :: "n"(TC_CONSUMERS) : "memory");
 
   const int pos_a = ad.q_pos(ra), pos_b = ad.q_pos(rb);
-  float o[HD / 2];
+  float o[HDP / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < HDP / 2; ++i) o[i] = 0.f;
   RowState rs;
   float s[32];
   uint32_t p[4][4];
@@ -628,7 +644,7 @@ __device__ __forceinline__ void tc_consume(TcSmem<HD>& sm, const Addr& ad,
     fence_regs(p);
     mbar_arrive(&sm.empty_v[pst]);
 #pragma unroll
-    for (int i = 0; i < HD / 8; ++i) {
+    for (int i = 0; i < HDP / 8; ++i) {
       o[4 * i] *= corr.x;
       o[4 * i + 1] *= corr.x;
       o[4 * i + 2] *= corr.y;
@@ -658,11 +674,13 @@ __device__ __forceinline__ void tc_consume(TcSmem<HD>& sm, const Addr& ad,
   }
   const float inv_a = 1.f / fmaxf(rs.l_a, 1e-30f);
   const float inv_b = 1.f / fmaxf(rs.l_b, 1e-30f);
-  if constexpr (HD == 128) {
+  if constexpr (HD > ATOM) {
     // O in bf16 -> the Q tile's shared memory (swizzled as Q: the
     // quad's 4-byte pieces of 8 rows fall on 32 banks), then 16-byte
     // row chunks to device memory: whole sectors, not 4-byte pieces of
     // 8 rows.  9 % faster at hd 128, 8 % slower at hd 64 (PERF.md).
+    // Columns 8i .. 8i + 7 of O are accumulator group i: the first
+    // HD / 8 groups are the head's columns (hd 96: 12 of 16).
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     asm volatile("bar.sync 1, %0;\n" :: "n"(TC_CONSUMERS) : "memory");
 #pragma unroll
@@ -730,12 +748,13 @@ tc_attention_kernel(const __grid_constant__ typename Addr::Params p) {
   if (threadIdx.x >= TC_CONSUMERS) {
     if (threadIdx.x == TC_CONSUMERS) {
       auto load = [&](const CUtensorMap* map,
-                      bf16 (*ring)[HD / ATOM][TC_KEYS * ATOM], uint64_t* full,
-                      uint64_t* empty, int it) {
+                      bf16 (*ring)[TcSmem<HD>::NA][TC_KEYS * ATOM],
+                      uint64_t* full, uint64_t* empty, int it) {
         const int st = it % TC_STAGES;
         if (it >= TC_STAGES)   // the consumers released this stage
           mbar_wait(&empty[st], ((it / TC_STAGES) & 1) ^ 1);
-        mbar_expect_tx(&full[st], HD * TC_KEYS * 2);
+        // whole boxes, zero-filled columns and rows included
+        mbar_expect_tx(&full[st], TcSmem<HD>::NA * ATOM_BYTES);
         ad.load_tile(map, it, ring[st], &full[st]);
       };
       load(&p.k_map, sm.k, sm.full_k, sm.empty_k, 0);

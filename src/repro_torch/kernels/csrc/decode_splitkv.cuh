@@ -4,7 +4,8 @@
 // f32, output acc / max(l, 1e-30) in q's type (the Pallas kernels'
 // finalize).  paged_decode.cu (float or bf16 head-blocks) and
 // paged_decode_int8.cu (int8 K/V with per-token scales) each bind it to
-// their own loader (FloatKV, Int8KV below).
+// their own loader (FloatKV, Int8KV below).  Head dims 64, 96 and 128;
+// groups of 1 to SK_MAX_GROUP = 16 query heads per kv head.
 //
 // What bounds it: bytes.  Each (row, kv head) reads its seq_len x hd
 // keys and values once and does 4 flops per key/value element pair,
@@ -25,18 +26,22 @@
 //   split in chunks through a ring of STAGES stages filled by 16-byte
 //   cp.async copies (rows past seq_len are zero-filled, never read), so
 //   the next chunks are in flight while one is scored.  Rows are stored
-//   with their 16-byte units XOR-swizzled by row, so the reads below
-//   are free of bank conflicts.
+//   with their 16-byte units XOR-swizzled by row (`swizzle`), so the
+//   reads below are free of bank conflicts at every row width (8, 16,
+//   24 units and the 12 and 6 of hd 96's bf16 and int8 rows).
 // * bf16 queries (the serving path): tensor cores.  A 64-token chunk
 //   gives each warp 16 tokens: S = Q K^T by mma.sync m16n8k16 (the
-//   group's <= 8 heads padded to 16 rows, Q's fragments held in
+//   group's heads are the 16 rows of the A tile: heads 0-7 in rows
+//   0-7 and, for a group of 9-16 (NR = 2), heads 8-15 in rows 8-15;
+//   a group of <= 8 leaves rows 8-15 zero; Q's fragments held in
 //   registers for the whole split), an online softmax per head on the
-//   accumulator fragments, P rounded to bf16 and kept in registers as
-//   the A operand of O += P V (the m16n8 accumulators of two key tiles
-//   are exactly one m16k16 A fragment).  Each warp keeps its own
-//   (m, l, O) and the four merge at the end.  int8 keys and values
-//   enter f16 fragments (exact, made by integer operations), the key
-//   scale applied to S and the value scale folded into P.
+//   accumulator fragments (a thread keeps one (m, l) per head row it
+//   holds), P rounded to bf16 and kept in registers as the A operand of
+//   O += P V (the m16n8 accumulators of two key tiles are exactly one
+//   m16k16 A fragment).  Each warp keeps its own (m, l, O) and the four
+//   merge at the end.  int8 keys and values enter f16 fragments
+//   (exact, made by integer operations), the key scale applied to S
+//   and the value scale folded into P.
 // * float32 queries (the reduced test models): CUDA cores, 32-token
 //   chunks, a lane per key in the scores and 4 output dims a thread in
 //   P V (TF32 would miss their 1e-4 tolerance).
@@ -50,6 +55,14 @@
 //   (Merging in the split kernel's last CTA of each row instead, found
 //   through an atomic counter, was slower: one CTA then walks a row's
 //   whole merge.)
+//
+// CTAs an SM of the tensor-core body: its launch bound is
+// SkSmem::RESIDENT, from its shared memory (3 for bf16 and int8 K/V at
+// hd 64, 96 and 128; the float32 body's score buffers are not part of
+// it), and what the compiled kernel gets, registers included, is
+// reported by `repro_paged_decode_occupancy` / `repro_decode_int8_occupancy`.
+// On an H100 80GB HBM3 (groups 8 and 16 alike): bf16 K/V 3 at hd 64, 96
+// and 128 (100-167 registers); int8 K/V 4 at hd 64, 3 at hd 96 and 128.
 //
 // Addressing (DecodeLayout): token t of (row b, kv head h) is cache row
 //   r = blk * blk_rows + b * row_rows + h * head_rows + (t % bt) * tok_rows,
@@ -68,10 +81,12 @@
 namespace repro {
 
 constexpr int SK_THREADS = 128;      // 4 warps
-constexpr int SK_MAX_GROUP = 8;      // query heads per kv head
+constexpr int SK_MAX_GROUP = 16;     // query heads per kv head
 constexpr int SK_MAX_IDS = 258;      // blocks of one split (split / bt + 2)
 constexpr int SK_SPLIT_ALIGN = 64;   // a split is whole chunks of either body
 constexpr int SK_VD = 4;             // output dims a thread accumulates (f32)
+constexpr int TC_CHUNK = 64;         // tokens a ring stage holds: bf16 body
+constexpr int F32_CHUNK = 32;        // and float32 body
 
 struct DecodeLayout {
   const int* table;  // [B, n_kv, max_blocks] block ids, or null (blk = t / bt)
@@ -108,12 +123,20 @@ __device__ __forceinline__ uint32_t i8x2_f16(uint32_t wx, uint32_t sel) {
   return r;
 }
 
-// Physical 16-byte unit of unit u in ring row r: rows of 8+ units XOR
-// with r % 8, rows of 4 units with (r / 2) % 4, so 8 lanes reading one
-// unit of 8 consecutive rows hit 8 distinct bank groups.
+// Physical 16-byte unit of unit u in ring row r.  Row r starts at bank
+// group (r * UNITS) % 8, so rows PER = 8 / G apart start alike, G =
+// gcd(UNITS, 8).  XOR-ing u's low log2(G) bits with (r / PER) % G gives
+// such rows distinct bank groups for unit u, so 8 lanes reading one
+// unit of 8 consecutive rows hit 8 distinct bank groups.  Only bits
+// below G change and G divides UNITS, so each row's units are permuted
+// among themselves: rows of 8, 16, 24 units XOR with r % 8; 4 and 12
+// units (int8 hd 64, bf16 hd 96) with (r / 2) % 4; 6 units (int8 hd 96)
+// with (r / 4) % 2.
 template <int UNITS>
 __device__ __forceinline__ int swizzle(int u, int r) {
-  return u ^ (UNITS >= 8 ? (r & 7) : ((r >> 1) & (UNITS - 1)));
+  constexpr int G = UNITS % 8 == 0 ? 8 : (UNITS % 4 == 0 ? 4
+                                          : (UNITS % 2 == 0 ? 2 : 1));
+  return u ^ ((r / (8 / G)) & (G - 1));
 }
 // Address of byte `byte` of ring row r (rows of ROW bytes).
 template <int ROW>
@@ -259,11 +282,13 @@ __host__ __device__ inline long long ws_ml_floats(int bh_count, int n_splits) {
   return (long long)bh_count * n_splits * SK_MAX_GROUP * 2;
 }
 
-// Shared memory of one CTA: the ring, then the fixed parts.  The
+// Shared memory of one CTA: the ring, then the fixed parts (the
+// scores, probabilities and corrections only in the float32 body).  The
 // per-thread (f32) or per-warp (bf16) accumulators merge through the
 // ring once it is drained.
 template <typename KV, int HD, int CHUNK> struct SkSmem {
   using E = typename KV::Elem;
+  static constexpr bool kCudaCores = CHUNK == F32_CHUNK;
   static constexpr int ROW_BYTES = HD * (int)sizeof(E);
   static constexpr int UNITS = ROW_BYTES / 16;          // 16-byte units a row
   static constexpr int KV_BYTES = CHUNK * ROW_BYTES;
@@ -275,20 +300,25 @@ template <typename KV, int HD, int CHUNK> struct SkSmem {
   static constexpr int RED = 4 * SK_MAX_GROUP * HD * 4;  // 4 partial accs
   static constexpr int Q_OFF = RING > RED ? RING : RED;
   static constexpr int SPART_OFF = Q_OFF + SK_MAX_GROUP * HD * 4;
-  static constexpr int P_OFF = SPART_OFF + 4 * SK_MAX_GROUP * 32 * 4;
-  static constexpr int CORR_OFF = P_OFF + SK_MAX_GROUP * 32 * 4;
-  static constexpr int M_OFF = CORR_OFF + SK_MAX_GROUP * 4;
+  static constexpr int P_OFF =
+      SPART_OFF + (kCudaCores ? 4 * SK_MAX_GROUP * CHUNK * 4 : 0);
+  static constexpr int CORR_OFF =
+      P_OFF + (kCudaCores ? SK_MAX_GROUP * CHUNK * 4 : 0);
+  static constexpr int M_OFF = CORR_OFF + (kCudaCores ? SK_MAX_GROUP * 4 : 0);
   static constexpr int L_OFF = M_OFF + 4 * SK_MAX_GROUP * 4;
   static constexpr int ROWS_OFF = L_OFF + 4 * SK_MAX_GROUP * 4;
   static constexpr int BYTES = ROWS_OFF + SK_MAX_IDS * 8;
   // CTAs an SM, the tensor-core body's launch bound: as many as an
   // H100's 228 KB of shared memory holds (1 KB of it reserved per CTA),
-  // at most 3, which leaves 168 registers a thread.  bf16 K/V: 2 at
-  // hd 128, 3 at hd 64; int8 K/V: 3.
+  // at most 3, which leaves 168 registers a thread.  bf16 and int8 K/V:
+  // 3 at hd 64, 96 and 128 (bf16 hd 128: 76,304 bytes a CTA).
   static constexpr int SM_FIT = 228 * 1024 / (BYTES + 1024);
   static constexpr int RESIDENT = SM_FIT < 1 ? 1 : (SM_FIT > 3 ? 3 : SM_FIT);
-  static_assert(UNITS >= 4, "a cache row must hold at least 64 bytes");
+  static_assert(UNITS >= 4 && UNITS % 2 == 0,
+                "a cache row holds an even number (>= 4) of 16-byte units");
+  static_assert(HD % 32 == 0 && HD <= 128, "head dims 64, 96, 128");
   static_assert(SK_SPLIT_ALIGN % CHUNK == 0, "a split is whole chunks");
+  static_assert(ROWS_OFF % 8 == 0, "the block-row bases are 8-byte words");
 };
 
 // What both bodies share: the split's range, the query heads, the
@@ -399,14 +429,15 @@ template <typename T, typename KV, int HD, int CHUNK> struct SplitWalk {
 };
 
 // ---------------------------------------------------------------------------
-// bf16 queries: tensor cores, 64-token chunks, 16 tokens a warp.
+// bf16 queries: tensor cores, 64-token chunks, 16 tokens a warp.  NR
+// head rows a thread holds: 1 (group <= 8: head n = lane / 4, rows
+// 8-15 of the A tile zero) or 2 (group 9-16: heads n and n + 8).
 // ---------------------------------------------------------------------------
-constexpr int TC_CHUNK = 64;
-
-template <typename T, typename KV, int HD>
+template <typename T, typename KV, int HD, int NR>
 __global__ void __launch_bounds__(SK_THREADS,
                                   (SkSmem<KV, HD, TC_CHUNK>::RESIDENT))
 splitkv_tc_kernel(const __grid_constant__ DecodeArgs<T, KV> a) {
+  static_assert(NR == 1 || NR == 2, "one or two 8-head halves of the tile");
   using W = SplitWalk<T, KV, HD, TC_CHUNK>;
   using L = typename W::L;
   constexpr int NT = HD / 8;                    // output tiles
@@ -438,22 +469,32 @@ splitkv_tc_kernel(const __grid_constant__ DecodeArgs<T, KV> a) {
       mult0 = a.scale / qs;
     }
   }
-  // Q's A fragments (rows = heads, rows >= G and 8..15 zero), per k-step
-  uint32_t qa[HD / 16][2];
-  {
-    const float* q = w.q_s() + n * HD;
-    const bool live = n < w.G;
+  // Q's A fragments per k-step: qa[s][hr] holds k-slots 2c, 2c + 1 and
+  // qa[s][2 + hr] k-slots 2c + 8, 2c + 9 of tile row n + 8 hr, the
+  // query of head n + 8 hr (zero past the group, and rows 8-15 when
+  // NR is 1)
+  uint32_t qa[HD / 16][4];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int g = n + 8 * hr;
+    const bool live = hr < NR && g < w.G;
+    const float* q = w.q_s() + (live ? g : 0) * HD;
 #pragma unroll
     for (int s = 0; s < HD / 16; ++s) {
       const int d0 = s * 16;
-      qa[s][0] = live ? KV::pack(q[d0 + KV::k_dim(2 * c)] * qs,
-                                 q[d0 + KV::k_dim(2 * c + 1)] * qs) : 0u;
-      qa[s][1] = live ? KV::pack(q[d0 + KV::k_dim(2 * c + 8)] * qs,
-                                 q[d0 + KV::k_dim(2 * c + 9)] * qs) : 0u;
+      qa[s][hr] = live ? KV::pack(q[d0 + KV::k_dim(2 * c)] * qs,
+                                  q[d0 + KV::k_dim(2 * c + 1)] * qs) : 0u;
+      qa[s][2 + hr] = live ? KV::pack(q[d0 + KV::k_dim(2 * c + 8)] * qs,
+                                      q[d0 + KV::k_dim(2 * c + 9)] * qs) : 0u;
     }
   }
 
-  float m = NEG_INF, l = 0.f;                   // head row n, this thread's part
+  float m[NR], l[NR];                           // head row n + 8 hr, this
+#pragma unroll                                  // thread's part
+  for (int hr = 0; hr < NR; ++hr) {
+    m[hr] = NEG_INF;
+    l[hr] = 0.f;
+  }
   float o[NT][4];
 #pragma unroll
   for (int j = 0; j < NT; ++j)
@@ -476,56 +517,76 @@ splitkv_tc_kernel(const __grid_constant__ DecodeArgs<T, KV> a) {
     const unsigned char* ks = w.stage(ch);
     const unsigned char* vs = ks + L::KV_BYTES;
 
-    // S = Q K^T: two 8-key tiles
+    // S = Q K^T: two 8-key tiles; s[j][2 hr + e] is head row n + 8 hr's
+    // score of key tr0 + 8j + 2c + e
     float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll
     for (int st = 0; st < HD / 16; ++st) {
       uint32_t kb[2][2];
       KV::template k_frags<HD>(ks, tr0, st, lane, kb);
-      const uint32_t qf[4] = {qa[st][0], 0u, qa[st][1], 0u};
+      const uint32_t qf[4] = {qa[st][0], qa[st][1], qa[st][2], qa[st][3]};
       mma_16816<KV::kF16>(s[0], qf, kb[0][0], kb[0][1]);
       mma_16816<KV::kF16>(s[1], qf, kb[1][0], kb[1][1]);
     }
-    // online softmax of head row n over the 16 keys (4 a thread, the
-    // quad holds the row); key tr0 + 8j + 2c + e is s[j][e]
-    float x[2][2];
-    float mx = NEG_INF;
+    // each key's score multiplier (times its key scale for int8)
+    float mult[2][2];
 #pragma unroll
     for (int j = 0; j < 2; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int r = tr0 + 8 * j + 2 * c + e;
-        float mult = mult0;
+        mult[j][e] = mult0;
         if constexpr (KV::kScaled)
-          mult *= reinterpret_cast<const float*>(ks + 2 * L::KV_BYTES)[r];
-        x[j][e] = t0 - tr0 + r < w.end ? s[j][e] * mult : NEG_INF;
-        mx = fmaxf(mx, x[j][e]);
+          mult[j][e] *= reinterpret_cast<const float*>(ks + 2 * L::KV_BYTES)[r];
       }
-    mx = fmaxf(mx, __shfl_xor_sync(FULL_MASK, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(FULL_MASK, mx, 2));
-    const float m_new = fmaxf(m, mx);           // finite: key t0 is valid
-    const float corr = expf(m - m_new);
-    m = m_new;
-    float p[2][2];
-    float sum = 0.f;
+    // online softmax of each head row over the 16 keys (4 a thread,
+    // the quad holds the row)
+    float corr[NR], p[NR][2][2];
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
+    for (int hr = 0; hr < NR; ++hr) {
+      float x[2][2];
+      float mx = NEG_INF;
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        p[j][e] = expf(x[j][e] - m_new);
-        sum += p[j][e];
-        if constexpr (KV::kScaled)
-          p[j][e] *= reinterpret_cast<const float*>(
-              ks + 2 * L::KV_BYTES)[TC_CHUNK + tr0 + 8 * j + 2 * c + e];
-      }
-    l = l * corr + sum;
-    // P as the A fragment of the 16 keys (rows 8..15 zero)
-    const uint32_t pa[4] = {KV::pack(p[0][0], p[0][1]), 0u,
-                            KV::pack(p[1][0], p[1][1]), 0u};
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = tr0 + 8 * j + 2 * c + e;
+          x[j][e] = t0 - tr0 + r < w.end ? s[j][2 * hr + e] * mult[j][e]
+                                         : NEG_INF;
+          mx = fmaxf(mx, x[j][e]);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(FULL_MASK, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(FULL_MASK, mx, 2));
+      const float m_new = fmaxf(m[hr], mx);     // finite: key t0 is valid
+      corr[hr] = expf(m[hr] - m_new);
+      m[hr] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          p[hr][j][e] = expf(x[j][e] - m_new);
+          sum += p[hr][j][e];
+          if constexpr (KV::kScaled)
+            p[hr][j][e] *= reinterpret_cast<const float*>(
+                ks + 2 * L::KV_BYTES)[TC_CHUNK + tr0 + 8 * j + 2 * c + e];
+        }
+      l[hr] = l[hr] * corr[hr] + sum;
+    }
+    // P as the A fragment of the 16 keys (rows 8..15 zero when NR is 1)
+    const uint32_t pa[4] = {
+        KV::pack(p[0][0][0], p[0][0][1]),
+        NR > 1 ? KV::pack(p[NR - 1][0][0], p[NR - 1][0][1]) : 0u,
+        KV::pack(p[0][1][0], p[0][1][1]),
+        NR > 1 ? KV::pack(p[NR - 1][1][0], p[NR - 1][1][1]) : 0u};
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
-      o[j][0] *= corr;
-      o[j][1] *= corr;
+      o[j][0] *= corr[0];
+      o[j][1] *= corr[0];
+      if constexpr (NR > 1) {
+        o[j][2] *= corr[NR - 1];
+        o[j][3] *= corr[NR - 1];
+      }
     }
 #pragma unroll
     for (int pp = 0; pp < NT / 2; ++pp) {
@@ -538,21 +599,26 @@ splitkv_tc_kernel(const __grid_constant__ DecodeArgs<T, KV> a) {
   cp_async_wait<0>();
   __syncthreads();               // the ring is free: merge the warps there
 
-  l += __shfl_xor_sync(FULL_MASK, l, 1);
-  l += __shfl_xor_sync(FULL_MASK, l, 2);
   float (*red)[SK_MAX_GROUP][HD] =
       reinterpret_cast<float (*)[SK_MAX_GROUP][HD]>(smem);
   float (*m_w)[SK_MAX_GROUP] = reinterpret_cast<float (*)[SK_MAX_GROUP]>(smem + L::M_OFF);
   float (*l_w)[SK_MAX_GROUP] = reinterpret_cast<float (*)[SK_MAX_GROUP]>(smem + L::L_OFF);
-  if (n < w.G) {
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      red[warp][n][KV::o_dim(j, 2 * c)] = o[j][0];
-      red[warp][n][KV::o_dim(j, 2 * c + 1)] = o[j][1];
-    }
-    if (c == 0) {
-      m_w[warp][n] = m;
-      l_w[warp][n] = l;
+  for (int hr = 0; hr < NR; ++hr) {
+    float lt = l[hr];
+    lt += __shfl_xor_sync(FULL_MASK, lt, 1);
+    lt += __shfl_xor_sync(FULL_MASK, lt, 2);
+    const int g = n + 8 * hr;
+    if (g < w.G) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        red[warp][g][KV::o_dim(j, 2 * c)] = o[j][2 * hr];
+        red[warp][g][KV::o_dim(j, 2 * c + 1)] = o[j][2 * hr + 1];
+      }
+      if (c == 0) {
+        m_w[warp][g] = m[hr];
+        l_w[warp][g] = lt;
+      }
     }
   }
   __syncthreads();
@@ -586,7 +652,6 @@ splitkv_tc_kernel(const __grid_constant__ DecodeArgs<T, KV> a) {
 // ---------------------------------------------------------------------------
 // float32 queries: CUDA cores, 32-token chunks.
 // ---------------------------------------------------------------------------
-constexpr int F32_CHUNK = 32;
 
 template <typename T, typename KV, int HD>
 __global__ void __launch_bounds__(SK_THREADS)
@@ -596,8 +661,11 @@ splitkv_f32_kernel(const __grid_constant__ DecodeArgs<T, KV> a) {
   using E = typename KV::Elem;
   constexpr int U = L::UNITS;
   constexpr int EPU = 16 / (int)sizeof(E);      // elements of one unit
+  constexpr int UPW = (U + 3) / 4;              // units a warp dots
+  constexpr int HPW = SK_MAX_GROUP / 4;         // heads a warp's softmax runs
   constexpr int COLS = HD / SK_VD;              // threads across hd
-  constexpr int TG = SK_THREADS / COLS;         // token groups
+  constexpr int TG = SK_THREADS / COLS;         // token groups (hd 96: 5,
+                                                // threads 120.. idle in P V)
   extern __shared__ __align__(16) unsigned char smem[];
   W w(a, smem);
   // the merge kernel may be placed now: it waits for this grid's end
@@ -614,7 +682,12 @@ splitkv_f32_kernel(const __grid_constant__ DecodeArgs<T, KV> a) {
   const int G = w.G;
   __syncthreads();
 
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};   // heads warp, warp + 4
+  float m[HPW], l[HPW];                         // heads warp + 4 gi
+#pragma unroll
+  for (int gi = 0; gi < HPW; ++gi) {
+    m[gi] = NEG_INF;
+    l[gi] = 0.f;
+  }
   float acc[SK_MAX_GROUP][SK_VD];
 #pragma unroll
   for (int g = 0; g < SK_MAX_GROUP; ++g)
@@ -637,14 +710,15 @@ splitkv_f32_kernel(const __grid_constant__ DecodeArgs<T, KV> a) {
     const E* vs = reinterpret_cast<const E*>(st + L::KV_BYTES);
     const int c0 = w.s0 + c * F32_CHUNK;
 
-    // scores: warp w dots units [w U/4, (w+1) U/4) of key `lane`
+    // scores: warp w dots units [w UPW, (w+1) UPW) of key `lane`
     {
       float s[SK_MAX_GROUP];
 #pragma unroll
       for (int g = 0; g < SK_MAX_GROUP; ++g) s[g] = 0.f;
 #pragma unroll
-      for (int uu = 0; uu < U / 4; ++uu) {
-        const int u = warp * (U / 4) + uu;
+      for (int uu = 0; uu < UPW; ++uu) {
+        const int u = warp * UPW + uu;
+        if (U % 4 != 0 && u >= U) break;        // warp-uniform
         float kf[EPU];
         KV::template to_floats<EPU>(
             ks + (lane * U + swizzle<U>(u, lane)) * EPU, kf);
@@ -667,11 +741,11 @@ splitkv_f32_kernel(const __grid_constant__ DecodeArgs<T, KV> a) {
     }
     __syncthreads();
 
-    // online softmax: warp w runs heads w and w + 4 (lane = key; the
+    // online softmax: warp w runs heads w, w + 4, ... (lane = key; the
     // chunk's first key is valid, so m_new is finite and masked keys
     // get p = 0)
 #pragma unroll
-    for (int gi = 0; gi < 2; ++gi) {
+    for (int gi = 0; gi < HPW; ++gi) {
       const int g = warp + 4 * gi;
       if (g < G) {
         float x = s_part[0][g][lane] + s_part[1][g][lane] +
@@ -705,7 +779,7 @@ splitkv_f32_kernel(const __grid_constant__ DecodeArgs<T, KV> a) {
     const int nv = min(F32_CHUNK, w.end - c0);
     constexpr int PER_UNIT = EPU / SK_VD;       // threads sharing a unit
     const int u = col / PER_UNIT, off = (col % PER_UNIT) * SK_VD;
-    for (int r = tg; r < nv; r += TG) {
+    for (int r = tg; r < nv && tg < TG; r += TG) {
       float vf[SK_VD];
       KV::template to_floats<SK_VD>(vs + (r * U + swizzle<U>(u, r)) * EPU + off,
                                     vf);
@@ -727,7 +801,7 @@ splitkv_f32_kernel(const __grid_constant__ DecodeArgs<T, KV> a) {
   // TG token groups of partial sums: fold groups 4.. into 0..3 first
 #pragma unroll
   for (int k = 0; k < TG; k += 4) {
-    if (tg >= k && tg < k + 4) {
+    if (tg >= k && tg < k + 4 && tg < TG) {
 #pragma unroll
       for (int g = 0; g < SK_MAX_GROUP; ++g)
         if (g < G)
@@ -740,7 +814,7 @@ splitkv_f32_kernel(const __grid_constant__ DecodeArgs<T, KV> a) {
     __syncthreads();
   }
 #pragma unroll
-  for (int gi = 0; gi < 2; ++gi) {
+  for (int gi = 0; gi < HPW; ++gi) {
     const int g = warp + 4 * gi;
     if (g < G && lane == 0) {
       m_s[g] = m[gi];
@@ -793,30 +867,44 @@ splitkv_combine_kernel(const float* __restrict__ ws,
       from_float<T>(num / fmaxf(den, 1e-30f));
 }
 
-// The split kernel (tensor cores for bf16 queries, CUDA cores for f32),
-// then (n_splits > 1) the merge kernel, on one stream.  The dynamic
-// shared-memory opt-in is made once per instantiation.
+// The split kernel of a launch (tensor cores for bf16 queries, with
+// one or two head rows a thread by the group; CUDA cores for f32) and
+// its shared memory, the dynamic shared-memory opt-in made once per
+// kernel.
 template <typename T, typename KV, int HD>
-cudaError_t launch_split_decode(const DecodeArgs<T, KV>& a, int B,
-                                cudaStream_t stream) {
+cudaError_t split_decode_kernel(int group, void (**kernel)(const DecodeArgs<T, KV>),
+                                int* smem_bytes) {
   constexpr bool tc = std::is_same<T, __nv_bfloat16>::value;
   using Smem = typename std::conditional<tc, SkSmem<KV, HD, TC_CHUNK>,
                                          SkSmem<KV, HD, F32_CHUNK>>::type;
-  void (*kernel)(const DecodeArgs<T, KV>);
+  const int wide = tc && group > 8 ? 1 : 0;
   if constexpr (tc)
-    kernel = splitkv_tc_kernel<T, KV, HD>;
+    *kernel = wide ? splitkv_tc_kernel<T, KV, HD, 2>
+                   : splitkv_tc_kernel<T, KV, HD, 1>;
   else
-    kernel = splitkv_f32_kernel<T, KV, HD>;
-  static bool attr_set = false;
-  if (!attr_set) {
+    *kernel = splitkv_f32_kernel<T, KV, HD>;
+  *smem_bytes = Smem::BYTES;
+  static bool attr_set[2] = {false, false};
+  if (!attr_set[wide]) {
     const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem::BYTES);
+        *kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem::BYTES);
     if (err != cudaSuccess) return err;
-    attr_set = true;
+    attr_set[wide] = true;
   }
+  return cudaSuccess;
+}
+
+// The split kernel, then (n_splits > 1) the merge kernel, on one stream.
+template <typename T, typename KV, int HD>
+cudaError_t launch_split_decode(const DecodeArgs<T, KV>& a, int B,
+                                cudaStream_t stream) {
+  void (*kernel)(const DecodeArgs<T, KV>);
+  int smem = 0;
+  cudaError_t err = split_decode_kernel<T, KV, HD>(a.group, &kernel, &smem);
+  if (err != cudaSuccess) return err;
   const dim3 grid(a.n_splits, a.n_kv, B);
-  kernel<<<grid, SK_THREADS, Smem::BYTES, stream>>>(a);
-  cudaError_t err = cudaGetLastError();
+  kernel<<<grid, SK_THREADS, smem, stream>>>(a);
+  err = cudaGetLastError();
   if (err != cudaSuccess || a.n_splits == 1) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(a.group, a.n_kv, B);
@@ -831,6 +919,23 @@ cudaError_t launch_split_decode(const DecodeArgs<T, KV>& a, int B,
                            (const float*)a.ws, a.seq_lens, a.out, a.H, a.n_kv,
                            a.group, a.split, a.n_splits, a.lay.max_tok);
   return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// What the compiled split kernel of (T, KV, HD, group) gets on this
+// card: out[0] CTAs an SM (registers and shared memory together),
+// out[1] its dynamic shared memory in bytes, out[2] registers a thread.
+template <typename T, typename KV, int HD>
+cudaError_t split_decode_occupancy(int group, int* out) {
+  void (*kernel)(const DecodeArgs<T, KV>);
+  cudaError_t err = split_decode_kernel<T, KV, HD>(group, &kernel, &out[1]);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kernel,
+                                                      SK_THREADS, out[1]);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  out[2] = attr.numRegs;
+  return err;
 }
 
 // Host-side check of a plan (the wrapper computes it from shapes).

@@ -22,7 +22,10 @@
 // by TMA through a 4-D tensor map over [B, S, KV, hd] (box 1 x 64 x 1
 // x 64, 128-byte swizzle, rows past S read as zeros) into three-stage
 // rings.  Masking runs only on tiles that cross the diagonal, the
-// window start or S; O leaves through shared memory at hd 128.
+// window start or S; O leaves through shared memory at hd 96 and 128.
+// hd 96 runs the hd 128 tile: the map's inner extent is 96, so the
+// second column atom's last 32 columns arrive as zeros
+// (attn_common.cuh).
 //
 // float32 keeps the CUDA-core tile (`tile_step`): grid (ceil(S / 32),
 // H, B), 128 threads, 32 query rows per CTA, 16-token key tiles staged
@@ -145,7 +148,7 @@ template <int HD> struct FlashAddr {
   __device__ void load_tile(const CUtensorMap* map, int it,
                             bf16 (*dst)[TC_KEYS * ATOM], uint64_t* bar) const {
 #pragma unroll
-    for (int a = 0; a < HD / ATOM; ++a)
+    for (int a = 0; a < atoms<HD>(); ++a)
       tma_load_4d(dst[a], map, bar, a * ATOM, kvh, key0(it), b);
   }
 };
@@ -192,10 +195,14 @@ extern "C" int repro_flash_prefill(const void* q, const void* k,
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == F32 && hd == 64)
     err = launch_f32<64>(q, k, v, out, B, S, H, KV, window, scale, s);
+  else if (dtype == F32 && hd == 96)
+    err = launch_f32<96>(q, k, v, out, B, S, H, KV, window, scale, s);
   else if (dtype == F32 && hd == 128)
     err = launch_f32<128>(q, k, v, out, B, S, H, KV, window, scale, s);
   else if (dtype == BF16 && hd == 64)
     err = launch_bf16<64>(q, k, v, out, B, S, H, KV, window, scale, s);
+  else if (dtype == BF16 && hd == 96)
+    err = launch_bf16<96>(q, k, v, out, B, S, H, KV, window, scale, s);
   else if (dtype == BF16 && hd == 128)
     err = launch_bf16<128>(q, k, v, out, B, S, H, KV, window, scale, s);
   return static_cast<int>(err);

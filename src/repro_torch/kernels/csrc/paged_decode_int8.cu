@@ -60,8 +60,8 @@ REPRO_EXPORT_ERROR_STRING
 // q [B, H, hd] (f32 or bf16); k/v int8 and sk/sv f32 addressed as set
 // out above; table [B, n_kv, max_blocks] int32 or null; seq_lens [B]
 // int32; out [B, H, hd] in q's type; ws the f32 workspace of
-// B * n_kv * n_splits * (16 + group * hd) floats (null when n_splits is
-// 1); split tokens per split, n_splits * split >= max_tok.
+// B * n_kv * n_splits * (2 * SK_MAX_GROUP + group * hd) floats (null
+// when n_splits is 1); split tokens per split, n_splits * split >= max_tok.
 // dtype: 0 f32, 1 bf16.
 extern "C" int repro_decode_int8(const void* q, const void* k, const void* v,
                                  const void* sk, const void* sv,
@@ -86,11 +86,37 @@ extern "C" int repro_decode_int8(const void* q, const void* k, const void* v,
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == F32 && hd == 64)
     err = launch<float, 64>(q, k, v, sk, sv, seq_lens, out, ws, B, H, n_kv, split, n_splits, scale, lay, s);
+  else if (dtype == F32 && hd == 96)
+    err = launch<float, 96>(q, k, v, sk, sv, seq_lens, out, ws, B, H, n_kv, split, n_splits, scale, lay, s);
   else if (dtype == F32 && hd == 128)
     err = launch<float, 128>(q, k, v, sk, sv, seq_lens, out, ws, B, H, n_kv, split, n_splits, scale, lay, s);
   else if (dtype == BF16 && hd == 64)
     err = launch<__nv_bfloat16, 64>(q, k, v, sk, sv, seq_lens, out, ws, B, H, n_kv, split, n_splits, scale, lay, s);
+  else if (dtype == BF16 && hd == 96)
+    err = launch<__nv_bfloat16, 96>(q, k, v, sk, sv, seq_lens, out, ws, B, H, n_kv, split, n_splits, scale, lay, s);
   else if (dtype == BF16 && hd == 128)
     err = launch<__nv_bfloat16, 128>(q, k, v, sk, sv, seq_lens, out, ws, B, H, n_kv, split, n_splits, scale, lay, s);
+  return static_cast<int>(err);
+}
+
+// The compiled split kernel of (hd, dtype, group) on this card: out[0]
+// CTAs an SM, out[1] dynamic shared memory (bytes), out[2] registers a
+// thread (decode_splitkv.cuh, split_decode_occupancy).
+extern "C" int repro_decode_int8_occupancy(int hd, int dtype, int group,
+                                           int* out) {
+  using namespace repro;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == F32 && hd == 64)
+    err = split_decode_occupancy<float, Int8KV, 64>(group, out);
+  else if (dtype == F32 && hd == 96)
+    err = split_decode_occupancy<float, Int8KV, 96>(group, out);
+  else if (dtype == F32 && hd == 128)
+    err = split_decode_occupancy<float, Int8KV, 128>(group, out);
+  else if (dtype == BF16 && hd == 64)
+    err = split_decode_occupancy<__nv_bfloat16, Int8KV, 64>(group, out);
+  else if (dtype == BF16 && hd == 96)
+    err = split_decode_occupancy<__nv_bfloat16, Int8KV, 96>(group, out);
+  else if (dtype == BF16 && hd == 128)
+    err = split_decode_occupancy<__nv_bfloat16, Int8KV, 128>(group, out);
   return static_cast<int>(err);
 }

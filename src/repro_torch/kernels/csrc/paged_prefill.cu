@@ -23,7 +23,8 @@
 // start first.  A 64-token key tile is four head-blocks gathered
 // through phys[b, h, j]: the producer warp reads the ids and issues one
 // TMA box (16 tokens x 64 columns, 128-byte swizzle) per block and
-// column atom over the pool seen as [N*16, hd], into a three-stage ring.
+// column atom over the pool seen as [N*16, hd], into a three-stage ring
+// (hd 96: two atoms, the second's columns 96-127 zero-filled by TMA).
 // The walk stops at the tile's last query position (the Pallas
 // kernel's `j*bt <= off + chunk - 1`, narrowed to the tile); blocks
 // past it in the last tile repeat the tile's first block and are
@@ -174,7 +175,7 @@ template <int HD> struct PagedAddr {
       const int j = j0 + jj < n_blocks ? j0 + jj : j0;
       const int row = ph[j] * BLOCK_TOKENS;
 #pragma unroll
-      for (int a = 0; a < HD / ATOM; ++a)
+      for (int a = 0; a < atoms<HD>(); ++a)
         tma_load_2d(dst[a] + jj * BLOCK_TOKENS * ATOM, map, bar, a * ATOM,
                     row);
     }
@@ -229,10 +230,14 @@ extern "C" int repro_paged_prefill(const void* q, const void* pool_k,
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == F32 && hd == 64)
     err = launch_f32<64>(q, pool_k, pool_v, phys, q_offset, out, B, C, H, n_kv, max_blocks, scale, s);
+  else if (dtype == F32 && hd == 96)
+    err = launch_f32<96>(q, pool_k, pool_v, phys, q_offset, out, B, C, H, n_kv, max_blocks, scale, s);
   else if (dtype == F32 && hd == 128)
     err = launch_f32<128>(q, pool_k, pool_v, phys, q_offset, out, B, C, H, n_kv, max_blocks, scale, s);
   else if (dtype == BF16 && hd == 64)
     err = launch_bf16<64>(q, pool_k, pool_v, phys, q_offset, out, B, C, H, n_kv, max_blocks, scale, s);
+  else if (dtype == BF16 && hd == 96)
+    err = launch_bf16<96>(q, pool_k, pool_v, phys, q_offset, out, B, C, H, n_kv, max_blocks, scale, s);
   else if (dtype == BF16 && hd == 128)
     err = launch_bf16<128>(q, pool_k, pool_v, phys, q_offset, out, B, C, H, n_kv, max_blocks, scale, s);
   return static_cast<int>(err);

@@ -16,20 +16,25 @@ SM timed faster than a half, two and four, and than one wave of three
 CTAs an SM with 64-multiple splits; see PERF.md.)  It is capped so a
 split's block ids fit the kernel's shared memory (``split / bt + 2 <=
 MAX_IDS``).
+
+``ALIGN``, ``MAX_IDS`` and ``MAX_GROUP`` mirror the source's
+``SK_SPLIT_ALIGN``, ``SK_MAX_IDS`` and ``SK_MAX_GROUP``.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import ctypes
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.kernels.build import sm_count
 
 ALIGN = 64              # SK_SPLIT_ALIGN: a split is whole ring chunks
 MIN_SPLIT = 64
 MAX_SPLIT = 4096
 MAX_IDS = 258           # SK_MAX_IDS
-MAX_GROUP = 8           # SK_MAX_GROUP: (m, l) slots per split in the workspace
+MAX_GROUP = 16          # SK_MAX_GROUP: (m, l) slots per split in the workspace
 
 
 class SplitPlan(NamedTuple):
@@ -83,3 +88,25 @@ def prepare(q: torch.Tensor, n_kv: int, max_tok: int, bt: Optional[int],
     plan = plan_splits(B, n_kv, max_tok, bt,
                        sm_count(q.device) if sms is None else sms)
     return plan, workspace(plan, B, n_kv, H // n_kv, hd, q.device)
+
+
+# the occupancy entry point of each decode library
+_OCCUPANCY = {"paged_decode.cu": "repro_paged_decode_occupancy",
+              "paged_decode_int8.cu": "repro_decode_int8_occupancy"}
+
+
+def occupancy(source: str, hd: int, dtype: torch.dtype,
+              group: int) -> Dict[str, int]:
+    """What the compiled split kernel of ``source`` (``paged_decode.cu``
+    or ``paged_decode_int8.cu``) gets for queries of ``dtype`` at head
+    dim ``hd`` and ``group`` query heads per kv head on the current
+    card: CTAs an SM (registers and shared memory together), its
+    dynamic shared memory and its registers a thread."""
+    fn = getattr(build.library(source), _OCCUPANCY[source])
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 3)()
+    err = fn(hd, build.dtype_code(dtype), group, ctypes.addressof(out))
+    if err:
+        raise RuntimeError(f"{_OCCUPANCY[source]}: CUDA error {err}")
+    return dict(ctas_per_sm=out[0], smem_bytes=out[1], regs=out[2])

@@ -30,7 +30,7 @@ PAGED_KERNEL = CudaKernel(
 FLASH_KERNEL = CudaKernel(
     "repro_flash_prefill", "flash_prefill.cu", "ppppiiiiiiif",
     replaces="src/repro/kernels/flash_prefill.py:82")
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 96, 128)
 
 
 def _check_common(name: str, q, *others) -> None:

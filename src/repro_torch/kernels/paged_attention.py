@@ -25,8 +25,8 @@ from repro_torch.paging import resolve_physical_blocks
 DECODE_KERNEL = CudaKernel(
     "repro_paged_decode", "paged_decode.cu", "pppppppiiiiiifii",
     replaces="src/repro/kernels/paged_attention.py:79")
-MAX_GROUP = 8           # query heads per kv head the kernel keeps resident
-HEAD_DIMS = (64, 128)
+MAX_GROUP = decode_splits.MAX_GROUP   # query heads per kv head (16)
+HEAD_DIMS = (64, 96, 128)
 
 
 def fused_paged_decode_attention(q, pool_k, pool_v, phys, seq_lens):

@@ -33,8 +33,8 @@ from repro_torch.paging import resolve_physical_blocks
 DECODE_INT8_KERNEL = CudaKernel(
     "repro_decode_int8", "paged_decode_int8.cu", "pppppppppiiiiiilllliifii",
     replaces="src/repro/kernels/paged_attention_int8.py:69")
-MAX_GROUP = 8           # query heads per kv head the kernel keeps resident
-HEAD_DIMS = (64, 128)
+MAX_GROUP = decode_splits.MAX_GROUP   # query heads per kv head (16)
+HEAD_DIMS = (64, 96, 128)
 
 
 def paged_layout(bt: int, max_blocks: int):

@@ -1,6 +1,6 @@
 """Multi-LLM SLO-attainment serving over real colocated engines (port of
-``repro/launch/serve.py``, the subset the ported families support:
-dense, SSM and hybrid).
+``repro/launch/serve.py``; ``--archs`` takes any of the ten configs of
+``repro_torch.configs``).
 
 Replays a popularity-skewed Poisson workload (``core/workload.py``)
 over the requested architectures' reduced variants and reports per-LLM

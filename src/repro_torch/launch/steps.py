@@ -1,5 +1,5 @@
-"""Serve-step definitions of the dense family (port of the dense half of
-``repro/launch/steps.py``).
+"""Serve-step definitions of the attention families — dense, MoE, vlm
+and audio (port of those branches of ``repro/launch/steps.py``).
 
 Phases (paper §2.1):
   * ``prefill``: full causal forward over the prompt, emit the KV cache
@@ -23,8 +23,14 @@ each layer of the int8 cache in place; CPU tensors run their plain
 versions.  The bf16 decode attends over its dense cache in plain
 PyTorch: the JAX package has no TPU kernel for it either.
 
-Not ported yet (they raise): the MoE FFN, the sliding-window decode and
-the SSM / hybrid steps (the engine serves those families through
+MoE layers run ``models/moe``: ``moe_dropless`` picks the dropless FFN
+(a token's output independent of the batch), else the capacity FFN, as
+in the reference.  A vlm / audio prefill takes tokens only: the
+reference's ``prefix_emb`` (precomputed frontend embeddings, whose
+frontends are stubs) is not ported.
+
+Not ported yet (they raise): the sliding-window decode and the SSM /
+hybrid steps (the engine serves those families through
 ``serving/engine.py``).
 """
 from __future__ import annotations
@@ -36,18 +42,19 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.kernels.paged_attention_int8 import \
     dense_decode_attention_int8
-from repro_torch.models.layers import (attn_qkv, linear, lm_logits, mlp,
-                                       rms_norm)
+from repro_torch.models.layers import attn_qkv, linear, lm_logits, rms_norm
+from repro_torch.models.moe import ffn
 from repro_torch.paging import dense_decode_attention
 from repro_torch.serving.cache_ops import flash_prefill
 from repro_torch.serving.quantize import QLayerView, qmatmul, quantize_kv
 
 
-def _dense_only(cfg: ModelConfig, what: str) -> None:
-    if cfg.family != "dense":
+def _attention_only(cfg: ModelConfig, what: str) -> None:
+    if cfg.family not in ("dense", "moe", "vlm", "audio"):
         raise NotImplementedError(
-            f"{what}: the port's serve steps cover the dense family; "
-            f"{cfg.family!r} ({cfg.name}) is not ported yet")
+            f"{what}: the port's serve steps cover the dense, MoE, vlm "
+            f"and audio families; {cfg.family!r} ({cfg.name}) is not "
+            f"ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -86,10 +93,9 @@ def _attn_decode_token(x, lp, li, cfg, pos):
     return q[:, 0], k[:, 0], v[:, 0]
 
 
-def _ffn_decode(x, lp, li, cfg):
-    _dense_only(cfg, "decode FFN")
+def _ffn_decode(x, lp, li, cfg, dropless):
     h = rms_norm(x, lp["ln2"][li], cfg.rms_eps)
-    return x + mlp(h, lp, li)
+    return x + ffn(h, lp, li, cfg, dropless)
 
 
 def _decode_attend_dense_q(q, ckq, cvq, sk, sv, lens):
@@ -104,13 +110,15 @@ def _decode_attend_dense_q(q, ckq, cvq, sk, sv, lens):
 # ---------------------------------------------------------------------------
 # W8/KV8 decode
 # ---------------------------------------------------------------------------
-def make_decode_step_w8kv8(cfg: ModelConfig):
-    """int8-weight + int8-KV decode step (dense family).
+def make_decode_step_w8kv8(cfg: ModelConfig, moe_dropless: bool = False):
+    """int8-weight + int8-KV decode step (dense, MoE, vlm and audio
+    families).
 
     Params come from ``serving.quantize.quantize_params``; caches carry
     int8 values plus per-(token, head) f32 scales.  The step runs in
-    bf16: the embedding and every weight are dequantized to bf16."""
-    _dense_only(cfg, "W8/KV8 decode")
+    bf16: the embedding and every weight are dequantized to bf16 (a MoE
+    layer's experts all, by ``QLayerView``)."""
+    _attention_only(cfg, "W8/KV8 decode")
 
     def decode(qparams, cache_k, cache_v, scale_k, scale_v, last_tok,
                lens):
@@ -128,7 +136,7 @@ def make_decode_step_w8kv8(cfg: ModelConfig):
             o = _decode_attend_dense_q(q, cache_k[li], cache_v[li],
                                        scale_k[li], scale_v[li], lens)
             x = x + linear(o.reshape(x.shape[0], -1), lp["wo"][0])
-            x = _ffn_decode(x, lp, 0, cfg)
+            x = _ffn_decode(x, lp, 0, cfg, moe_dropless)
         h = rms_norm(x, tok["out_norm"], cfg.rms_eps)
         if cfg.tie_embeddings:
             # embed scales are per-d column: fold into h, exact
@@ -146,10 +154,13 @@ def make_decode_step_w8kv8(cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 # prefill
 # ---------------------------------------------------------------------------
-def make_prefill_step(cfg: ModelConfig, window: Optional[int] = None):
+def make_prefill_step(cfg: ModelConfig, window: Optional[int] = None,
+                      moe_dropless: bool = False):
     """Returns prefill(params, tokens, lens) → {logits, cache_k,
-    cache_v} (dense family)."""
-    _dense_only(cfg, "prefill")
+    cache_v}; vlm / audio prefill takes tokens only.  ``moe_dropless``:
+    the dropless MoE FFN (outputs independent of the batch); default the
+    capacity FFN, as the reference."""
+    _attention_only(cfg, "prefill")
 
     def prefill(params, tokens, lens):
         x = params["tok"]["embed"][tokens]
@@ -160,7 +171,7 @@ def make_prefill_step(cfg: ModelConfig, window: Optional[int] = None):
         for li in range(cfg.n_layers):
             x, k, v = _attention_prefill(x, lp, li, cfg, positions, window)
             h = rms_norm(x, lp["ln2"][li], cfg.rms_eps)
-            x = x + mlp(h, lp, li)
+            x = x + ffn(h, lp, li, cfg, moe_dropless)
             ks.append(k)
             vs.append(v)
         idx = torch.clamp(lens.long() - 1, min=0)
@@ -174,11 +185,12 @@ def make_prefill_step(cfg: ModelConfig, window: Optional[int] = None):
 # ---------------------------------------------------------------------------
 # decode — ONE new token with a lens context cache
 # ---------------------------------------------------------------------------
-def make_decode_step(cfg: ModelConfig, windowed: bool = False):
+def make_decode_step(cfg: ModelConfig, windowed: bool = False,
+                     moe_dropless: bool = False):
     """Returns decode(params, cache_k, cache_v, last_tok, lens) → outputs
-    dict (dense family).  ``lens`` is the context length INCLUDING the
-    new token (position lens−1)."""
-    _dense_only(cfg, "decode")
+    dict.  ``lens`` is the context length INCLUDING the new token
+    (position lens−1)."""
+    _attention_only(cfg, "decode")
     if windowed:
         raise NotImplementedError(
             "the sliding-window decode (write_window, "
@@ -193,7 +205,7 @@ def make_decode_step(cfg: ModelConfig, windowed: bool = False):
             _write_dense(cache_k[li], cache_v[li], k, v, pos)
             o = dense_decode_attention(q, cache_k[li], cache_v[li], lens)
             x = x + linear(o.reshape(x.shape[0], -1), lp["wo"][li])
-            x = _ffn_decode(x, lp, li, cfg)
+            x = _ffn_decode(x, lp, li, cfg, moe_dropless)
         logits = lm_logits(x, params["tok"], cfg)
         return {"logits": logits[..., :cfg.vocab_size],
                 "cache_k": cache_k, "cache_v": cache_v}

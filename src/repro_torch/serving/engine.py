@@ -1,5 +1,7 @@
 """Per-LLM runtime engine: disaggregated prefill / decode jobs (port of
-``repro/serving/engine.py``: the dense, SSM and hybrid families).
+``repro/serving/engine.py``: the dense, MoE, SSM and hybrid families,
+and vlm / audio served as token decoders, as the reference engine does:
+it reads no prefix embeddings).
 
 Prefill and decode are separate jobs over shared weights and the
 unified KV pool; the scheduler (serving/mux.py) decides which job runs
@@ -42,6 +44,7 @@ from repro_torch.config import BLOCK_TOKENS, ModelConfig, replace
 from repro_torch.models import mamba2 as M2
 from repro_torch.models.layers import (attn_qkv, embed_tokens, linear,
                                        lm_logits, mlp, rms_norm)
+from repro_torch.models.moe import ffn
 from repro_torch.serving import cache_ops
 from repro_torch.serving.kvcache import ModelCacheView
 
@@ -202,8 +205,7 @@ class PrefillJob:
 
 
 class Engine:
-    """Inference engine for one dense, SSM or hybrid LLM over the shared
-    pool."""
+    """Inference engine for one LLM (any family) over the shared pool."""
 
     def __init__(self, cfg: ModelConfig, params, view: ModelCacheView,
                  max_slots: int = 8, max_blocks_per_seq: int = 64,
@@ -214,11 +216,9 @@ class Engine:
         ``chunk_tokens`` at a time, one chunk per scheduler tick
         (attention families against the pool, pure SSM through the
         mixer's state carry; hybrid keeps whole-prompt prefill)."""
-        if cfg.family not in ("dense", "vlm", "audio", "ssm", "hybrid") \
-                or cfg.moe:
-            raise ValueError(f"the port serves the dense, SSM and hybrid "
-                             f"families so far, not {cfg.family!r} "
-                             f"({cfg.name})")
+        if cfg.family not in ("dense", "vlm", "audio", "moe", "ssm",
+                              "hybrid"):
+            raise ValueError(f"unknown family {cfg.family!r} ({cfg.name})")
         self.cfg = cfg
         self.clock = clock
         # steps are cached per *geometry*, not per model name
@@ -583,8 +583,8 @@ class Engine:
         engines: everything that shapes the stacked tree and the fused
         computation (geometry, head layout, projection extras, vocab,
         param dtype, block-table width, chunk window).  None marks the
-        engine fusion-ineligible (SSM/hybrid keep their own scan): the
-        scheduler runs it on the serial path."""
+        engine fusion-ineligible (SSM/hybrid keep their own scan, MoE
+        its own routed FFN): the scheduler runs it on the serial path."""
         cfg = self.cfg
         if cfg.family not in ("dense", "vlm", "audio") or cfg.ssm \
                 or cfg.moe:
@@ -646,7 +646,7 @@ def _fused_decode_step(params, toks, lens, pool, tables, *,
             flat_lens)
         x = x + linear(o.reshape(M, R, n_h * hd), lp["wo"][:, li])
         h = rms_norm(x, lp["ln2"][:, li], cfg.rms_eps)
-        x = x + mlp(h, lp, li)
+        x = x + ffn(h, lp, li, cfg)
     return lm_logits(x, params["tok"], cfg)[..., :cfg.vocab_size]
 
 
@@ -686,7 +686,7 @@ def _fused_prefill_chunk_step(params, toks, offs, clens, pool, tables, *,
             flat_offs)
         x = x + linear(o.reshape(M, R, C, n_h * hd), lp["wo"][:, li])
         h = rms_norm(x, lp["ln2"][:, li], cfg.rms_eps)
-        x = x + mlp(h, lp, li)
+        x = x + ffn(h, lp, li, cfg)
     idx = _to(dev, np.maximum(clens - 1, 0), torch.int64)      # [M,R]
     x_last = x.gather(2, idx[:, :, None, None].expand(M, R, 1, x.shape[-1]))
     return lm_logits(x_last[:, :, 0], params["tok"], cfg)[..., :cfg.vocab_size]
@@ -719,7 +719,7 @@ def _prefill_step(params, midx, toks, lens, pool, table, *,
         cache_ops.write_slots(pool.k, pool.v, k[0], v[0], slots, li, n_kv)
         x = x + linear(o.reshape(1, B, S, -1), lp["wo"][:, li])
         h = rms_norm(x, lp["ln2"][:, li], cfg.rms_eps)
-        x = x + mlp(h, lp, li)
+        x = x + ffn(h, lp, li, cfg)
     idx = _to(dev, np.maximum(lens - 1, 0), torch.int64)
     x_last = x[0, torch.arange(B, device=dev), idx]              # [B, d]
     return lm_logits(x_last[None], p["tok"], cfg)[0, :, :cfg.vocab_size]

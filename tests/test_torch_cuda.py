@@ -66,16 +66,28 @@ def _tables(rng, rows, max_blocks, n_blocks, group_size):
     return t
 
 
+# ... and the shapes of the configs beyond qwen2-7b: head_dim 96
+# (phi-3-vision-4.2b, 32 heads, group 1), group 12 (command-r-plus-104b,
+# 96/8) and group 16 (qwen3-moe-235b-a22b, 64/4), whose heads 8-15 fill
+# rows 8-15 of the bf16 body's m16 tile, each in bf16 and float32
 @pytest.mark.parametrize("dtype,hd,H,n_kv", [
     (torch.float32, 64, 4, 2),        # reduced qwen2-7b pool
     (torch.bfloat16, 128, 28, 4),     # full-width qwen2-7b
     (torch.bfloat16, 64, 8, 1),
+    (torch.bfloat16, 96, 32, 32),
+    (torch.float32, 96, 8, 4),
+    (torch.bfloat16, 128, 96, 8),
+    (torch.float32, 128, 24, 2),
+    (torch.bfloat16, 128, 64, 4),
+    (torch.float32, 64, 16, 1),
+    (torch.bfloat16, 96, 32, 2),      # hd 96 at group 16
 ])
 def test_decode_kernel_matches_plain(dev, dtype, hd, H, n_kv):
     rng = np.random.default_rng(0)
     B, max_blocks, layers = 8, 12, 3
-    pool_k, pool_v = _pool(4096, hd, dtype, dev, 1)
-    table = _tables(rng, B, max_blocks, 4096, layers * n_kv)
+    n_blocks = max(4096, B * max_blocks * layers * n_kv)
+    pool_k, pool_v = _pool(n_blocks, hd, dtype, dev, 1)
+    table = _tables(rng, B, max_blocks, n_blocks, layers * n_kv)
     lens = np.array([int(rng.integers(1, 16 * max(1, (t >= 0).sum()) + 1))
                      for t in table], np.int32)
     lens[-1] = 1                                   # a padded row
@@ -103,6 +115,10 @@ def test_decode_kernel_matches_plain(dev, dtype, hd, H, n_kv):
     (torch.bfloat16, 128, 28, 4, 64, 10, None),
     (torch.bfloat16, 64, 32, 32, 64, 10, None),
     (torch.bfloat16, 128, 28, 4, 64, 64, 896),
+    (torch.bfloat16, 96, 32, 32, 64, 10, None),   # phi-3-vision-4.2b
+    (torch.bfloat16, 96, 8, 2, 64, 64, 896),
+    (torch.float32, 96, 4, 4, 16, 10, None),
+    (torch.bfloat16, 128, 64, 4, 64, 10, None),   # qwen3-moe: group 16
 ])
 def test_chunk_kernel_matches_plain(dev, dtype, hd, H, n_kv, C, max_blocks,
                                     max_off):
@@ -145,6 +161,10 @@ def test_chunk_kernel_matches_plain(dev, dtype, hd, H, n_kv, C, max_blocks,
     (torch.bfloat16, 128, 1024, 28, 4, None),
     (torch.bfloat16, 128, 300, 8, 2, 100),
     (torch.bfloat16, 64, 272, 32, 32, 48),
+    (torch.bfloat16, 96, 512, 32, 32, None),      # phi-3-vision-4.2b
+    (torch.bfloat16, 96, 300, 8, 2, 100),
+    (torch.float32, 96, 48, 4, 4, None),
+    (torch.bfloat16, 128, 272, 96, 8, None),      # command-r-plus: group 12
 ])
 def test_flash_kernel_matches_plain(dev, dtype, hd, S, H, KV, window):
     B = 2
@@ -178,8 +198,8 @@ def test_kernels_refuse_bad_operands(dev):
     # non-contiguous or misaligned operand
     x = torch.randn((1, 64, 4, 128), device=dev).bfloat16()
     with pytest.raises(ValueError, match="head_dim"):
-        fp.flash_prefill(x[..., :96].contiguous(), x[..., :96].contiguous(),
-                         x[..., :96].contiguous())
+        fp.flash_prefill(x[..., :80].contiguous(), x[..., :80].contiguous(),
+                         x[..., :80].contiguous())
     with pytest.raises(TypeError):
         fp.flash_prefill(x.half(), x.half(), x.half())
     with pytest.raises(ValueError, match="contiguous"):
@@ -198,6 +218,48 @@ def test_kernels_refuse_bad_operands(dev):
         fp.fused_paged_flash_prefill(xq, pool.transpose(0, 1).contiguous()
                                      .transpose(0, 1), pool, phys, qo)
     assert ops.launch_counts() == counts
+
+
+# The port's attention kernels take head_dim 64, 96 and 128 and the
+# decode kernels at most 16 query heads per kv head; anything else
+# raises ValueError before a launch (the Pallas kernels take any).
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernels_refuse_hd_80_and_group_17(dev, dtype):
+    counts = ops.launch_counts()
+    lens = torch.full((2,), 5, dtype=torch.int32, device=dev)
+    for hd, H, n_kv in ((80, 4, 2), (64, 34, 2), (128, 17, 1)):
+        q = torch.randn((2, H, hd), device=dev).to(dtype)
+        pool = torch.randn((8, 16, hd), device=dev).to(dtype)
+        phys = torch.zeros((2, n_kv, 1), dtype=torch.int32, device=dev)
+        with pytest.raises(ValueError, match="head_dim"):
+            pa.fused_paged_decode_attention(q, pool, pool, phys, lens)
+        ck, sk = _int8_cache(dev, (2, 8, n_kv, hd), 6)
+        with pytest.raises(ValueError, match="head_dim"):
+            pi8.dense_decode_attention_int8(q, ck, ck, sk, sk, lens)
+    x = torch.randn((1, 32, 4, 80), device=dev).to(dtype)
+    with pytest.raises(ValueError, match="head_dim"):
+        fp.flash_prefill(x, x, x)
+    pool = torch.randn((8, 16, 80), device=dev).to(dtype)
+    phys = torch.zeros((1, 4, 2), dtype=torch.int32, device=dev)
+    qo = torch.zeros(1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        fp.fused_paged_flash_prefill(x, pool, pool, phys, qo)
+    assert ops.launch_counts() == counts
+
+
+# The bf16 body's shared memory (decode_splitkv.cuh's SkSmem, mirrored
+# in tests/test_torch_decode_splits.py) as the built kernels report it,
+# and its launch bound of 3 CTAs an SM met at every head dim and group.
+@pytest.mark.parametrize("group", [8, 16])
+def test_decode_kernels_hold_three_ctas_an_sm(dev, group):
+    smem = {("paged_decode.cu", 64): 72208, ("paged_decode.cu", 96): 57872,
+            ("paged_decode.cu", 128): 76304}
+    for src in ("paged_decode.cu", "paged_decode_int8.cu"):
+        for hd in (64, 96, 128):
+            occ = dsp.occupancy(src, hd, torch.bfloat16, group)
+            assert occ["ctas_per_sm"] >= 3, (src, hd, occ)
+            assert occ["smem_bytes"] == smem.get((src, hd),
+                                                 occ["smem_bytes"])
 
 
 def _ssd_inputs(dev, dtype, b, S, H, G, N, init, seed=0):
@@ -322,13 +384,19 @@ def _int8_cache(dev, shape, seed):
     (torch.float32, 64, 4, 2),
     (torch.bfloat16, 128, 28, 4),
     (torch.bfloat16, 64, 14, 2),
+    (torch.bfloat16, 96, 32, 32),
+    (torch.float32, 96, 8, 4),
+    (torch.bfloat16, 128, 96, 8),
+    (torch.bfloat16, 128, 64, 4),
+    (torch.float32, 64, 32, 2),
 ])
 def test_int8_decode_kernel_matches_plain_paged(dev, dtype, hd, H, n_kv):
     rng = np.random.default_rng(3)
     B, max_blocks, layers = 8, 12, 3
-    k8, sk = _int8_cache(dev, (4096, 16, hd), 1)
-    v8, sv = _int8_cache(dev, (4096, 16, hd), 2)
-    table = _tables(rng, B, max_blocks, 4096, layers * n_kv)
+    n_blocks = max(4096, B * max_blocks * layers * n_kv)
+    k8, sk = _int8_cache(dev, (n_blocks, 16, hd), 1)
+    v8, sv = _int8_cache(dev, (n_blocks, 16, hd), 2)
+    table = _tables(rng, B, max_blocks, n_blocks, layers * n_kv)
     lens = np.array([int(rng.integers(1, 16 * max(1, (t >= 0).sum()) + 1))
                      for t in table], np.int32)
     lens[-1] = 1                                   # a padded row
@@ -353,6 +421,10 @@ def test_int8_decode_kernel_matches_plain_paged(dev, dtype, hd, H, n_kv):
 @pytest.mark.parametrize("dtype,hd,H,KV,S", [
     (torch.float32, 64, 4, 2, 37),                 # S not a multiple of 16
     (torch.bfloat16, 128, 28, 4, 544),             # the W8/KV8 smoke phase
+    (torch.bfloat16, 96, 32, 32, 300),
+    (torch.float32, 96, 4, 2, 37),
+    (torch.bfloat16, 128, 96, 8, 544),
+    (torch.float32, 128, 48, 4, 100),
 ])
 def test_int8_decode_kernel_matches_plain_dense(dev, dtype, hd, H, KV, S):
     """One layer of a stacked [L, B, S, KV, hd] cache, read in place."""
@@ -389,8 +461,8 @@ def test_int8_decode_kernel_refuses_bad_operands(dev):
                                         ck[..., :32].contiguous(),
                                         ck[..., :32].contiguous(), sk, sk,
                                         lens)
-    with pytest.raises(ValueError):                # a group of 16
-        pi8.dense_decode_attention_int8(torch.randn((2, 32, 64), device=dev),
+    with pytest.raises(ValueError):                # a group of 17
+        pi8.dense_decode_attention_int8(torch.randn((2, 34, 64), device=dev),
                                         ck, ck, sk, sk, lens)
     with pytest.raises(ValueError):                # mixed devices
         pi8.dense_decode_attention_int8(q, ck.cpu(), ck, sk, sk, lens)
@@ -433,6 +505,10 @@ def _split_tables(rng, lens, max_blocks, group_size):
     (torch.float32, 64, 4, 2),        # reduced qwen2-7b pool
     (torch.bfloat16, 128, 28, 4),     # full-width qwen2-7b: group 7
     (torch.bfloat16, 64, 32, 32),     # zamba2-1.2b's shared attention: group 1
+    (torch.bfloat16, 96, 32, 32),     # phi-3-vision-4.2b
+    (torch.bfloat16, 128, 96, 8),     # command-r-plus-104b: group 12
+    (torch.bfloat16, 128, 64, 4),     # qwen3-moe-235b-a22b: group 16
+    (torch.float32, 96, 32, 2),
 ])
 def test_decode_kernel_splits_match_plain(dev, dtype, hd, H, n_kv):
     rng = np.random.default_rng(5)
@@ -464,6 +540,10 @@ def test_decode_kernel_splits_match_plain(dev, dtype, hd, H, n_kv):
     (torch.float32, 64, 4, 2),
     (torch.bfloat16, 128, 28, 4),
     (torch.bfloat16, 64, 32, 32),
+    (torch.bfloat16, 96, 32, 32),
+    (torch.bfloat16, 128, 96, 8),
+    (torch.bfloat16, 128, 64, 4),
+    (torch.float32, 96, 24, 2),
 ])
 def test_int8_decode_kernel_splits_match_plain_paged(dev, dtype, hd, H, n_kv):
     rng = np.random.default_rng(8)

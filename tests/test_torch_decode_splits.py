@@ -13,10 +13,22 @@ the plain versions (``paging.fused_paged_decode_attention``,
 ``paged_int8_plain``, ``dense_int8_plain``) and to the Pallas kernels
 in interpret mode, as ``tests/test_kernels.py`` runs them.  Rows of no
 token, of one token, rows whose later splits are all empty and rows
-much longer than one split are covered.  Tolerance: float32 2e-5;
-bf16 2e-2 (the replay rounds P to bf16, the references do not).
+much longer than one split are covered, at head dims 64, 96 and 128
+and groups of 1 to 16.  Tolerance: float32 2e-5; bf16 2e-2 (the replay
+rounds P to bf16, the references do not).
+
+The layouts no compiler here checks are replayed too: the ring's
+16-byte-unit swizzle (a permutation of each row's units at every row
+width the kernels use, 8 consecutive rows of one unit on 8 distinct
+bank groups), the tensor-core body's m16 tile at fragment level (which
+lane holds which head, for groups of up to 8 and of 9-16), the
+workspace's slots at ``SK_MAX_GROUP`` 16, the shared-memory layout
+(``SkSmem``: bytes and CTAs an SM), and the Python mirrors of the
+source's constants, read from the source text.
 """
 import math
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -203,6 +215,11 @@ def _paged_case(rng, H, n_kv, hd, layers=2):
     ("f32", 128, 14, 2),         # group 7
     ("bf16", 128, 14, 2),        # qwen2-7b's group 7 at hd 128
     ("bf16", 64, 4, 4),          # zamba2-1.2b's group 1 at hd 64
+    ("bf16", 96, 4, 4),          # phi-3-vision-4.2b's hd 96, group 1
+    ("f32", 96, 8, 2),
+    ("bf16", 128, 24, 2),        # command-r-plus-104b's group 12
+    ("bf16", 128, 32, 2),        # qwen3-moe-235b-a22b's group 16
+    ("f32", 64, 32, 2),
 ])
 def test_decode_replay_matches_plain_and_pallas(dt, hd, H, n_kv):
     rng = np.random.default_rng(0)
@@ -241,6 +258,10 @@ def _quantize(x):
     ("f32", 64, 4, 2),
     ("bf16", 128, 14, 2),
     ("bf16", 64, 4, 4),
+    ("bf16", 96, 4, 4),
+    ("f32", 96, 8, 2),
+    ("bf16", 128, 24, 2),
+    ("bf16", 64, 32, 2),
 ])
 def test_int8_paged_replay_matches_plain_and_pallas(dt, hd, H, n_kv):
     rng = np.random.default_rng(1)
@@ -305,3 +326,233 @@ def test_empty_splits_merge_to_nothing():
         return (sum(p[2] * fi[:, None] for p, fi in zip(ps, f))
                 / sum(p[1] * fi for p, fi in zip(ps, f))[:, None])
     np.testing.assert_array_equal(merge(parts), merge(parts + [empty] * 2))
+
+
+# ---------------------------------------------------------------------------
+# layouts: the ring's swizzle, the m16 tile, the workspace, shared memory
+# ---------------------------------------------------------------------------
+CSRC = Path(dsp.__file__).resolve().parent / "csrc"
+
+
+def swizzle(units, u, r):
+    """decode_splitkv.cuh's ``swizzle<UNITS>(u, r)``: u's low log2(G)
+    bits XOR (r / (8 / G)) % G, G = gcd(UNITS, 8)."""
+    g = math.gcd(units, 8)
+    return u ^ ((r // (8 // g)) & (g - 1))
+
+
+# 16-byte units of a ring row: int8 hd 64 (4), int8 hd 96 (6), bf16 hd 64
+# and int8 hd 128 (8), bf16 hd 96 (12), bf16 hd 128 and f32 hd 64 (16),
+# f32 hd 96 (24), f32 hd 128 (32)
+@pytest.mark.parametrize("units", [4, 6, 8, 12, 16, 24, 32])
+def test_ring_swizzle_permutes_units_and_spreads_bank_groups(units):
+    rows = 64
+    for r in range(rows):
+        assert sorted(swizzle(units, u, r) for u in range(units)) == \
+            list(range(units))
+    # a row of `units` 16-byte units starts at bank group (r*units) % 8;
+    # 8 lanes reading unit u of 8 consecutive rows must hit 8 groups
+    for u in range(units):
+        for r0 in range(rows - 7):
+            groups = {(r * units + swizzle(units, u, r)) % 8
+                      for r in range(r0, r0 + 8)}
+            assert len(groups) == 8, (units, u, r0)
+
+
+def test_ring_swizzle_keeps_the_old_rows_layout():
+    """At the row widths of head dims 64 and 128 the swizzle is the one
+    the kernels had (u ^ r % 8 for 8+ units, u ^ (r / 2) % 4 for 4)."""
+    for units in (8, 16, 32):
+        assert all(swizzle(units, u, r) == u ^ (r & 7)
+                   for u in range(units) for r in range(64))
+    assert all(swizzle(4, u, r) == u ^ ((r >> 1) & 3)
+               for u in range(4) for r in range(64))
+
+
+def _mma(a_frags, b_frags):
+    """m16n8k16 from per-lane fragments: A [16, 16] from a_frags[lane]
+    (a0: row n, k 2c..2c+1; a1: row n+8; a2: row n, k 2c+8..; a3: row
+    n+8, k 2c+8..), B [16, 8] from b_frags[lane] (b0: k 2c..2c+1, col
+    n; b1: k 2c+8..), returns D [16, 8] as per-lane (d0, d1: row n, cols
+    2c, 2c+1; d2, d3: row n+8)."""
+    A, B = np.zeros((16, 16)), np.zeros((16, 8))
+    for lane in range(32):
+        n, c = lane // 4, lane % 4
+        a = a_frags[lane]
+        A[n, 2 * c:2 * c + 2], A[n + 8, 2 * c:2 * c + 2] = a[0], a[1]
+        A[n, 2 * c + 8:2 * c + 10], A[n + 8, 2 * c + 8:2 * c + 10] = a[2], a[3]
+        b = b_frags[lane]
+        B[2 * c:2 * c + 2, n], B[2 * c + 8:2 * c + 10, n] = b[0], b[1]
+    D = A @ B
+    return [(D[n, 2 * c], D[n, 2 * c + 1], D[n + 8, 2 * c], D[n + 8, 2 * c + 1])
+            for n, c in ((lane // 4, lane % 4) for lane in range(32))]
+
+
+@pytest.mark.parametrize("G", [1, 7, 8, 9, 12, 16])
+@pytest.mark.parametrize("hd", [64, 96])
+def test_tc_tile_holds_each_head_in_its_row(G, hd):
+    """One warp's 16-key tile of the bf16 body at fragment level (f32
+    arithmetic): Q's A fragments (head n + 8 hr in tile row n + 8 hr,
+    zero past the group and, NR 1, in rows 8-15), S by m16n8k16 per
+    k-step, each lane's softmax state per head row it holds (quad
+    reduced), P as the A fragment of P V, and the merge's writes
+    red[g][o_dim] = o[j][2 hr + e]: every head's row equals softmax(q
+    K^T) V, at groups of up to 8 (NR 1) and of 9-16 (NR 2)."""
+    rng = np.random.default_rng(G + hd)
+    q = rng.standard_normal((G, hd))
+    K, V = rng.standard_normal((16, hd)), rng.standard_normal((16, hd))
+    NR = 2 if G > 8 else 1
+    NT = hd // 8
+    S = [[[0.0] * 4 for _ in range(32)] for _ in range(2)]   # [key tile][lane]
+    for st in range(hd // 16):
+        qa = []
+        for lane in range(32):
+            n, c = lane // 4, lane % 4
+            fr = []
+            for half in (0, 1):          # k-slots 2c.. (half 0), 2c+8..
+                for hr in (0, 1):
+                    g = n + 8 * hr
+                    live = hr < NR and g < G
+                    d0 = st * 16 + 2 * c + 8 * half
+                    fr.append(q[g, d0:d0 + 2] if live else np.zeros(2))
+            qa.append((fr[0], fr[1], fr[2], fr[3]))
+        for j in range(2):               # keys 8j .. 8j + 7
+            kb = [(K[8 * j + lane // 4, st * 16 + 2 * (lane % 4):][:2],
+                   K[8 * j + lane // 4, st * 16 + 2 * (lane % 4) + 8:][:2])
+                  for lane in range(32)]
+            d = _mma(qa, kb)
+            for lane in range(32):
+                S[j][lane] = [S[j][lane][e] + d[lane][e] for e in range(4)]
+    scale = 1 / math.sqrt(hd)
+    red = np.full((16, hd), np.nan)
+    P = [[None] * 32 for _ in range(NR)]
+    L = np.zeros((32, NR))
+    for lane in range(32):
+        for hr in range(NR):
+            P[hr][lane] = np.array([[S[j][lane][2 * hr + e] * scale
+                                     for e in (0, 1)] for j in (0, 1)])
+    for hr in range(NR):                  # quad max and sum, one chunk
+        mx = [max(P[hr][i].max() for i in range(lane // 4 * 4,
+                                                 lane // 4 * 4 + 4))
+              for lane in range(32)]
+        for lane in range(32):
+            P[hr][lane] = np.exp(P[hr][lane] - mx[lane])
+        for lane in range(32):
+            quad = range(lane // 4 * 4, lane // 4 * 4 + 4)
+            L[lane, hr] = sum(P[hr][i].sum() for i in quad)
+    pa = [(P[0][lane][0], P[NR - 1][lane][0] if NR > 1 else np.zeros(2),
+           P[0][lane][1], P[NR - 1][lane][1] if NR > 1 else np.zeros(2))
+          for lane in range(32)]
+    O = [[None] * NT for _ in range(32)]
+    for j in range(NT):                  # output dims 8j .. 8j + 7
+        vb = [(V[2 * (lane % 4):2 * (lane % 4) + 2, 8 * j + lane // 4],
+               V[2 * (lane % 4) + 8:2 * (lane % 4) + 10, 8 * j + lane // 4])
+              for lane in range(32)]
+        d = _mma(pa, vb)
+        for lane in range(32):
+            O[lane][j] = d[lane]
+    for lane in range(32):
+        n, c = lane // 4, lane % 4
+        for hr in range(NR):
+            g = n + 8 * hr
+            if g < G:
+                for j in range(NT):
+                    red[g, 8 * j + 2 * c] = O[lane][j][2 * hr] / L[lane, hr]
+                    red[g, 8 * j + 2 * c + 1] = O[lane][j][2 * hr + 1] / \
+                        L[lane, hr]
+    s = q @ K.T * scale
+    p = np.exp(s - s.max(1, keepdims=True))
+    want = (p / p.sum(1, keepdims=True)) @ V
+    np.testing.assert_allclose(red[:G], want, rtol=1e-12, atol=1e-12)
+    assert np.isnan(red[G:]).all()       # no lane writes a head past G
+
+
+def _ws_slots(B, n_kv, n_splits, G, hd):
+    """Every workspace float the kernels write, by (what, bh, split, g,
+    index): decode_splitkv.cuh's (m, l) at ((bh n_splits + s)
+    SK_MAX_GROUP + g) 2 and acc at ml_floats + ((bh n_splits + s) G + g)
+    hd + d."""
+    ml_floats = B * n_kv * n_splits * dsp.MAX_GROUP * 2
+    seen = {}
+    for bh in range(B * n_kv):
+        for s_ in range(n_splits):
+            for g in range(G):
+                base = ((bh * n_splits + s_) * dsp.MAX_GROUP + g) * 2
+                seen[base] = seen.get(base, 0) + 1
+                seen[base + 1] = seen.get(base + 1, 0) + 1
+                a0 = ml_floats + ((bh * n_splits + s_) * G + g) * hd
+                for d in range(hd):
+                    seen[a0 + d] = seen.get(a0 + d, 0) + 1
+    return seen
+
+
+@pytest.mark.parametrize("G,hd", [(16, 96), (12, 128), (7, 64), (1, 96)])
+def test_workspace_slots_are_disjoint_and_in_bounds(G, hd):
+    B, n_kv = 3, 2
+    plan = dsp.SplitPlan(64, 5)
+    seen = _ws_slots(B, n_kv, plan.n_splits, G, hd)
+    assert max(seen.values()) == 1                   # no slot written twice
+    assert max(seen) < dsp.workspace_floats(plan, B, n_kv, G, hd)
+    assert dsp.MAX_GROUP == 16
+
+
+def sk_smem(kv, hd, chunk):
+    """decode_splitkv.cuh's ``SkSmem<KV, HD, CHUNK>``: (BYTES, RESIDENT)
+    for K/V elements of ``kv`` ('f32', 'bf16', 'int8')."""
+    esize = {"f32": 4, "bf16": 2, "int8": 1}[kv]
+    scaled, mg, ids = kv == "int8", dsp.MAX_GROUP, dsp.MAX_IDS
+    cuda_cores = chunk == 32
+    row = hd * esize
+    kv_bytes = chunk * row
+    stage = 2 * kv_bytes + (2 * chunk * 4 if scaled else 0)
+    stages = min(max(65536 // stage, 2), 4)
+    q_off = max(stages * stage, 4 * mg * hd * 4)
+    spart = q_off + mg * hd * 4
+    p_off = spart + (4 * mg * chunk * 4 if cuda_cores else 0)
+    corr = p_off + (mg * chunk * 4 if cuda_cores else 0)
+    m_off = corr + (mg * 4 if cuda_cores else 0)
+    rows_off = m_off + 2 * 4 * mg * 4
+    nbytes = rows_off + ids * 8
+    return nbytes, min(max(228 * 1024 // (nbytes + 1024), 1), 3)
+
+
+def test_shared_memory_layout_fits_three_ctas_an_sm():
+    """The tensor-core body's launch bound is 3 CTAs an SM at every head
+    dim, bf16 and int8 K/V (the float32 body's score buffers are not in
+    its layout); the bytes are what the built kernels report on an H100
+    (``decode_splits.occupancy``, checked on the card by
+    ``tests/test_torch_cuda.py``)."""
+    for kv in ("bf16", "int8"):
+        for hd in (64, 96, 128):
+            assert sk_smem(kv, hd, 64)[1] == 3, (kv, hd)
+    assert [sk_smem("bf16", hd, 64)[0] for hd in (64, 96, 128)] == \
+        [72208, 57872, 76304]
+    assert [sk_smem("f32", hd, 32)[0] for hd in (64, 96, 128)] == \
+        [82512, 68176, 86608]
+
+
+def _cuh_int(name):
+    text = (CSRC / "decode_splitkv.cuh").read_text()
+    m = re.search(rf"constexpr int {name} = (\d+);", text)
+    assert m, name
+    return int(m.group(1))
+
+
+def test_python_mirrors_equal_the_source_constants():
+    assert dsp.MAX_GROUP == _cuh_int("SK_MAX_GROUP") == 16
+    assert dsp.ALIGN == _cuh_int("SK_SPLIT_ALIGN")
+    assert dsp.MAX_IDS == _cuh_int("SK_MAX_IDS")
+    assert pa.MAX_GROUP == pi8.MAX_GROUP == dsp.MAX_GROUP
+    # the head dims each entry point dispatches, in both dtypes
+    from repro_torch.kernels import flash_prefill as fp
+    for src, dims in (("paged_decode.cu", pa.HEAD_DIMS),
+                      ("paged_decode_int8.cu", pi8.HEAD_DIMS),
+                      ("paged_prefill.cu", fp.HEAD_DIMS),
+                      ("flash_prefill.cu", fp.HEAD_DIMS)):
+        text = (CSRC / src).read_text()
+        body = text[text.index('extern "C" int repro_'):]
+        for dt in ("F32", "BF16"):
+            got = sorted({int(x) for x in re.findall(
+                rf"dtype == {dt} && hd == (\d+)\)\n\s+err = launch",
+                body)})
+            assert tuple(got) == dims == (64, 96, 128), (src, dt, got)

@@ -1,6 +1,7 @@
 """Ground rules of the port that no runtime test can see.
 
-* The port (``src/repro_torch``) and ``chip_smoke.py`` import neither
+* The port (``src/repro_torch``), ``chip_smoke.py`` and
+  ``chip_compare.py`` import neither
   ``jax`` nor anything of the JAX package ``repro`` — not even modules
   of it that import no JAX: the port keeps its own copies.
 * Entry points run on the GPU unless asked for the CPU, and raise a
@@ -14,7 +15,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + [ROOT / "chip_smoke.py", ROOT / "chip_compare.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

@@ -58,6 +58,9 @@ def _t(*arrays):
     (1, 4, 4, 128, 16, 3),
     (3, 28, 4, 128, 16, 3),              # qwen2-7b's 28/4 heads: group 7
     (2, 14, 2, 64, 16, 5),               # group 7 at head_dim 64
+    (2, 4, 4, 96, 16, 3),                # phi-3-vision-4.2b's head_dim 96
+    (2, 24, 2, 64, 16, 3),               # group 12 (command-r-plus-104b)
+    (2, 32, 2, 128, 16, 3),              # group 16 (qwen3-moe-235b-a22b)
 ])
 def test_paged_int8_matches_pallas(b, h, kv, hd, bt, nb):
     q, k8, v8, sk, sv, table, lens = _pool(b, h, kv, hd, bt, nb)

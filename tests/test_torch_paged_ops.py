@@ -7,7 +7,9 @@
 * The plain versions of the three CUDA kernels equal the JAX oracles
   and the Pallas kernels (interpret mode) on cross-model tables:
   float32 within 2e-5, bfloat16 within 2e-2 (``tests/test_kernels.py``
-  ``_tol``: the two frameworks round bf16 at other places).
+  ``_tol``: the two frameworks round bf16 at other places), at the
+  kernels' head dims 64, 96 (phi-3-vision-4.2b) and 128, groups of 1
+  to 16 (command-r-plus-104b's 12, qwen3-moe-235b-a22b's 16).
 * On CPU tensors each wrapper runs its plain version and launches
   nothing.
 """
@@ -105,7 +107,8 @@ def test_write_tokens_exact_including_dropped_slots():
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-@pytest.mark.parametrize("h,kv,hd", [(4, 2, 64), (8, 2, 32)])
+@pytest.mark.parametrize("h,kv,hd", [(4, 2, 64), (8, 2, 32), (4, 4, 96),
+                                     (24, 2, 64), (32, 2, 64), (16, 1, 128)])
 def test_decode_plain_matches_oracle_and_pallas(dt, h, kv, hd):
     jdt, tdt, tol = DTYPES[dt]
     rng = np.random.default_rng(1)
@@ -125,7 +128,9 @@ def test_decode_plain_matches_oracle_and_pallas(dt, h, kv, hd):
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-@pytest.mark.parametrize("c,h,kv,hd", [(8, 4, 2, 64), (4, 4, 4, 64)])
+@pytest.mark.parametrize("c,h,kv,hd", [(8, 4, 2, 64), (4, 4, 4, 64),
+                                       (4, 4, 4, 96), (4, 24, 2, 64),
+                                       (4, 32, 2, 64)])
 def test_chunk_plain_matches_oracle_and_pallas(dt, c, h, kv, hd):
     jdt, tdt, tol = DTYPES[dt]
     rng = np.random.default_rng(2)
@@ -148,7 +153,10 @@ def test_chunk_plain_matches_oracle_and_pallas(dt, c, h, kv, hd):
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 @pytest.mark.parametrize("b,s,h,kv,hd,window", [(1, 64, 4, 4, 64, None),
                                                 (2, 128, 8, 2, 64, None),
-                                                (1, 128, 4, 2, 64, 32)])
+                                                (1, 128, 4, 2, 64, 32),
+                                                (1, 64, 4, 4, 96, None),
+                                                (1, 64, 24, 2, 64, None),
+                                                (1, 64, 32, 2, 64, None)])
 def test_flash_plain_matches_oracle_and_pallas(dt, b, s, h, kv, hd, window):
     jdt, tdt, tol = DTYPES[dt]
     rng = np.random.default_rng(3)

@@ -365,3 +365,36 @@ def test_hand_written_plan_defaults():
     (s,) = t.meshes[0].specs
     assert (s.mean_prompt, s.mean_output, s.arch_id) == (161, 338,
                                                          "qwen2-7b")
+
+
+def _mixed_models(pkg_configs, rep, pkg):
+    names = ["granite-moe-3b-a800m", "phi-3-vision-4.2b", "qwen2-7b"]
+    rates = pkg.power_law_rates(names, alpha=1.0, max_rate=8.0)
+    return [(rep(pkg_configs.get(n), name=n), rates[n]) for n in names]
+
+
+@pytest.mark.parametrize("hw", ["a100", "h100"])
+@pytest.mark.parametrize("n_devices", [1, 2, 4])
+def test_moe_and_vlm_mix_plan_equals_reference(hw, n_devices):
+    """Placement over the MoE, vlm and dense families: the MoE model's
+    parameter counts (all experts for memory, the routed ones for
+    compute) reach the estimator, and the plan JSON equals the
+    reference's."""
+    thw, jhw = {"a100": (A100, jcm.A100), "h100": (H100, J_H100)}[hw]
+    kw = dict(mean_prompt=256, mean_output=40)
+    tm = _mixed_models(tconfigs, treplace, TW)
+    t = place(tm, n_devices, hw=thw, **kw)
+    j = JP.place(_mixed_models(jconfigs, jreplace, JW), n_devices, hw=jhw,
+                 **kw)
+    assert TP.placement_to_json(t) == JP.placement_to_json(j)
+    # compute follows the routed experts, memory all of them
+    moe = tm[0][0]
+    wide = treplace(moe, moe=treplace(moe.moe, top_k=16))
+    assert moe.active_param_count() < wide.active_param_count() \
+        < moe.param_count() == wide.param_count()
+    assert cm.decode_latency(moe, 8, 512, hw=thw) < \
+        cm.decode_latency(wide, 8, 512, hw=thw)
+    assert cm.max_kv_tokens(moe, 1, thw) == cm.max_kv_tokens(wide, 1, thw)
+    placed = [s.name for m in t.meshes for s in m.specs]
+    assert sorted(placed) == sorted(n for n, _ in
+                                    ((c.name, r) for c, r in tm))

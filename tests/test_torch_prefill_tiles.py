@@ -14,7 +14,11 @@ reduced shapes, with inputs made from a seed with numpy:
   which tiles need the mask at all;
 * the online softmax tile by tile in log2 units (the scale folded into
   the exponent), with P cast to the working type before P·V and f32
-  accumulation, as the kernel does.
+  accumulation, as the kernel does;
+* the shared-memory slabs at head dims 64, 96 and 128: 64-column atoms
+  with the 128-byte swizzle, hd 96 padded to two atoms whose last 32
+  columns TMA zero-fills (K, V) or nobody writes (Q), S summed over
+  hd / 16 k-steps only, P V at n128, 96 columns written back.
 
 The replay is held to the port's plain versions, to the JAX package's
 ``causal_attention`` and ``fused_paged_chunk_attention``, and to the
@@ -386,6 +390,9 @@ def _dtype(name):
     ("bfloat16", 1, 200, 7, 1, 128, 48, 100),   # group 7, hd 128, window
     ("bfloat16", 1, 272, 4, 4, 64, 48, 136),    # hd 64, window 48: rows
     # whose first key tile is wholly masked
+    ("bfloat16", 1, 272, 4, 4, 96, None, 136),  # phi-3-vision's hd 96
+    ("float32", 1, 200, 4, 2, 96, 48, 100),
+    ("bfloat16", 1, 128, 12, 1, 128, None, 64), # group 12
 ])
 def test_flash_replay_matches_plain_reference_and_pallas(
         dtype, B, S, H, KV, hd, window, block):
@@ -435,6 +442,9 @@ def test_flash_replay_stays_near_the_f32_result_at_s1024(seed):
     # its last tile half repeated blocks, masked by position
     ("bfloat16", 64, 7, 1, 128, (0, 832, 100), 60),  # group 7, hd 128
     ("bfloat16", 64, 4, 4, 64, (0, 50, 130), 16),    # zamba2's group 1
+    ("bfloat16", 64, 4, 4, 96, (0, 50, 130), 16),    # hd 96, group 1
+    ("float32", 16, 8, 2, 96, (0, 37, 200), 20),     # hd 96, group 4
+    ("bfloat16", 16, 16, 1, 64, (0, 21, 90), 10),    # group 16
 ])
 def test_paged_replay_matches_plain_reference_and_pallas(
         dtype, C, H, n_kv, hd, offs, max_blocks):
@@ -471,3 +481,85 @@ def test_paged_replay_matches_plain_reference_and_pallas(
     for other in (plain.float().numpy(), np.asarray(ref, np.float32),
                   np.asarray(pal, np.float32)):
         np.testing.assert_allclose(out, other, **TOL[dtype])
+
+
+# ---------------------------------------------------------------------------
+# the shared-memory slabs (attn_common.cuh: TcSmem, the TMA boxes, the
+# 128-byte swizzle) at head dims 64, 96 and 128
+# ---------------------------------------------------------------------------
+ATOM = 64                   # bf16 columns of a 128-byte swizzle atom
+
+
+def atoms(hd):
+    return -(-hd // ATOM)
+
+
+def tma_tile(x, hd):
+    """A [64, hd] tile loaded by one TMA box per atom (box 64 rows x 64
+    columns over a map whose inner extent is hd): atom a holds columns
+    64a .. 64a + 63, those at or past hd zero-filled; 8-column chunk c of
+    row r stored at chunk c ^ (r % 8).  Returns [atoms, 64, 8, 8] and
+    the bytes the box writes (expect_tx)."""
+    na = atoms(hd)
+    slab = np.empty((na, KEYS, 8, 8), np.float32)
+    for a in range(na):
+        for r in range(KEYS):
+            for c in range(8):
+                cols = a * ATOM + 8 * c + np.arange(8)
+                slab[a, r, c ^ (r % 8)] = np.where(
+                    cols < hd, x[r, np.minimum(cols, hd - 1)], 0.0)
+    return slab, na * KEYS * ATOM * 2
+
+
+def stage_q(x, hd):
+    """Q by cp.async: hd / 8 chunks of each row at their swizzled place;
+    the padding chunks of hd 96 keep what shared memory held (NaN)."""
+    slab = np.full((atoms(hd), ROWS, 8, 8), np.nan, np.float32)
+    for r in range(ROWS):
+        for c in range(hd // 8):
+            slab[c // 8, r, (c % 8) ^ (r % 8)] = x[r, 8 * c:8 * c + 8]
+    return slab
+
+
+def read_cols(slab, rows, c0, n):
+    """Logical columns c0 .. c0 + n - 1 (n a multiple of 8, within one
+    atom) of ``rows``, through the swizzle, as a wgmma descriptor reads
+    them."""
+    a, lc = c0 // ATOM, (c0 % ATOM) // 8
+    return np.concatenate([slab[a, rows, (lc + i) ^ (rows % 8)]
+                           for i in range(n // 8)], axis=1)
+
+
+@pytest.mark.parametrize("hd", [64, 96, 128])
+def test_slabs_pad_hd96_to_two_atoms(hd):
+    rng = np.random.default_rng(hd)
+    q, k, v = (rng.standard_normal((64, hd)).astype(np.float32)
+               for _ in range(3))
+    qs = stage_q(q, hd)
+    ks, k_bytes = tma_tile(k, hd)
+    vs, v_bytes = tma_tile(v, hd)
+    hdp = atoms(hd) * ATOM
+    assert k_bytes == v_bytes == (16384 if hd > 64 else 8192)
+    rows = np.arange(64)
+    # S = Q K^T: hd / 16 k-steps, step kk from atom kk / 4
+    s = sum(read_cols(qs, rows, 16 * kk, 16) @ read_cols(ks, rows, 16 * kk,
+                                                         16).T
+            for kk in range(hd // 16))
+    assert np.isfinite(s).all()          # Q's padding is never read
+    np.testing.assert_allclose(s, q @ k.T, rtol=1e-5, atol=1e-5)
+    # O += P V at n = hdp over V's token-major slab
+    p = rng.random((64, KEYS)).astype(np.float32)
+    vfull = np.concatenate([read_cols(vs, rows, c0, 8)
+                            for c0 in range(0, hdp, 8)], axis=1)
+    o = p @ vfull
+    np.testing.assert_allclose(o[:, :hd], p @ v, rtol=1e-5, atol=1e-5)
+    assert not o[:, hd:].any()           # TMA's zero columns
+    # write-back through the Q slab: hd / 8 accumulator groups staged at
+    # their swizzled chunks, read back as hd / 8 16-byte row chunks
+    stage = stage_q(np.full((ROWS, hd), np.nan, np.float32), hd)
+    for r in range(ROWS):
+        for i in range(hd // 8):
+            stage[i // 8, r, (i % 8) ^ (r % 8)] = o[r, 8 * i:8 * i + 8]
+    out = np.concatenate([stage[c // 8, rows, (c % 8) ^ (rows % 8)]
+                          for c in range(hd // 8)], axis=1)
+    np.testing.assert_array_equal(out, o[:, :hd])

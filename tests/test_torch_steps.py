@@ -1,6 +1,9 @@
-"""The port's dense serve steps (``repro_torch.launch.steps``) against the
+"""The port's serve steps (``repro_torch.launch.steps``) against the
 JAX package's (``repro.launch.steps``), on the CPU, at the reduced
-qwen2-7b (QKV bias) and qwen3-14b (QK-norm) sizes.
+qwen2-7b (QKV bias), qwen3-14b (QK-norm), granite-moe-3b-a800m and
+qwen3-moe-235b-a22b (MoE; QK-norm) sizes.  The MoE steps run the
+capacity FFN by default and the dropless FFN with ``moe_dropless``, as
+the reference's.
 
 * ``make_prefill_step`` / ``make_decode_step`` on a float32 tree: logits
   and caches within rtol/atol 2e-5 (summation order of XLA's and
@@ -48,7 +51,8 @@ from repro_torch.serving import quantize as TQ
 torch.set_num_threads(2)
 TOL = dict(rtol=2e-5, atol=2e-5)
 BF16_TOL = 2e-2
-ARCHS = ["qwen2-7b", "qwen3-14b"]
+MOE_ARCHS = ["granite-moe-3b-a800m", "qwen3-moe-235b-a22b"]
+ARCHS = ["qwen2-7b", "qwen3-14b"] + MOE_ARCHS
 B, SP, N_NEW = 2, 16, 3
 SC = SP + N_NEW                      # cache length: not a block multiple
 
@@ -82,12 +86,23 @@ def _near_tie_ok(logits_q, logits_ref):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_and_decode_match_reference(arch):
+    _prefill_and_decode_parity(arch, dropless=False)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_dropless_prefill_and_decode_match_reference(arch):
+    _prefill_and_decode_parity(arch, dropless=True)
+
+
+def _prefill_and_decode_parity(arch, dropless):
     cfg = jconfigs.get_reduced(arch)
     jp = jinit(jax.random.PRNGKey(0), cfg, jnp.float32)
     tp = params_to_torch(jax.tree_util.tree_map(np.asarray, jp), "cpu")
     toks, lens = _inputs(cfg)
-    jo = JS.make_prefill_step(cfg)(jp, jnp.asarray(toks), jnp.asarray(lens))
-    to = TS.make_prefill_step(tconfigs.get_reduced(arch))(
+    jo = JS.make_prefill_step(cfg, moe_dropless=dropless)(
+        jp, jnp.asarray(toks), jnp.asarray(lens))
+    to = TS.make_prefill_step(tconfigs.get_reduced(arch),
+                              moe_dropless=dropless)(
         tp, _t(toks).long(), _t(lens))
     for key in ("logits", "cache_k", "cache_v"):
         np.testing.assert_allclose(to[key].numpy(), _np(jo[key]), **TOL)
@@ -96,8 +111,9 @@ def test_prefill_and_decode_match_reference(arch):
     jk = jnp.zeros(shape).at[:, :, :SP].set(jo["cache_k"])
     jv = jnp.zeros(shape).at[:, :, :SP].set(jo["cache_v"])
     tk, tv = _t(jk), _t(jv)
-    jdec = JS.make_decode_step(cfg)
-    tdec = TS.make_decode_step(tconfigs.get_reduced(arch))
+    jdec = JS.make_decode_step(cfg, moe_dropless=dropless)
+    tdec = TS.make_decode_step(tconfigs.get_reduced(arch),
+                               moe_dropless=dropless)
     logits = _np(jo["logits"])
     for t in range(N_NEW):
         nxt = logits.argmax(-1).astype(np.int32)
@@ -137,6 +153,15 @@ def _quantized_caches(pk, pv, xp):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_w8kv8_step_matches_reference(arch):
+    _w8kv8_parity(arch, dropless=False)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_dropless_w8kv8_step_matches_reference(arch):
+    _w8kv8_parity(arch, dropless=True)
+
+
+def _w8kv8_parity(arch, dropless):
     cfg = jconfigs.get_reduced(arch)
     # the reference runs a bf16 tree where the QKV bias would promote
     # its bf16 scan carry (see the module docstring)
@@ -149,8 +174,9 @@ def test_w8kv8_step_matches_reference(arch):
     jo = JS.make_prefill_step(cfg)(jp, jnp.asarray(toks), jnp.asarray(lens))
     jc = list(_quantized_caches(jo["cache_k"], jo["cache_v"], jnp))
     tc = [_t(a) for a in jc]
-    jdec = JS.make_decode_step_w8kv8(cfg)
-    tdec = TS.make_decode_step_w8kv8(tconfigs.get_reduced(arch))
+    jdec = JS.make_decode_step_w8kv8(cfg, moe_dropless=dropless)
+    tdec = TS.make_decode_step_w8kv8(tconfigs.get_reduced(arch),
+                                     moe_dropless=dropless)
     logits = _np(jo["logits"])
     for t in range(N_NEW):
         nxt = logits.argmax(-1).astype(np.int32)
