@@ -72,7 +72,26 @@
    decode steps with int8 weights and an int8 KV cache in lockstep with
    the bf16 decode and with a W8-only control (the int8 weights
    dequantized, bf16 cache), held at every step to the reference test's
-   logit bound against bf16 and to its greedy rule against the control.
+   logit bound against bf16 and to its greedy rule against the control;
+7. streams at full width (``serve_streaming``): two units of unequal
+   mesh size (4 devices and 1 in the tick-cost model), each hosting one
+   replica of qwen2-7b and mamba2-2.7b (full depth, no fused group);
+   an explicit-replica trace served by ``serve_requests`` and streamed
+   through ``ServingFrontend`` on fresh units of the same seeds must
+   agree stream for output and report for report; a family-named trace
+   through ``least_loaded`` routing with ``ServingMetrics`` and one
+   stream cancelled mid-decode must free that request's blocks at once
+   and keep the metrics consistent with the report (kernels 1, 2, 4);
+8. degrades at full width (``serve_chaos``): a fused pair of qwen2-7b
+   armed with bounded queues and deadline shedding gives the plain
+   unit's tokens and report under an empty fault plan; then a burst at
+   twice the rate streams through the front end with the sanitizer on
+   every tick, a transient window, a crash (recovery re-stacks the
+   pair) and a block loss of a quarter of the pair's grant, one stream
+   cancelled: every request is finished, shed or cancelled, the arena
+   shrinks by exactly the lost blocks, the pool ends free, kernels 1
+   and 2 launch after the recovery, and the recovery's own peak device
+   memory is printed.
 
 Any failed phase raises and the script exits non-zero.  The last two
 lines of standard output are the card (name, power limit) and a JSON
@@ -1282,6 +1301,499 @@ def _serve_phase(torch, archs, chunk_tokens: int, n_target: int, seed: int,
     return res
 
 
+# ---------------------------------------------------------------------------
+# the live serving layer and graceful degradation at full width
+# ---------------------------------------------------------------------------
+STREAM_FAMILIES = {"llm0": "qwen2-7b", "llm1": "mamba2-2.7b"}
+STREAM_SCALES = (1.25, 1.5, 2.0, 3.0, 4.0, 6.0)
+
+
+class _Memory:
+    """The card's allocator counters for a phase (zeros on the CPU, where
+    the phases are rehearsed at reduced width)."""
+
+    def __init__(self, torch, dev):
+        self.torch, self.cuda = torch, dev.type == "cuda"
+        self.peak = 0.0
+        if self.cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        self.held = self.now()
+
+    def now(self) -> float:
+        return (self.torch.cuda.memory_allocated() / 1e9 if self.cuda
+                else 0.0)
+
+    def fold(self) -> float:
+        """The peak so far (the allocator's, kept across resets)."""
+        if self.cuda:
+            self.torch.cuda.synchronize()
+            self.peak = max(self.peak,
+                            self.torch.cuda.max_memory_allocated() / 1e9)
+        return self.peak
+
+    def reset(self) -> None:
+        self.fold()
+        if self.cuda:
+            self.torch.cuda.reset_peak_memory_stats()
+
+
+def _free(torch, dev) -> None:
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _run_numbers(rep, reqs, wall: float, launches: dict) -> dict:
+    """A served run's numbers: ticks, tick ms, wall s, wall tok/s,
+    attainment and launches by kernel."""
+    n_tok = sum(len(r.prompt) + len(r.output) for r in reqs
+                if r.finish >= 0)
+    agg = rep.aggregate
+    return dict(requests=agg.submitted, finished=agg.finished,
+                shed=agg.shed, cancelled=agg.cancelled, ticks=rep.ticks,
+                tick_ms=1e3 * wall / max(rep.ticks, 1), wall_s=wall,
+                wall_tok_s=n_tok / wall,
+                attainment={f"{float(k):g}": v
+                            for k, v in agg.attainment.items()},
+                launches=launches)
+
+
+def _report_text(rep, drop=("wall_s",)) -> str:
+    d = rep.to_json()
+    for k in drop:
+        d.pop(k)
+    return json.dumps(d, sort_keys=True)
+
+
+async def _cancel_after(fe, victim, n_tokens: int, views, stream):
+    """Consume ``victim``'s ``stream`` and cancel it at its ``n_tokens``-th
+    token; return (tokens seen, its view's used blocks just before and
+    just after the cancel, the terminal exception's type name)."""
+    from repro_torch.serving.frontend import StreamCancelled
+    got, used = 0, None
+    try:
+        async for _ in stream:
+            got += 1
+            if got == n_tokens:
+                view = views(victim.model)
+                before = view.used
+                if not fe.cancel(victim):
+                    raise AssertionError("cancelling an in-flight "
+                                         "request failed")
+                used = (before, view.used)
+    except StreamCancelled:
+        return got, used, "StreamCancelled"
+    raise AssertionError(f"request {victim.req_id}'s stream ended "
+                         f"without StreamCancelled after {got} tokens")
+
+
+def _serve_streams(fe, reqs, victim=None, views=None):
+    """Stream every request through ``fe`` (cancelling ``victim`` at its
+    second token) and run the loop; returns the report, each request's
+    collected tokens or terminal exception, and the cancel's record."""
+    import asyncio
+
+    async def main():
+        # every stream is registered before the loop's first tick
+        jobs = [(_cancel_after(fe, r, 2, views, fe.stream(r)) if r is victim
+                 else fe.stream(r).collect()) for r in reqs]
+        serve = asyncio.ensure_future(fe.serve())
+        outs = await asyncio.gather(*jobs, return_exceptions=True)
+        return await serve, outs
+
+    rep, outs = asyncio.run(main())
+    by_id = {r.req_id: o for r, o in zip(reqs, outs)}
+    cancel = by_id.pop(victim.req_id) if victim is not None else None
+    for o in by_id.values():
+        if isinstance(o, Exception) and not hasattr(o, "reason"):
+            raise o
+    if isinstance(cancel, Exception):
+        raise cancel
+    return rep, by_id, cancel
+
+
+def serve_streaming(torch, device="cuda", reduced=False) -> dict:
+    """The streaming front end at full width: two units of unequal mesh
+    size (4 devices and 1 in the tick-cost model), each hosting one
+    replica of qwen2-7b (``llm0``) and mamba2-2.7b (``llm1``), full
+    depth, random bf16 weights, 4 slots, 64-token chunks, ADBS, the
+    logical clock.  (a) ``serve_requests`` serves an explicit-replica
+    trace; (b) ``ServingFrontend`` streams the same trace on fresh units
+    of the same seeds — every stream must equal (a)'s ``Request.output``
+    and the reports must be equal apart from ``wall_s``; (c) a
+    family-named trace streams through ``least_loaded`` routing with
+    ``ServingMetrics``, one llm0 stream cancelled at its second token
+    (its view's blocks must drop at once, the stream must end in
+    ``StreamCancelled``) and the metrics' counters, TTFT histogram and
+    router decisions must agree with the report.  Kernels 1, 2 and 4
+    must launch.  ``reduced`` rehearses the phase on the CPU."""
+    from repro_torch.core.workload import synthesize
+    from repro_torch.kernels import ops
+    from repro_torch.serving import driver
+    from repro_torch.serving.frontend import ServingFrontend
+    from repro_torch.serving.metrics import ServingMetrics
+
+    dev = torch.device(device)
+    dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
+    cost = driver.TickCostModel()
+    families = list(STREAM_FAMILIES)
+    wl = synthesize(families, alpha=2.1, max_rate=8.0, horizon=1.3, seed=9,
+                    mean_prompt=256, mean_output=40, max_len=512)
+    mem = _Memory(torch, dev)
+
+    def build():
+        units = []
+        for mesh_id, devices in ((0, 4), (1, 1)):
+            u = driver.build_unit_from_specs(
+                [(f"{fam}@{mesh_id}", arch, wl.rates[fam])
+                 for fam, arch in STREAM_FAMILIES.items()],
+                pool_blocks=16384 if reduced else 196608, max_slots=4,
+                chunk_tokens=64, seed=20,
+                policy="adbs", fused=True, reduced=reduced, dtype=dtype,
+                device=dev)
+            u.mesh_id, u.n_devices = mesh_id, devices
+            units.append(u)
+        reqs = driver.requests_from_workload(
+            wl, {f: units[0].engines[f"{f}@0"] for f in families}, seed=1,
+            max_new_cap=64)
+        return units, reqs
+
+    def explicit(reqs):
+        for r in reqs:
+            r.model = f"{r.model}@{r.req_id % 2}"
+        return reqs
+
+    def served(units, reqs, t0):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if any(u.pool.allocator.used for u in units):
+            raise AssertionError("a pool was not freed")
+        return wall
+
+    ops.reset_launch_counts()
+    runs = {}
+    # (a) the closed loop over explicit replicas
+    units, reqs = build()
+    explicit(reqs)
+    t0 = time.perf_counter()
+    rep_a = driver.serve_requests(units, reqs, slo_scales=STREAM_SCALES,
+                                  cost=cost)
+    runs["closed_loop"] = _run_numbers(rep_a, reqs, served(units, reqs, t0),
+                                       ops.launch_counts())
+    closed = {r.req_id: list(r.output) for r in reqs}
+    if rep_a.aggregate.finished != rep_a.aggregate.submitted:
+        raise AssertionError(f"closed loop served "
+                             f"{rep_a.aggregate.finished}/"
+                             f"{rep_a.aggregate.submitted}")
+    del units, reqs
+    _free(torch, dev)
+    # (b) the same trace streamed, fresh units of the same seeds
+    units, reqs = build()
+    explicit(reqs)
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    rep_b, outs, _ = _serve_streams(ServingFrontend(
+        units, reqs, slo_scales=STREAM_SCALES, cost=cost), reqs)
+    runs["streamed"] = _run_numbers(rep_b, reqs, served(units, reqs, t0), {
+        k: v - before[k] for k, v in ops.launch_counts().items()})
+    differ = [r.req_id for r in reqs
+              if outs[r.req_id] != closed[r.req_id] or r.output
+              != closed[r.req_id]]
+    if differ:
+        raise AssertionError(f"streams of requests {differ} differ from "
+                             f"the closed loop's outputs")
+    if _report_text(rep_b) != _report_text(rep_a):
+        raise AssertionError("the streamed run's report differs from the "
+                             "closed loop's (wall_s apart)")
+    del units, reqs
+    _free(torch, dev)
+    # (c) family-named requests, least_loaded routing, metrics, a cancel
+    units, reqs = build()
+    metrics = ServingMetrics()
+    fe = ServingFrontend(units, reqs, strategy="least_loaded",
+                         metrics=metrics, planned_rates=dict(wl.rates),
+                         slo_scales=STREAM_SCALES, cost=cost)
+    victim = max((r for r in reqs if r.model == "llm0"),
+                 key=lambda r: (r.max_new_tokens, -r.req_id))
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    rep_c, outs, (n_seen, used, end) = _serve_streams(
+        fe, reqs, victim, lambda name: fe.router.unit_for(name).pool
+        .views[name])
+    runs["least_loaded"] = _run_numbers(
+        rep_c, reqs, served(units, reqs, t0),
+        {k: v - before[k] for k, v in ops.launch_counts().items()})
+    launches = ops.launch_counts()
+    agg = rep_c.aggregate
+    if not (victim.cancelled and used[1] < used[0]):
+        raise AssertionError(f"cancel did not free the victim's blocks at "
+                             f"once: view used {used}")
+    if agg.cancelled != 1 or agg.submitted != (agg.finished + agg.shed
+                                               + agg.cancelled):
+        raise AssertionError(f"dispositions: {agg.to_json()}")
+    bad = [i for i, o in outs.items() if not isinstance(o, list)]
+    if bad:
+        raise AssertionError(f"streams {bad} ended without finishing")
+    fams = {f["name"]: f for f in metrics.snapshot()["families"]}
+
+    def total(name, key="value"):
+        return sum(s[key] for s in fams[name]["series"])
+
+    per_llm = {n: r.finished for n, r in rep_c.per_llm.items()
+               if r.finished}
+    ttft = {s["labels"]["llm"]: s["count"]
+            for s in fams["mux_ttft_seconds"]["series"]}
+    decisions = {s["labels"]["llm"]: s["value"]
+                 for s in fams["mux_router_decisions_total"]["series"]}
+    routed = {}
+    for r in reqs:
+        routed[r.model] = routed.get(r.model, 0) + 1
+    checks = {
+        "submitted": (total("mux_requests_submitted_total"),
+                      agg.submitted),
+        "finished": (total("mux_requests_finished_total"), agg.finished),
+        "cancelled": (total("mux_requests_cancelled_total"),
+                      agg.cancelled),
+        "ttft_count_by_llm": (ttft, per_llm),
+        "router_decisions_by_llm": (decisions, routed)}
+    wrong = {k: v for k, v in checks.items() if v[0] != v[1]}
+    if wrong:
+        raise AssertionError(f"metrics disagree with the report: {wrong}")
+    for symbol in ("repro_paged_decode", "repro_paged_prefill",
+                   "repro_ssd_scan"):
+        if launches[symbol] <= 0:
+            raise AssertionError(f"{symbol} never launched in this phase")
+    res = dict(models=STREAM_FAMILIES, meshes={"unit 0": 4, "unit 1": 1},
+               runs=runs, phase_peak_gb=mem.fold() - mem.held,
+               held_before_gb=mem.held, launches=launches,
+               cancel={"req_id": victim.req_id, "routed_to": victim.model,
+                       "tokens_before_cancel": n_seen,
+                       "view_used_before_after": list(used),
+                       "stream_end": end},
+               routed=routed, metrics_checked=sorted(checks),
+               summary=rep_c.summary())
+    del units, reqs, fe, metrics
+    _free(torch, dev)
+    return res
+
+
+CHAOS_NAMES = ["llm0", "llm1"]
+
+
+def serve_chaos(torch, device="cuda", reduced=False) -> dict:
+    """Graceful degradation at full width: one fused ADBS unit of two
+    qwen2-7b (``llm0``, ``llm1``; random bf16 weights, 4 slots, 64-token
+    chunks, the logical clock), armed with ``max_queue`` 8 an LLM and
+    deadline shedding.  Parity first: the armed unit with an empty fault
+    plan must give the plain unit's tokens and report (apart from
+    ``wall_s`` and the armed run's empty fault section) on the card,
+    shedding nothing.  Then a burst at twice that arrival rate streams
+    through ``ServingFrontend`` with the sanitizer on every tick and the
+    plan ``transient:llm0:2`` / ``crash:llm1`` / ``block_loss:llm0:<a
+    quarter of the group's grant>`` at 20, 40 and 60 % of the horizon,
+    one stream cancelled: the run must terminate with ``submitted =
+    finished + shed + cancelled``, every shed stream ending in
+    ``StreamShed``, the arena shrunk by exactly the lost blocks, the
+    pool free, and kernels 1 and 2 launched after the recovery.  The
+    recovery's own peak is measured around ``recover_engine``."""
+    from repro_torch.core.workload import synthesize
+    from repro_torch.kernels import ops
+    from repro_torch.serving import driver
+    from repro_torch.serving.faults import FaultPlan
+    from repro_torch.serving.frontend import ServingFrontend, StreamShed
+
+    dev = torch.device(device)
+    dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
+    cost = driver.TickCostModel()
+    # the rate at which the armed unit sheds nothing (~11 requests); the
+    # burst doubles it
+    horizon, rate = 1.6, 6.0
+    trace = dict(alpha=2.1, horizon=horizon, seed=13, mean_prompt=256,
+                 mean_output=40, max_len=512)
+    wl = synthesize(CHAOS_NAMES, max_rate=rate, **trace)
+    mem = _Memory(torch, dev)
+
+    def build(armed, w):
+        return driver.build_unit_from_specs(
+            [(n, "qwen2-7b", w.rates[n]) for n in CHAOS_NAMES],
+            pool_blocks=16384, max_slots=4, chunk_tokens=64, seed=30,
+            policy="adbs", fused=True, reduced=reduced, dtype=dtype,
+            device=dev, max_queue=(8 if armed else None),
+            shed_policy=("deadline" if armed else "none"))
+
+    def finish(t0):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    ops.reset_launch_counts()
+    runs, parity = {}, {}
+    for armed in (False, True):
+        unit = build(armed, wl)
+        reqs = driver.requests_from_workload(wl, unit.engines, seed=1,
+                                             max_new_cap=64)
+        before = ops.launch_counts()
+        t0 = time.perf_counter()
+        rep = driver.serve_requests(
+            [unit], reqs, cost=cost,
+            faults=(FaultPlan([]) if armed else None))
+        key = "armed, empty plan" if armed else "plain"
+        runs[key] = _run_numbers(rep, reqs, finish(t0), {
+            k: v - before[k] for k, v in ops.launch_counts().items()})
+        if unit.pool.allocator.used:
+            raise AssertionError("the pool was not freed")
+        parity[armed] = ({r.req_id: list(r.output) for r in reqs},
+                         _report_text(rep, ("wall_s", "faults")), rep)
+        del unit, reqs, rep
+        _free(torch, dev)
+    plain, armed = parity[False], parity[True]
+    fs0 = armed[2].faults
+    if plain[0] != armed[0] or plain[1] != armed[1]:
+        raise AssertionError("the armed unit with an empty plan differs "
+                             "from the plain unit (tokens or report)")
+    if fs0 is None or fs0.injected or fs0.log or armed[2].aggregate.shed:
+        raise AssertionError(f"the empty plan did something: "
+                             f"{fs0 and fs0.to_json()}")
+    if plain[2].aggregate.finished != plain[2].aggregate.submitted:
+        raise AssertionError("the plain unit did not finish its trace")
+    del parity, plain, armed
+
+    # the burst: twice the rate, the plan fixed up front
+    burst = synthesize(CHAOS_NAMES, max_rate=2 * rate, **trace)
+    unit = build(True, burst)
+    reqs = driver.requests_from_workload(burst, unit.engines, seed=1,
+                                         max_new_cap=64)
+    grant = unit.fused_groups[0].granted_blocks
+    lost = grant // 4
+    n0 = unit.pool.n_head_blocks
+    plan = FaultPlan.parse(f"transient:llm0:2@{0.2 * horizon},"
+                           f"crash:llm1@{0.4 * horizon},"
+                           f"block_loss:llm0:{lost}@{0.6 * horizon}")
+    fe = ServingFrontend([unit], reqs, cost=cost, faults=plan, sanitize=True)
+    recoveries, check_s = [], []
+    recover = unit.recover_engine
+
+    def measured_recover(name, reason="crash"):
+        held = mem.now()
+        mem.reset()
+        t = time.perf_counter()
+        rec = recover(name, reason=reason)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        recoveries.append(dict(
+            target=name, reason=reason, s=time.perf_counter() - t,
+            held_gb=held, peak_gb=(torch.cuda.max_memory_allocated() / 1e9
+                                   if dev.type == "cuda" else 0.0),
+            after_gb=mem.now(), launches_at=ops.launch_counts()))
+        return rec
+    unit.recover_engine = measured_recover
+    check = fe.session.sanitizer.check
+
+    def timed_check(where=""):
+        t = time.perf_counter()
+        check(where)
+        check_s.append(time.perf_counter() - t)
+    fe.session.sanitizer.check = timed_check
+    victim = max((r for r in reqs if r.model == "llm0"),
+                 key=lambda r: (r.max_new_tokens, -r.req_id))
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    rep, outs, (n_seen, used, end) = _serve_streams(
+        fe, reqs, victim, lambda name: unit.pool.views[name])
+    runs["burst with faults"] = _run_numbers(rep, reqs, finish(t0), {
+        k: v - before[k] for k, v in ops.launch_counts().items()})
+    launches = ops.launch_counts()
+    agg, fs = rep.aggregate, rep.faults
+    problems = []
+    if agg.submitted != len(reqs) or agg.submitted != (
+            agg.finished + agg.shed + agg.cancelled):
+        problems.append(f"dispositions {agg.to_json()}")
+    if agg.cancelled != 1 or not victim.cancelled or used[1] >= used[0]:
+        problems.append(f"cancel: {agg.cancelled}, view used {used}")
+    if agg.shed == 0:
+        problems.append("a 2x burst over bounded queues shed nothing")
+    for r in reqs:
+        o = outs.get(r.req_id)
+        if r.shed and not (isinstance(o, StreamShed)
+                           and o.reason == r.shed_reason):
+            problems.append(f"shed request {r.req_id} ended with {o!r}")
+        if r.finish >= 0 and o != r.output:
+            problems.append(f"request {r.req_id}'s stream != its output")
+    if (fs.recoveries, fs.block_losses, fs.injected, fs.unfired) != (
+            1, 1, 3, 0) or fs.blocks_lost != lost:
+        problems.append(f"fault summary {fs.to_json()}")
+    if unit.pool.n_head_blocks != n0 - lost \
+            or unit.pool.k.shape[0] != n0 - lost:
+        problems.append(f"arena {unit.pool.n_head_blocks} != {n0} - {lost}")
+    if unit.pool.allocator.used or any(v.used for v in
+                                       unit.pool.views.values()):
+        problems.append("the pool is not free at the end")
+    if len(check_s) != rep.ticks + 1:
+        problems.append(f"{len(check_s)} sanitizer checks for "
+                        f"{rep.ticks} ticks")
+    if len(recoveries) != 1:
+        problems.append(f"{len(recoveries)} recoveries")
+    else:
+        at = recoveries[0]["launches_at"]
+        for symbol in ("repro_paged_decode", "repro_paged_prefill"):
+            if launches[symbol] <= at[symbol]:
+                problems.append(f"{symbol} did not launch after the "
+                                f"recovery")
+    if problems:
+        raise AssertionError("chaos phase: " + "; ".join(problems))
+    fsj = fs.to_json()
+    res = dict(models=["qwen2-7b", "qwen2-7b"], fused_groups=1,
+               pool_blocks={"base": 16384, "grant": grant,
+                            "before": n0, "after": unit.pool.n_head_blocks,
+                            "lost": lost},
+               plan=plan.to_json(), runs=runs,
+               phase_peak_gb=mem.fold() - mem.held, held_before_gb=mem.held,
+               launches=launches,
+               recovery={k: v for k, v in recoveries[0].items()
+                         if k != "launches_at"},
+               sanitizer={"checks": len(check_s),
+                          "host_ms_mean": 1e3 * sum(check_s) / len(check_s),
+                          "host_ms_max": 1e3 * max(check_s)},
+               cancel={"req_id": victim.req_id,
+                       "tokens_before_cancel": n_seen,
+                       "view_used_before_after": list(used),
+                       "stream_end": end},
+               shed_reasons=dict(agg.shed_reasons),
+               faults={k: v for k, v in fsj.items() if k != "log"},
+               fault_log=fsj["log"], summary=rep.summary())
+    del unit, reqs, fe, rep
+    _free(torch, dev)
+    return res
+
+
+def print_degradation(stream: dict, chaos: dict) -> None:
+    """Print the streaming and chaos phases' results."""
+    for label, res in (("streaming phase", stream), ("chaos phase", chaos)):
+        print(f"{label}: " + json.dumps(
+            {k: v for k, v in res.items()
+             if k not in ("runs", "summary", "fault_log")}))
+        for name, run in res["runs"].items():
+            print(f"  {label}, {name}: " + json.dumps(run))
+        for line in res["summary"].splitlines():
+            print(f"  {line}")
+    print("streaming phase: attainment closed loop "
+          + json.dumps(stream["runs"]["closed_loop"]["attainment"])
+          + ", streamed " + json.dumps(stream["runs"]["streamed"]["attainment"])
+          + ", least_loaded " + json.dumps(
+              stream["runs"]["least_loaded"]["attainment"]))
+    rec = chaos["recovery"]
+    print(f"chaos phase: FaultSummary {json.dumps(chaos['faults'])}; "
+          f"fault log {json.dumps(chaos['fault_log'])}")
+    print(f"chaos phase: recovery of {rec['target']} took {rec['s']:.3f} s, "
+          f"peak {rec['peak_gb']:.2f} GB over {rec['held_gb']:.2f} GB held "
+          f"before it ({rec['after_gb']:.2f} after); sanitizer "
+          f"{chaos['sanitizer']['checks']} checks, "
+          f"{chaos['sanitizer']['host_ms_mean']:.2f} ms host each "
+          f"(max {chaos['sanitizer']['host_ms_max']:.2f})")
+
+
 PLACED = ["qwen2-7b#0", "qwen2-7b#1", "mamba2-2.7b"]
 
 
@@ -1654,7 +2166,11 @@ def main() -> int:
           f"spread (the W8 control alone: {fl['w8_control_vs_bf16']['all']}"
           f", {fl['w8_control_vs_bf16']['beyond_1pct_spread']})")
 
-    runs = list(served.values()) + [placed, w8]
+    stream = serve_streaming(torch)
+    chaos = serve_chaos(torch)
+    print_degradation(stream, chaos)
+
+    runs = list(served.values()) + [placed, w8, stream, chaos]
     launches = {k.symbol: sum(r["launches"][k.symbol] for r in runs)
                 for k in ops.path_kernels()}
     attn_names = {"repro_paged_decode": ("fused_paged_decode_attention",

@@ -19,6 +19,14 @@ Units come from one of two sources:
     width, A100 constants, as the JAX package does), writes the JSON,
     and serves from it.
 
+Graceful degradation and the live serving layer take the JAX CLI's
+flags: ``--max-queue`` / ``--shed-policy`` / ``--shed-scale`` (bounded
+admission and deadline shedding), ``--faults`` (a deterministic fault
+plan), ``--watchdog-ticks``, ``--frontend`` with ``--router`` (the
+async streaming front end and cross-LLM routing), ``--metrics-json`` /
+``--port`` (the metrics layer, its HTTP endpoint on localhost) and
+``--sanitize`` (the runtime invariant checker).
+
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --archs qwen2-7b,mamba2-2.7b --policy adbs --fused \\
       --chunk-tokens 16 --rate 2.0 --horizon 8 --deterministic
@@ -36,8 +44,14 @@ from repro_torch.core.placement import load_placement, place, save_placement
 from repro_torch.core.workload import poisson_trace, power_law_rates
 from repro_torch.kernels import ops
 from repro_torch.serving.driver import (TickCostModel, build_unit_from_specs,
-                                        serve_workload, units_from_placement)
+                                        requests_from_workload, serve_workload,
+                                        units_from_placement)
 from repro_torch.serving.engine import TRACE_COUNTS, unique_tree_bytes
+from repro_torch.serving.faults import FaultPlan
+from repro_torch.serving.frontend import ServingFrontend, serve_and_collect
+from repro_torch.serving.metrics import MetricsServer, ServingMetrics
+from repro_torch.serving.mux import SHED_POLICIES
+from repro_torch.serving.router import ROUTER_STRATEGIES
 
 
 def _unit_names(archs):
@@ -77,6 +91,27 @@ def main(argv=None) -> int:
                     help="logical tick-cost clock instead of wall time")
     ap.add_argument("--pool-blocks", type=int, default=200_000)
     ap.add_argument("--max-slots", type=int, default=4)
+    ap.add_argument("--max-queue", type=int, default=None,
+                    help="per-LLM admission-queue bound; arrivals past "
+                         "it are shed with backpressure (needs a "
+                         "--shed-policy other than 'none')")
+    ap.add_argument("--shed-policy", default="none",
+                    choices=list(SHED_POLICIES),
+                    help="graceful-degradation ladder: 'none' (never "
+                         "drop), 'reject' (bound the queue), 'deadline' "
+                         "(also shed requests whose solo-speed TTFT "
+                         "can no longer meet the SLO)")
+    ap.add_argument("--shed-scale", type=float, default=None,
+                    help="SLO scale the deadline shedder targets "
+                         "(default: the largest --slo-scales entry)")
+    ap.add_argument("--faults", default=None, metavar="PLAN",
+                    help="fault-injection plan: comma list of "
+                         "crash:<llm>@<t>, block_loss:<llm>:<blocks>@<t>, "
+                         "transient:<llm>:<ticks>@<t>, "
+                         "migration_abort@<t>")
+    ap.add_argument("--watchdog-ticks", type=int, default=1000,
+                    help="busy ticks with zero progress before the "
+                         "watchdog sheds all pending work (0 disables)")
     ap.add_argument("--sm-frac", default=None, metavar="SHARES",
                     help="per-LLM compute-share overrides: a comma list "
                          "aligned with --archs (e.g. 0.5,0.3,0.2) or "
@@ -99,6 +134,28 @@ def main(argv=None) -> int:
                     help="cuda (default: the Hopper kernels) or cpu")
     ap.add_argument("--report", default=None, metavar="OUT_JSON",
                     help="write the full ServeReport JSON here")
+    ap.add_argument("--frontend", action="store_true",
+                    help="serve through the async streaming front end: "
+                         "open-loop ingestion and per-request token "
+                         "streams over the same scheduling loop as the "
+                         "closed-loop driver")
+    ap.add_argument("--router", default=None,
+                    choices=list(ROUTER_STRATEGIES),
+                    help="cross-LLM routing strategy for --frontend; "
+                         "requests naming a model family resolve to a "
+                         "replica at submit time")
+    ap.add_argument("--metrics-json", default=None, metavar="OUT_JSON",
+                    help="arm the metrics layer and write the final "
+                         "snapshot JSON here")
+    ap.add_argument("--port", type=int, default=None,
+                    help="arm the metrics layer and expose it over HTTP "
+                         "on localhost while serving: GET /metrics, "
+                         "/metrics.json, /events; 0 picks a free port")
+    ap.add_argument("--sanitize", action="store_true",
+                    help="arm the runtime invariant sanitizer: re-check "
+                         "the pool, grant-algebra and request-disposition "
+                         "laws after every tick and fail on the first "
+                         "violation (also: MUXSERVE_SANITIZE=1)")
     args = ap.parse_args(argv)
 
     for flag, v in [("--rate", args.rate), ("--horizon", args.horizon),
@@ -111,9 +168,17 @@ def main(argv=None) -> int:
         if v <= 0:
             ap.error(f"{flag} must be > 0 (got {v})")
     for flag, v in [("--chunk-tokens", args.chunk_tokens),
-                    ("--max-new", args.max_new)]:
+                    ("--max-new", args.max_new),
+                    ("--watchdog-ticks", args.watchdog_ticks)]:
         if v < 0:
             ap.error(f"{flag} must be >= 0 (got {v})")
+    if args.max_queue is not None and args.max_queue <= 0:
+        ap.error(f"--max-queue must be > 0 (got {args.max_queue})")
+    if args.max_queue is not None and args.shed_policy == "none":
+        ap.error("--max-queue needs --shed-policy reject or deadline "
+                 "('none' never drops, so the bound is unenforceable)")
+    if args.shed_scale is not None and args.shed_scale <= 0:
+        ap.error(f"--shed-scale must be > 0 (got {args.shed_scale})")
     try:
         slo_scales = tuple(float(s) for s in args.slo_scales.split(","))
     except ValueError:
@@ -129,6 +194,11 @@ def main(argv=None) -> int:
     if args.placement and args.save_placement:
         ap.error("--placement and --save-placement are mutually "
                  "exclusive (load a plan OR optimize and save one)")
+    if args.router is not None and not args.frontend:
+        ap.error("--router needs --frontend (routing happens at the "
+                 "front end's submit path)")
+    if args.port is not None and args.port < 0:
+        ap.error(f"--port must be >= 0 (got {args.port})")
     archs = args.archs.split(",")
     names = _unit_names(archs)
 
@@ -193,7 +263,8 @@ def main(argv=None) -> int:
                 chunk_tokens=args.chunk_tokens, seed=args.seed,
                 policy=args.policy, fused=args.fused,
                 enforce_shares=not args.no_enforce_shares, dtype=dtype,
-                device=device)
+                device=device, max_queue=args.max_queue,
+                shed_policy=args.shed_policy)
         else:
             unknown = sorted(set(sm_overrides) - set(names))
             if unknown:
@@ -209,9 +280,31 @@ def main(argv=None) -> int:
                 pool_blocks=args.pool_blocks, max_slots=args.max_slots,
                 chunk_tokens=args.chunk_tokens, seed=args.seed,
                 policy=args.policy, fused=args.fused, sm_fracs=sm_fracs,
-                dtype=dtype, device=device)]
+                dtype=dtype, device=device, max_queue=args.max_queue,
+                shed_policy=args.shed_policy)]
     except ValueError as e:
         ap.error(str(e))
+
+    # ---- fault-injection plan ----------------------------------------
+    fault_plan = None
+    if args.faults:
+        try:
+            fault_plan = FaultPlan.parse(args.faults)
+        except ValueError as e:
+            ap.error(f"--faults could not be parsed: {e}")
+        engine_names = {n for u in units for n in u.engines}
+        unknown = sorted(set(fault_plan.targets()) - engine_names)
+        if unknown:
+            ap.error(f"--faults targets not served here: {unknown} "
+                     f"(engines are {sorted(engine_names)})")
+        if not args.deterministic:
+            print("[serve] note: fault times fire against the wall "
+                  "clock; use --deterministic for reproducible chaos")
+        if any(e.kind == "migration_abort" for e in fault_plan.events):
+            print("[serve] note: migration_abort faults are inert "
+                  "without --reconfig")
+        print(f"[serve] fault plan armed: {len(fault_plan.events)} "
+              f"event(s), shed_policy={args.shed_policy}")
     for u in units:
         for g in u.fused_groups:
             print(f"[serve] fused group ({len(g.engines)} engines): "
@@ -237,16 +330,62 @@ def main(argv=None) -> int:
           f"policy={args.policy}, fused={args.fused}, device={device}, "
           f"clock={'logical' if args.deterministic else 'wall'}")
     cost = TickCostModel() if args.deterministic else None
+
+    # ---- observability layer -----------------------------------------
+    metrics = None
+    server = None
+    if args.metrics_json or args.port is not None:
+        metrics = ServingMetrics()
+        if args.port is not None:
+            server = MetricsServer(metrics, port=args.port).start()
+            print(f"[serve] metrics endpoint live at {server.url}/metrics "
+                  f"(also /metrics.json, /events)")
+
     ops.reset_launch_counts()
-    report = serve_workload(units, wl, seed=args.seed,
-                            max_new_cap=args.max_new,
-                            slo_scales=slo_scales, cost=cost)
+    if args.frontend:
+        engines = {}
+        for u in units:
+            engines.update(u.engines)
+        reqs = requests_from_workload(wl, engines, seed=args.seed,
+                                      max_new_cap=args.max_new)
+        fe = ServingFrontend(units, reqs, strategy=args.router,
+                             metrics=metrics,
+                             planned_rates=dict(wl.rates),
+                             slo_scales=slo_scales, cost=cost,
+                             faults=fault_plan,
+                             watchdog_ticks=args.watchdog_ticks,
+                             shed_scale=args.shed_scale,
+                             sanitize=args.sanitize)
+        report, outs = serve_and_collect(fe)
+        streamed = sum(len(o) for o in outs.values() if isinstance(o, list))
+        errors = sum(1 for o in outs.values() if isinstance(o, Exception))
+        print(f"[serve] frontend streamed {streamed} tokens across "
+              f"{len(outs)} request streams "
+              f"({errors} terminated by shed/cancel)"
+              + (f", router={args.router}" if args.router else ""))
+    else:
+        report = serve_workload(units, wl, seed=args.seed,
+                                max_new_cap=args.max_new,
+                                slo_scales=slo_scales, cost=cost,
+                                faults=fault_plan,
+                                watchdog_ticks=args.watchdog_ticks,
+                                shed_scale=args.shed_scale,
+                                metrics=metrics, sanitize=args.sanitize)
 
     agg = report.aggregate
     print(f"[serve] finished {agg.finished}/{agg.submitted} over "
           f"{report.ticks} ticks in {report.wall_s:.1f}s wall")
     for line in report.summary().splitlines():
         print(f"[serve] {line}")
+    if report.faults is not None:
+        for ev in report.faults.log:
+            extra = (f", {ev['stalled_ticks']} stalled ticks"
+                     if ev["kind"] == "watchdog" else
+                     f", target={ev.get('target')}")
+            print(f"[serve] fault @{ev['t']:.2f}s {ev['kind']}: "
+                  f"{ev.get('requeued', 0)} requeued, "
+                  f"{ev.get('shed', 0)} shed, "
+                  f"{ev.get('blocks', 0)} blocks{extra}")
     for u in units:
         pool = u.pool
         print(f"[serve] pool: free={pool.allocator.free_blocks}"
@@ -264,6 +403,17 @@ def main(argv=None) -> int:
         with open(args.report, "w") as f:
             json.dump(report.to_json(), f, indent=1)
         print(f"[serve] report JSON → {args.report}")
+    if metrics is not None:
+        snap = metrics.snapshot()
+        n_series = sum(len(f["series"]) for f in snap["families"])
+        print(f"[serve] metrics: {len(snap['families'])} families, "
+              f"{n_series} live series, {metrics.log.seq} log records")
+        if args.metrics_json:
+            with open(args.metrics_json, "w") as f:
+                json.dump(snap, f, indent=1)
+            print(f"[serve] metrics snapshot JSON → {args.metrics_json}")
+    if server is not None:
+        server.close()
     return 0
 
 

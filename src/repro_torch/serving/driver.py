@@ -23,8 +23,17 @@ Two time domains, one code path:
     unit per populated mesh of a ``core/placement.py`` plan, with the
     plan's compute shares enforced.
 
-The JAX package's reconfiguration, fault injection, sanitizer and
-metrics hooks arrive with later slices.
+Graceful degradation and the live serving layer, all default-off:
+``faults`` (a ``FaultPlan`` or ``FaultInjector``) arms fault injection on
+every unit and charges each recovery's modeled stall to the logical
+clock; ``shed_scale`` stamps deadlines for deadline-shedding units; a
+watchdog sheds a stalled run's pending work; ``metrics`` records the
+serving taxonomy of ``serving/metrics.py`` and embeds its snapshot in
+the report; ``route_fn`` resolves family-named requests at submit time
+(``serving/router.py``); ``sanitize`` re-checks the runtime invariants
+after every tick (``serving/sanitize.py``).  The async front end
+(``serving/frontend.py``) drives the same ``ServeSession`` stepper.  The
+reconfiguration controller arrives with the live-reconfiguration slice.
 """
 from __future__ import annotations
 
@@ -41,9 +50,11 @@ from repro_torch.core.placement import Placement
 from repro_torch.core.workload import Workload
 from repro_torch.models.transformer import init_params
 from repro_torch.serving.engine import Engine, Request
+from repro_torch.serving.faults import FaultInjector, RecoveryCostModel
 from repro_torch.serving.kvcache import UnifiedKVPool
 from repro_torch.serving.mux import MuxScheduler
 from repro_torch.serving.reconfig import WorkloadMonitor
+from repro_torch.serving.sanitize import SessionSanitizer, sanitize_enabled
 
 # same default ladder as the JAX package's simulator and driver
 DEFAULT_SLO_SCALES: Tuple[float, ...] = (2.0, 4.0, 6.0, 8.0, 12.0, 16.0)
@@ -337,7 +348,9 @@ def build_unit_from_specs(specs: Sequence[Tuple[str, str, float]],
                           reduced: bool = True,
                           sm_fracs: Optional[Dict[str, float]] = None,
                           dtype=torch.bfloat16, device="cuda",
-                          params: Optional[Sequence[dict]] = None
+                          params: Optional[Sequence[dict]] = None,
+                          max_queue: Optional[int] = None,
+                          shed_policy: str = "none"
                           ) -> MuxScheduler:
     """Instantiate one real colocated unit from ``(name, arch, rate)``
     triples: one engine per spec over a shared ``UnifiedKVPool``, with
@@ -349,7 +362,9 @@ def build_unit_from_specs(specs: Sequence[Tuple[str, str, float]],
     one weight tree per spec (e.g. the JAX package's tree mapped
     through ``models.transformer.params_to_torch``); by default spec
     ``i`` draws random weights from a ``torch.Generator`` seeded
-    ``seed + i``.  ``sm_fracs`` turns on share enforcement.
+    ``seed + i``.  ``sm_fracs`` turns on share enforcement;
+    ``max_queue`` and ``shed_policy`` arm the scheduler's degradation
+    ladder.
     """
     if not specs:
         raise ValueError("a unit needs at least one (name, arch, rate) spec")
@@ -389,7 +404,8 @@ def build_unit_from_specs(specs: Sequence[Tuple[str, str, float]],
     # fused group's stacking frees each member's leaves as it goes
     del tree
     return MuxScheduler(engines, pool, policy=policy, fused=fused,
-                        sm_frac=sm_fracs)
+                        sm_frac=sm_fracs, max_queue=max_queue,
+                        shed_policy=shed_policy)
 
 
 def units_from_placement(pl: Placement, pool_blocks: int = 200_000,
@@ -399,7 +415,9 @@ def units_from_placement(pl: Placement, pool_blocks: int = 200_000,
                          enforce_shares: bool = True,
                          reduced: bool = True, dtype=torch.bfloat16,
                          device="cuda",
-                         params: Optional[Dict[str, dict]] = None
+                         params: Optional[Dict[str, dict]] = None,
+                         max_queue: Optional[int] = None,
+                         shed_policy: str = "none"
                          ) -> List[MuxScheduler]:
     """The placement → runtime bridge: one real unit per non-empty mesh
     of an optimizer plan (group membership = the mesh's LLM set, fused
@@ -412,7 +430,8 @@ def units_from_placement(pl: Placement, pool_blocks: int = 200_000,
     scheduler enforces the shares and the deterministic clock charges
     phases by them.  ``enforce_shares=False`` builds the same units
     with temporal accounting — the pure-temporal baseline.  ``reduced``,
-    ``dtype`` and ``device`` pass through to ``build_unit_from_specs``;
+    ``dtype``, ``device``, ``max_queue`` and ``shed_policy`` pass
+    through to ``build_unit_from_specs``;
     ``params`` maps spec names to weight trees (e.g. the JAX package's
     carried across by ``models.transformer.params_to_torch``)."""
     total_dev = sum(m.n_devices for m in pl.meshes if m.specs) or 1
@@ -430,7 +449,8 @@ def units_from_placement(pl: Placement, pool_blocks: int = 200_000,
             sm_fracs=(sm if enforce_shares else None), dtype=dtype,
             device=device,
             params=(None if params is None
-                    else [params[s.name] for s in m.specs]))
+                    else [params[s.name] for s in m.specs]),
+            max_queue=max_queue, shed_policy=shed_policy)
         # mesh identity, and mesh size for the deterministic clock's
         # per-unit tick scaling
         u.mesh_id = m.mesh_id
@@ -506,6 +526,34 @@ class LLMReport:
 
 
 @dataclass
+class FaultSummary:
+    """Fault-injection/degradation section of a ``ServeReport``
+    (``serving/faults.py``): what the plan fired, what the runtime did
+    to survive it, and what the recoveries cost on the deterministic
+    clock."""
+    injected: int = 0            # plan events that fired
+    unfired: int = 0             # plan events that never fired
+    recoveries: int = 0          # engine rebuilds (crash + escalation)
+    block_losses: int = 0
+    migration_aborts: int = 0
+    watchdog_trips: int = 0
+    requeued: int = 0            # requests torn down and requeued
+    blocks_lost: int = 0         # arena head-blocks lost to block_loss
+    dt_charged: float = 0.0      # modeled recovery stall (logical s)
+    log: List[dict] = field(default_factory=list)
+
+    def to_json(self) -> dict:
+        return {"injected": self.injected, "unfired": self.unfired,
+                "recoveries": self.recoveries,
+                "block_losses": self.block_losses,
+                "migration_aborts": self.migration_aborts,
+                "watchdog_trips": self.watchdog_trips,
+                "requeued": self.requeued,
+                "blocks_lost": self.blocks_lost,
+                "dt_charged": self.dt_charged, "log": self.log}
+
+
+@dataclass
 class ServeReport:
     horizon: float                           # clock time at last finish
     wall_s: float                            # real wall time (diagnostic)
@@ -520,13 +568,14 @@ class ServeReport:
     rate_estimates: Dict[str, float] = field(default_factory=dict)
     # per-LLM enforced compute shares (empty when no unit enforces them)
     sm_frac: Dict[str, float] = field(default_factory=dict)
-    # sections of the JAX package's reconfiguration, fault, prefix-cache
-    # and metrics layers; their slices fill them, this one emits them
-    # empty so the JSON keeps the schema
+    # the JAX package's reconfiguration and prefix-cache sections: their
+    # slices fill them, until then they stay empty so the JSON keeps the
+    # schema
     reconfig: Optional[dict] = None
-    faults: Optional[dict] = None
+    faults: Optional[FaultSummary] = None
     prefix: Dict[str, dict] = field(default_factory=dict)
     schema_version: int = SERVE_REPORT_SCHEMA_VERSION
+    # final ServingMetrics snapshot, when the run was served with one
     metrics: Optional[dict] = None
 
     def summary(self) -> str:
@@ -540,13 +589,22 @@ class ServeReport:
                  f"p99={a.ttft.p99:.3f}s | TPOT p50={a.tpot.p50 * 1e3:.1f}ms "
                  f"p99={a.tpot.p99 * 1e3:.1f}ms | E2E p50={a.e2e.p50:.2f}s "
                  f"p99={a.e2e.p99:.2f}s"]
+        lines.append(f"aggregate: shed={a.shed} retried={a.retried} "
+                     f"recovered={a.recovered}"
+                     + (f" cancelled={a.cancelled}" if a.cancelled else "")
+                     + (" (shed by: "
+                        + ", ".join(f"{k}={v}" for k, v
+                                    in sorted(a.shed_reasons.items()))
+                        + ")" if a.shed_reasons else ""))
         for name, r in self.per_llm.items():
             att = ", ".join(f"{s:g}×:{r.attainment[s]:.0%}"
                             for s in self.slo_scales)
             lines.append(f"{name}: {r.finished}/{r.submitted} "
                          f"ttft_p99={r.ttft.p99:.3f}s "
                          f"tpot_p99={r.tpot.p99 * 1e3:.1f}ms "
-                         f"e2e_p99={r.e2e.p99:.2f}s | SLO[{att}]")
+                         f"e2e_p99={r.e2e.p99:.2f}s | SLO[{att}] | "
+                         f"shed={r.shed} retried={r.retried} "
+                         f"recovered={r.recovered}")
         if self.rate_estimates:
             pairs = ", ".join(
                 f"{n}:{self.rate_estimates[n]:.2f}"
@@ -557,6 +615,17 @@ class ServeReport:
             lines.append("compute shares (sm_frac): "
                          + ", ".join(f"{n}:{f:.2f}"
                                      for n, f in self.sm_frac.items()))
+        if self.faults is not None:
+            f = self.faults
+            lines.append(
+                f"faults: {f.injected} injected ({f.unfired} unfired) → "
+                f"{f.recoveries} engine recoveries, "
+                f"{f.block_losses} block losses "
+                f"({f.blocks_lost} head-blocks), "
+                f"{f.migration_aborts} migration aborts, "
+                f"{f.watchdog_trips} watchdog trips | "
+                f"{f.requeued} requeued "
+                f"({f.dt_charged * 1e3:.1f}ms charged)")
         return "\n".join(lines)
 
     def to_json(self) -> dict:
@@ -569,7 +638,9 @@ class ServeReport:
                 "planned_rates": dict(self.planned_rates),
                 "rate_estimates": dict(self.rate_estimates),
                 "sm_frac": dict(self.sm_frac),
-                "reconfig": self.reconfig, "faults": self.faults,
+                "reconfig": self.reconfig,
+                "faults": (self.faults.to_json()
+                           if self.faults else None),
                 "prefix": {k: dict(v) for k, v in self.prefix.items()},
                 "metrics": self.metrics}
 
@@ -662,11 +733,33 @@ def _warmup_drain(units: Sequence[MuxScheduler],
 
 
 class ServeSession:
-    """One serving run, decomposed into explicit steps: ``__init__``
-    does the setup (ownership map, clock install, SLO references, drift
-    monitor), ``step()`` runs one loop iteration (submit due arrivals →
-    tick busy units or account an idle gap → monitor), ``report()``
-    rolls the timelines up."""
+    """One serving run, decomposed into explicit steps.
+
+    The closed-loop driver (``serve_requests``) and the async front end
+    (``serving/frontend.py``) drive the SAME stepper: ``__init__`` does
+    the setup (ownership map, clock install, SLO references, injector
+    threading, deadline stamping, drift monitor, sanitizer), ``step()``
+    runs one loop iteration (submit due arrivals → tick busy units or
+    account an idle gap → drain fault events → watchdog → monitor), and
+    ``report()`` rolls the timelines up.  Because the front end replays
+    the identical iteration, streamed serving is bit-identical to the
+    closed-loop driver under the deterministic clock by construction.
+
+    Front-end extensions (all default-off):
+
+    * ``route_fn(request) -> engine_name`` — cross-LLM routing, applied
+      when a request is SUBMITTED, so load-aware strategies see the
+      live queue and pool state; the request's ``model`` is rewritten to
+      the chosen engine.
+    * ``metrics`` — a ``ServingMetrics`` bundle: the session records
+      lifecycle counters, latency histograms, queue/pool gauges and
+      fault events, and embeds the final snapshot in the report.
+    * ``on_topology_change()`` — for a router to refresh its view when
+      engines move between units (live reconfiguration, a later slice;
+      nothing calls it yet).
+    * ``cancel(request)`` — client abandonment: frees the request's
+      queue position or slot and KV at once, counted as ``cancelled``.
+    """
 
     def __init__(self, units: Sequence[MuxScheduler],
                  requests: List[Request],
@@ -675,7 +768,15 @@ class ServeSession:
                  refs: Optional[Dict[str, SLORef]] = None,
                  warm: bool = True,
                  max_ticks: int = 500_000,
-                 planned_rates: Optional[Dict[str, float]] = None):
+                 planned_rates: Optional[Dict[str, float]] = None,
+                 faults=None,
+                 recovery_cost: Optional[RecoveryCostModel] = None,
+                 watchdog_ticks: int = 1000,
+                 shed_scale: Optional[float] = None,
+                 metrics=None,
+                 route_fn: Optional[Callable[[Request], str]] = None,
+                 on_topology_change: Optional[Callable[[], None]] = None,
+                 sanitize: bool = False):
         self.units = list(units)
         self.owner: Dict[str, MuxScheduler] = {}
         self.engines: Dict[str, Engine] = {}
@@ -688,7 +789,11 @@ class ServeSession:
         self.cost = cost
         self.deterministic = cost is not None
         self.max_ticks = max_ticks
+        self.watchdog_ticks = watchdog_ticks
         self.slo_scales = tuple(slo_scales)
+        self.metrics = metrics
+        self.route_fn = route_fn
+        self.on_topology_change = on_topology_change
         if self.deterministic:
             self.clock: Callable[[], float] = LogicalClock()
             self.ref_fn = tick_cost_refs(self.engines, cost)
@@ -706,15 +811,56 @@ class ServeSession:
             u.clock = self.clock
             for eng in u.engines.values():
                 eng.clock = self.clock
+
+        # fault injection: one injector serves every unit; recovery
+        # stalls are priced like any tick
+        self.injector: Optional[FaultInjector] = None
+        if faults is not None:
+            self.injector = (faults if isinstance(faults, FaultInjector)
+                             else FaultInjector(faults))
+            for u in self.units:
+                u.injector = self.injector
+        self.recovery_cost = (recovery_cost if recovery_cost is not None
+                              else RecoveryCostModel())
+
+        # deadline stamping for deadline-shedding units: the latest
+        # admission instant that still meets the scaled TTFT target at
+        # solo speed (ref with output_len 0 IS the solo TTFT reference).
+        # Family-routed requests are stamped at submit time instead.
+        self._deadline_models = {
+            n for u in self.units if u.shed_policy == "deadline"
+            for n in u.engines}
+        s = shed_scale if shed_scale is not None else max(self.slo_scales)
+        self._deadline_slack = max(s - 1.0, 0.0)
+        if self._deadline_models:
+            for r in requests:
+                if r.model in self._deadline_models:
+                    r.deadline = r.arrival + self._deadline_slack *\
+                        self.ref_fn(r.model, len(r.prompt), 0)
+
         self.monitor: Optional[WorkloadMonitor] = (
             WorkloadMonitor(planned_rates) if planned_rates is not None
             else None)
         self.planned0 = dict(self.monitor.planned) if self.monitor else {}
         self.requests = sorted(requests, key=lambda r: r.arrival)
         self.idx, self.ticks = 0, 0
+        self.fault_log: List[dict] = []
+        self.fault_dt = 0.0
+        self.watchdog_trips = 0
+        self._stall_run, self._last_progress = 0, -1
+        self._submitted: set = set()             # id(request)
         self._done = False
         self._report: Optional[ServeReport] = None
+        # per-unit indexes into stats.finished / stats.shed, so metrics
+        # observation sees each disposition exactly once
+        self._fin_idx = [0] * len(self.units)
+        self._shed_idx = [0] * len(self.units)
         self._wall0 = time.perf_counter()
+        # runtime invariant sanitizer: a pure reader re-validating the
+        # pool, scheduler and disposition laws after every busy tick
+        self.sanitizer = None
+        if sanitize or sanitize_enabled():
+            self.sanitizer = SessionSanitizer(self)
 
     def step(self) -> Tuple[str, float]:
         """Run ONE serving-loop iteration.  Returns ``(status, wait)``:
@@ -725,6 +871,8 @@ class ServeSession:
         ``max_ticks`` was hit."""
         if self._done or (self.idx >= len(self.requests)
                           and not any(u.pending() for u in self.units)):
+            if not self._done and self.sanitizer is not None:
+                self.sanitizer.check("drain")
             self._done = True
             return ("done", 0.0)
         now = self.clock()
@@ -753,6 +901,49 @@ class ServeSession:
             if self.deterministic:
                 self.clock.advance(dt)
             self.ticks += 1
+            # recovery events of this round's ticks: charge their
+            # modeled stall (deterministic mode) and log them
+            for u in busy:
+                for rec in u.fault_events:
+                    if self.deterministic:
+                        dt_r = self.recovery_cost.dt(
+                            rec.get("requeued", 0), rec.get("blocks", 0))
+                        self.clock.advance(dt_r)
+                        self.fault_dt += dt_r
+                        rec["dt_charged"] = dt_r
+                    self.fault_log.append(rec)
+                    if self.metrics is not None:
+                        self._observe_fault(rec)
+                u.fault_events.clear()
+            # watchdog: zero progress (no tokens moved, nothing finished
+            # or shed) across watchdog_ticks consecutive busy ticks —
+            # shed everything pending so the run terminates with
+            # submitted = finished + shed (+ cancelled)
+            progress = sum(u.stats.prefill_tokens + u.stats.decode_tokens
+                           + len(u.stats.finished) + len(u.stats.shed)
+                           for u in self.units)
+            if progress == self._last_progress:
+                self._stall_run += 1
+                if self.watchdog_ticks\
+                        and self._stall_run >= self.watchdog_ticks:
+                    shed_n = sum(u.shed_all("watchdog")
+                                 for u in self.units)
+                    self.watchdog_trips += 1
+                    self.fault_log.append(
+                        {"kind": "watchdog", "t": self.clock(),
+                         "shed": shed_n,
+                         "stalled_ticks": self._stall_run})
+                    if self.metrics is not None:
+                        self.metrics.watchdog_trips.inc()
+                        self.metrics.fault_events.inc(kind="watchdog")
+                    self._stall_run = 0
+            else:
+                self._stall_run = 0
+            self._last_progress = progress
+            if self.metrics is not None:
+                self._observe_tick(busy)
+            if self.sanitizer is not None:
+                self.sanitizer.check(f"tick {self.ticks}")
             if self.ticks >= self.max_ticks:
                 self._done = True
                 return ("tick", 0.0)
@@ -767,11 +958,102 @@ class ServeSession:
             self.monitor.advance(self.clock())
         return (status, wait)
 
+    # -- submission / cancellation ---------------------------------------
     def _submit(self, r: Request) -> None:
+        if r.cancelled:
+            # cancelled before its arrival: never enters a unit, still
+            # counted (submitted = finished + shed + cancelled)
+            return
+        if self.route_fn is not None:
+            r.model = self.route_fn(r)
+            if (r.model in self._deadline_models
+                    and r.deadline == float("inf")):
+                r.deadline = r.arrival + self._deadline_slack *\
+                    self.ref_fn(r.model, len(r.prompt), 0)
         self.owner[r.model].submit(r)
+        self._submitted.add(id(r))
         if self.monitor is not None:
             self.monitor.observe(r.model)
+        if self.metrics is not None:
+            self.metrics.requests_submitted.inc(llm=r.model)
+            self.metrics.log.emit(self.clock(), "submit", r.req_id,
+                                  llm=r.model, prompt_len=len(r.prompt),
+                                  max_new=r.max_new_tokens)
 
+    def cancel(self, req: Request) -> bool:
+        """Client abandonment: free the request's resources NOW (queue
+        position, or slot and KV blocks via the owning unit's
+        ``cancel``).  A request cancelled before its arrival is never
+        submitted.  Returns True iff the disposition changed to
+        ``cancelled``."""
+        if req.finish >= 0 or req.shed or req.cancelled:
+            return False
+        if id(req) in self._submitted:
+            u = self.owner.get(req.model)
+            ok = bool(u is not None and u.cancel(req))
+        else:
+            req.cancelled = True
+            ok = True
+        if ok and self.metrics is not None:
+            self.metrics.requests_cancelled.inc(llm=req.model)
+            self.metrics.log.emit(self.clock(), "cancel", req.req_id,
+                                  llm=req.model)
+        return ok
+
+    # -- metrics observation (pure readers; never mutate serving state) --
+    def _observe_tick(self, busy: List[MuxScheduler]) -> None:
+        m = self.metrics
+        now = self.clock()
+        for u in busy:
+            for name, t in u.tick_prefill_by.items():
+                m.tokens_total.inc(t, llm=name, phase="prefill")
+            for name, t in u.tick_decode_by.items():
+                m.tokens_total.inc(t, llm=name, phase="decode")
+        for ui, u in enumerate(self.units):
+            fin = u.stats.finished
+            for r in fin[self._fin_idx[ui]:]:
+                m.requests_finished.inc(llm=r.model)
+                m.ttft_seconds.observe(r.first_token - r.arrival,
+                                       llm=r.model)
+                m.tpot_seconds.observe(
+                    (r.finish - r.first_token)
+                    / max(len(r.output) - 1, 1), llm=r.model)
+                m.e2e_seconds.observe(r.finish - r.arrival, llm=r.model)
+                m.log.emit(now, "finish", r.req_id, llm=r.model,
+                           tokens=len(r.output),
+                           ttft=r.first_token - r.arrival,
+                           e2e=r.finish - r.arrival)
+            self._fin_idx[ui] = len(fin)
+            shed = u.stats.shed
+            for r in shed[self._shed_idx[ui]:]:
+                m.requests_shed.inc(llm=r.model, reason=r.shed_reason)
+                m.log.emit(now, "shed", r.req_id, llm=r.model,
+                           reason=r.shed_reason)
+            self._shed_idx[ui] = len(shed)
+            for name, eng in u.engines.items():
+                m.queue_depth.set(len(u.queues[name]), llm=name)
+                m.running_seqs.set(len(eng.active_slots()), llm=name)
+                m.pool_used_blocks.set(eng.view.used, llm=name)
+            m.pool_available_blocks.set(u.pool.available_blocks(),
+                                        unit=f"mesh{u.mesh_id}")
+        if now > 1e-9:
+            for name in self.owner:
+                m.llm_qps.set(
+                    m.requests_submitted.value(llm=name) / now, llm=name)
+
+    def _observe_fault(self, rec: dict) -> None:
+        m = self.metrics
+        m.fault_events.inc(kind=rec.get("kind", "unknown"))
+        if rec.get("kind") == "engine_crash":
+            m.recoveries.inc(llm=rec.get("target") or "")
+        if rec.get("requeued"):
+            m.requests_retried.inc(rec["requeued"],
+                                   llm=rec.get("target") or "pool")
+        m.log.emit(self.clock(), "fault", "-",
+                   kind=rec.get("kind"), target=rec.get("target"),
+                   requeued=rec.get("requeued", 0))
+
+    # -- roll-up ----------------------------------------------------------
     def report(self) -> ServeReport:
         if self._report is not None:
             return self._report
@@ -782,6 +1064,8 @@ class ServeSession:
                       + [r.finish for r in self.requests if r.finish >= 0])
         by_model: Dict[str, List[Request]] = {n: [] for n in self.engines}
         for r in self.requests:
+            # family-named requests cancelled before routing keep their
+            # family name and get their own row
             by_model.setdefault(r.model, []).append(r)
         per_llm = {n: _roll_up(n, rs, horizon, self.slo_scales, self.ref_fn)
                    for n, rs in by_model.items()}
@@ -792,6 +1076,27 @@ class ServeSession:
             if u.enforce_shares:
                 shares.update({n: u.sm_frac.get(n, 1.0)
                                for n in u.engines})
+        injector, fault_log = self.injector, self.fault_log
+        fsum: Optional[FaultSummary] = None
+        if injector is not None or fault_log:
+            aborts = 0
+            if injector is not None:
+                aborts = sum(1 for rec in injector.records
+                             if rec.get("kind") == "migration_abort")
+            fsum = FaultSummary(
+                injected=(len(injector.records) if injector else 0),
+                unfired=(len(injector.unfired()) if injector else 0),
+                recoveries=sum(1 for rec in fault_log
+                               if rec["kind"] == "engine_crash"),
+                block_losses=sum(1 for rec in fault_log
+                                 if rec["kind"] == "block_loss"),
+                migration_aborts=aborts,
+                watchdog_trips=self.watchdog_trips,
+                requeued=sum(rec.get("requeued", 0) for rec in fault_log),
+                blocks_lost=sum(rec.get("blocks", 0) for rec in fault_log
+                                if rec["kind"] == "block_loss"),
+                dt_charged=self.fault_dt,
+                log=fault_log)
         self._report = ServeReport(
             horizon=horizon, wall_s=wall_s, ticks=self.ticks,
             deterministic=self.deterministic, slo_scales=self.slo_scales,
@@ -799,7 +1104,9 @@ class ServeSession:
             planned_rates=self.planned0,
             rate_estimates=(dict(self.monitor.rate_ewma)
                             if self.monitor else {}),
-            sm_frac=shares)
+            sm_frac=shares, faults=fsum,
+            metrics=(self.metrics.snapshot()
+                     if self.metrics is not None else None))
         return self._report
 
 
@@ -809,20 +1116,42 @@ def serve_requests(units: Sequence[MuxScheduler], requests: List[Request],
                    refs: Optional[Dict[str, SLORef]] = None,
                    warm: bool = True,
                    max_ticks: int = 500_000,
-                   planned_rates: Optional[Dict[str, float]] = None
+                   planned_rates: Optional[Dict[str, float]] = None,
+                   faults=None,
+                   recovery_cost: Optional[RecoveryCostModel] = None,
+                   watchdog_ticks: int = 1000,
+                   shed_scale: Optional[float] = None,
+                   metrics=None,
+                   sanitize: bool = False
                    ) -> ServeReport:
     """Drive real units through an arrival-ordered request list and roll
-    the ``Request`` timelines up into a ``ServeReport``.
+    the ``Request`` timelines up into a ``ServeReport`` (a synchronous
+    loop over ``ServeSession``).
 
     ``cost`` set → deterministic mode: a ``LogicalClock`` advances by
     the max per-unit tick cost each iteration and SLO references are
     analytic under the same constants.  ``cost`` unset → realtime: wall
     clock, per-engine calibrated references (``refs`` overrides
     calibration), and — unless ``warm=False`` — a warm-up replay of the
-    trace first.  ``planned_rates`` enables the drift monitor."""
-    session = ServeSession(units, requests, slo_scales=slo_scales,
-                           cost=cost, refs=refs, warm=warm,
-                           max_ticks=max_ticks, planned_rates=planned_rates)
+    trace first.  ``planned_rates`` enables the drift monitor.
+
+    Graceful degradation: ``faults`` (a ``FaultPlan`` or
+    ``FaultInjector``) is threaded onto every unit, whose recovery
+    events the loop drains each iteration, charging
+    ``recovery_cost.dt(requeued, blocks)`` to the logical clock.  A
+    unit with ``shed_policy="deadline"`` gets each of its requests
+    stamped with the admission deadline ``arrival + (s − 1)·ttft_ref``
+    (s = ``shed_scale``, default ``max(slo_scales)``).  The watchdog
+    sheds every pending request after ``watchdog_ticks`` busy ticks
+    without progress (0 disables it).  ``metrics`` (a
+    ``ServingMetrics``) records the run and rides in the report;
+    ``sanitize`` checks the runtime invariants after every tick."""
+    session = ServeSession(
+        units, requests, slo_scales=slo_scales, cost=cost, refs=refs,
+        warm=warm, max_ticks=max_ticks, planned_rates=planned_rates,
+        faults=faults, recovery_cost=recovery_cost,
+        watchdog_ticks=watchdog_ticks, shed_scale=shed_scale,
+        metrics=metrics, sanitize=sanitize)
     while True:
         status, wait = session.step()
         if status == "done":
@@ -837,7 +1166,13 @@ def serve_workload(units: Sequence[MuxScheduler], wl: Workload,
                    slo_scales: Sequence[float] = DEFAULT_SLO_SCALES,
                    cost: Optional[TickCostModel] = None,
                    refs: Optional[Dict[str, SLORef]] = None,
-                   max_ticks: int = 500_000) -> ServeReport:
+                   max_ticks: int = 500_000,
+                   faults=None,
+                   recovery_cost: Optional[RecoveryCostModel] = None,
+                   watchdog_ticks: int = 1000,
+                   shed_scale: Optional[float] = None,
+                   metrics=None,
+                   sanitize: bool = False) -> ServeReport:
     """``serve_requests`` over a ``core/workload.py`` trace.  The trace's
     per-LLM rates feed the drift monitor as the planned baseline."""
     engines: Dict[str, Engine] = {}
@@ -847,4 +1182,8 @@ def serve_workload(units: Sequence[MuxScheduler], wl: Workload,
                                   max_new_cap=max_new_cap)
     return serve_requests(units, reqs, slo_scales=slo_scales, cost=cost,
                           refs=refs, max_ticks=max_ticks,
-                          planned_rates=dict(wl.rates))
+                          planned_rates=dict(wl.rates), faults=faults,
+                          recovery_cost=recovery_cost,
+                          watchdog_ticks=watchdog_ticks,
+                          shed_scale=shed_scale, metrics=metrics,
+                          sanitize=sanitize)

@@ -35,7 +35,7 @@ import time
 from collections import Counter
 from dataclasses import dataclass, field
 from functools import lru_cache, partial
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
@@ -62,10 +62,17 @@ class Request:
       * ``first_token``  — first output token committed (TTFT end);
       * ``finish``       — last token committed (E2E end).
 
-    ``shed`` / ``shed_reason`` / ``requeues`` / ``cancelled`` are the
-    degradation dispositions of the JAX package's fault, shedding and
-    front-end paths; those paths arrive with later slices, so here they
-    keep their defaults and the report carries them as zeros.
+    Degradation disposition: a request is never silently dropped —
+    overload and fault handling either requeue it (``requeues`` counts
+    the teardowns it survived; a finished request with ``requeues > 0``
+    was *recovered*) or shed it (``shed`` set, ``finish`` stays −1 so it
+    is an SLO miss at every scale, ``shed_reason`` says why).
+    ``deadline`` is the absolute clock instant past which admission can
+    no longer meet the request's scaled TTFT target (stamped by the
+    driver under ``shed_policy="deadline"``; +inf = never
+    deadline-shed).  ``cancelled`` is the client's abandonment
+    (``MuxScheduler.cancel``), the third disposition beside finished
+    and shed.
     """
     req_id: int
     model: str
@@ -77,6 +84,7 @@ class Request:
     prefill_done: float = -1.0
     first_token: float = -1.0
     finish: float = -1.0
+    deadline: float = float("inf")
     shed: bool = False
     shed_reason: str = ""
     requeues: int = 0
@@ -236,6 +244,15 @@ class Engine:
         self._stall_ticks = 0
         self._rolled_rows: List[int] = []
         self._next_seq = 0
+        # token-emission hook (serving/frontend.py): called as
+        # ``emit(event, request, token)`` at every COMMITTED progress
+        # point — "token" (an output token survived its reserve step;
+        # rolled-back tokens never emit), "finish", "reset" (an eviction
+        # cleared the request's progress).  Installed by
+        # ``MuxScheduler.set_emit``; None = no streaming consumer.  The
+        # tokens are on the host already when they commit: the hook
+        # adds no device synchronisation.
+        self.emit: Optional[Callable[[str, Request, int], None]] = None
         # SSM per-slot state
         self.ssm_state = self.conv_tail = None
         if cfg.ssm:
@@ -262,6 +279,44 @@ class Engine:
         self.params = stacked
         self.model_index = model_index
 
+    def materialize_private(self, tree) -> None:
+        """Inverse of ``adopt_stacked``: re-own ``tree``, a private
+        ``[1, ...]`` copy of this engine's weights.  ``FusedGroup.dissolve``
+        cuts the copies out of the stack leaf by leaf, dropping each
+        stacked leaf as it goes (a slice of the stack would be a view
+        that keeps the whole stack alive)."""
+        self.params = tree
+        self.model_index = 0
+
+    def _reset(self, slot: int) -> Request:
+        """Free the sequence in ``slot`` and clear its request's
+        progress (eviction: the request restarts from scratch, exact
+        under greedy decoding)."""
+        r = self.slots[slot]
+        self.view.free_seq(int(self.slot_seq[slot]))
+        self.slots[slot] = None
+        self.slot_seq[slot] = -1
+        self._prefilling.pop(slot, None)
+        r.output.clear()
+        r.prefill_done = -1.0
+        r.first_token = -1.0
+        if self.emit is not None:
+            self.emit("reset", r, -1)
+        return r
+
+    def evict_seqs(self, seq_ids) -> List[Request]:
+        """Evict specific live sequences (prefilling OR decoding): free
+        their cache, reset request progress and hand the requests back
+        for requeueing.  Crash recovery evicts every live sequence,
+        block loss only those with pages in the lost arena tail."""
+        wanted = set(int(s) for s in seq_ids)
+        return [self._reset(slot) for slot in self.active_slots()
+                if int(self.slot_seq[slot]) in wanted]
+
+    def live_seq_ids(self) -> List[int]:
+        """Sequence ids of every occupied slot (prefilling included)."""
+        return [int(self.slot_seq[s]) for s in self.active_slots()]
+
     def _finish_slot(self, slot: int, r: Request) -> None:
         """Finalize a request: stamp ``finish``, free its cache and
         slot, hand it to ``finished``."""
@@ -270,6 +325,8 @@ class Engine:
         self.slots[slot] = None
         self.slot_seq[slot] = -1
         self.finished.append(r)
+        if self.emit is not None:
+            self.emit("finish", r, -1)
 
     def free_slots(self) -> List[int]:
         return [i for i, r in enumerate(self.slots) if r is None]
@@ -293,7 +350,7 @@ class Engine:
         if not self.free_slots():
             return False
         return self.lifetime_blocks(req) + pending_blocks <= min(
-            self.view.quota_headroom(), self.pool.allocator.free_blocks)
+            self.view.quota_headroom(), self.pool.available_blocks())
 
     # ------------------------------------------------------------------
     def prefill(self, reqs: List[Request]) -> int:
@@ -357,6 +414,8 @@ class Engine:
             if self.view.append_tokens(seq_ids[i], 1):
                 r.output.append(int(nxt[i]))
                 r.first_token = self.clock()
+                if self.emit is not None:
+                    self.emit("token", r, int(nxt[i]))
                 if r.done:
                     self._finish_slot(slot_ids[i], r)
         return int(lens.sum())
@@ -423,6 +482,8 @@ class Engine:
                 if self.view.append_tokens(r._seq_id, 1):
                     r.output.append(int(nxt[i]))
                     r.first_token = self.clock()
+                    if self.emit is not None:
+                        self.emit("token", r, int(nxt[i]))
                     if r.done:
                         self._finish_slot(sl, r)
         return done_tokens
@@ -490,12 +551,18 @@ class Engine:
             if r.done:
                 if r.first_token < 0:
                     r.first_token = self.clock()
+                if self.emit is not None:
+                    self.emit("token", r, int(nxt[i]))
                 self._finish_slot(job.slots[i], r)
             else:
                 ok = self.view.append_tokens(job.seq_ids[i], 1)
                 if ok:
                     if r.first_token < 0:
                         r.first_token = self.clock()
+                    # emit only AFTER the reserve validated: a token
+                    # that rolls back was never committed
+                    if self.emit is not None:
+                        self.emit("token", r, int(nxt[i]))
                 else:
                     r.output.pop()
                     done_tokens -= 1
@@ -520,14 +587,7 @@ class Engine:
         if not act:
             return
         slot = max(act, key=lambda s: self.slot_seq[s])
-        r = self.slots[slot]
-        self.view.free_seq(int(self.slot_seq[slot]))
-        self.slots[slot] = None
-        self.slot_seq[slot] = -1
-        r.output.clear()
-        r.prefill_done = -1.0
-        r.first_token = -1.0
-        self.preempted.append(r)
+        self.preempted.append(self._reset(slot))
 
     def decode(self, job: Optional[DecodeJob] = None) -> int:
         """One decode step over all active slots.  Returns #tokens."""

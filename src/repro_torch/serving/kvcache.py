@@ -14,9 +14,12 @@ table is a single base id per token block and the physical index is
 
 The host-side bookkeeping (allocator, views, tables) is the JAX
 package's line for line; the arena is a pair of torch tensors on the
-pool's device, and ``grow``/``shrink`` reallocate them.  The prefix
-cache, fault-injection victims and cross-pool migration arrive with
-their slices.
+pool's device.  ``shrink`` narrows the arena's view and keeps its
+buffer, and ``grow`` re-exposes (zeroed) rows the buffer still holds
+before it allocates anything: a crash recovery or a block loss, which
+shrink the arena under live sequences and grow it back, never hold a
+second arena (at full width the arena is as large as a weight copy).
+The prefix cache and cross-pool migration arrive with their slices.
 """
 from __future__ import annotations
 
@@ -314,8 +317,12 @@ class UnifiedKVPool:
         self.block_tokens = block_tokens
         self.dtype = dtype
         self.device = resolve_device(device)
-        self.k = self._zeros(n_head_blocks)
-        self.v = self._zeros(n_head_blocks)
+        # the arena's buffers; ``k``/``v`` are their first
+        # ``n_head_blocks`` rows (a view: contiguous, what the kernels
+        # take)
+        self._k_buf = self._zeros(n_head_blocks)
+        self._v_buf = self._zeros(n_head_blocks)
+        self._view_arena()
         self.allocator = BlockAllocator(n_head_blocks)
         self.views: Dict[str, ModelCacheView] = {}
         self.used_by: Dict[str, int] = {}
@@ -323,6 +330,10 @@ class UnifiedKVPool:
     def _zeros(self, n: int) -> torch.Tensor:
         return torch.zeros((n, self.block_tokens, self.head_dim),
                            dtype=self.dtype, device=self.device)
+
+    def _view_arena(self) -> None:
+        self.k = self._k_buf[:self.n_head_blocks]
+        self.v = self._v_buf[:self.n_head_blocks]
 
     @property
     def head_block_bytes(self) -> int:
@@ -333,7 +344,7 @@ class UnifiedKVPool:
         return torch.empty((), dtype=self.dtype).element_size()
 
     def hbm_bytes(self) -> int:
-        """Device bytes held by the arena (k + v)."""
+        """Device bytes of the arena (k + v) as the pool uses it."""
         return (self.k.numel() * self.k.element_size()
                 + self.v.numel() * self.v.element_size())
 
@@ -343,38 +354,79 @@ class UnifiedKVPool:
         The zero-copy stacked-weights scheme frees one full weight copy
         per fused group; those bytes are granted back to the pool here
         (reclaimed weight memory becomes KV head-blocks, which admit
-        more sequences).  Returns the blocks actually added.
+        more sequences).  The new blocks read zero, and with no
+        sequence holding blocks the whole arena does, as in the JAX
+        package.  Rows an earlier ``shrink`` released are re-exposed
+        first; past the buffer the arena is reallocated — dropped first
+        when no sequence holds blocks (its contents are dead), else
+        copied one buffer at a time.  Returns the blocks actually
+        added.
         """
         if extra_blocks <= 0:
             return 0
-        n = self.n_head_blocks + extra_blocks
-        if self.allocator.used == 0:
-            # no sequence holds blocks, so the arena's contents are
-            # dead: drop it BEFORE allocating the new one — the grant is
-            # as large as the weights it replaces, and holding both
-            # arenas at full width would not fit the card
-            self.k = self.v = None
-            self.k = self._zeros(n)
-            self.v = self._zeros(n)
+        old, n = self.n_head_blocks, self.n_head_blocks + extra_blocks
+        live = self.allocator.used > 0
+        if n <= self._k_buf.shape[0]:
+            for buf in (self._k_buf, self._v_buf):
+                buf[old if live else 0:n].zero_()
+        elif not live:
+            self.k = self.v = self._k_buf = self._v_buf = None
+            self._k_buf = self._zeros(n)
+            self._v_buf = self._zeros(n)
         else:
-            self.k = torch.cat([self.k, self._zeros(extra_blocks)])
-            self.v = torch.cat([self.v, self._zeros(extra_blocks)])
+            for name in ("_k_buf", "_v_buf"):
+                new = torch.empty((n, self.block_tokens, self.head_dim),
+                                  dtype=self.dtype, device=self.device)
+                new[:old].copy_(getattr(self, name)[:old])
+                new[old:].zero_()
+                self.k = self.v = None
+                setattr(self, name, new)
+                del new
         self.allocator.grow(extra_blocks)
         self.n_head_blocks = n
+        self._view_arena()
         return extra_blocks
 
     def shrink(self, extra_blocks: int) -> int:
         """Release up to ``extra_blocks`` head-blocks from the arena
         tail — the inverse of ``grow``.  Only free tail space is
         released (the allocator refuses to cut below in-use blocks), so
-        the returned count may be smaller than requested."""
+        the returned count may be smaller than requested.  The arena's
+        view narrows; its buffer stays for a later ``grow``.  (The
+        prefix cache's index-only tail entries, which the JAX package
+        drops here first, arrive with the prefix-cache slice.)"""
         removed = self.allocator.shrink(extra_blocks)
         if removed:
-            n = self.n_head_blocks - removed
-            self.k = self.k[:n].clone()
-            self.v = self.v[:n].clone()
-            self.n_head_blocks = n
+            self.n_head_blocks -= removed
+            self._view_arena()
         return removed
+
+    def available_blocks(self) -> int:
+        """Free head-blocks admission may count on (the JAX package adds
+        evictable prefix-cache inventory, which arrives with the
+        prefix-cache slice; without it the two are equal)."""
+        return self.allocator.free_blocks
+
+    def tail_victims(self, n_lost: int) -> Dict[str, List[int]]:
+        """Sequences whose cache touches the arena's last ``n_lost``
+        head-blocks (the ``block_loss`` fault: a bad HBM region eats the
+        tail).  A block group is a victim if ANY of its head-blocks lies
+        in ``[n_blocks − n_lost, n_blocks)``; the whole sequence is torn
+        down.  Once every victim is evicted the doomed tail is entirely
+        free, so ``shrink(n_lost)`` then removes exactly the lost
+        blocks.  Returns {view name: [seq ids]} for the scheduler to
+        evict at the engine level."""
+        doomed = self.n_head_blocks - max(n_lost, 0)
+        out: Dict[str, List[int]] = {}
+        for name, v in self.views.items():
+            if v.group_size == 0:
+                continue            # SSM state lives off-arena
+            ids = sorted(sid for sid, sc in v.seqs.items()
+                         if any(b + v.group_size > doomed
+                                for b in sc.bases))
+            if ids:
+                out[name] = ids
+        return out
 
     def register_model(self, cfg: ModelConfig, quota: int) -> ModelCacheView:
         if not (cfg.attn_free or cfg.hd == self.head_dim):
@@ -385,6 +437,15 @@ class UnifiedKVPool:
         self.views[cfg.name] = v
         self.used_by[cfg.name] = 0
         return v
+
+    def unregister_model(self, name: str) -> None:
+        """Drop a model's view; its sequences must already be freed (a
+        view with live sequences would leak their blocks)."""
+        v = self.views.pop(name, None)
+        self.used_by.pop(name, None)
+        if v is not None and v.seqs:
+            raise ValueError(f"unregistering view {name!r} with live "
+                             f"sequences {sorted(v.seqs)} leaks pool blocks")
 
     def grant_min_quota(self, view: "ModelCacheView", need: int) -> bool:
         """Raise ``view``'s quota to at least ``need`` head-blocks by
