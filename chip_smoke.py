@@ -18,7 +18,9 @@
    (head_dim 96, 32 heads, group 1), command-r-plus-104b (96/8 heads
    of 128: group 12), qwen3-moe-235b-a22b (64/4: group 16) and reduced
    f32 cases at head_dim 96 and at group 16 — for attention (the decode
-   kernels' CTAs an SM, shared memory and registers printed), the int8
+   kernels' CTAs an SM, shared memory and registers printed; one chunk
+   row starts 16 tokens past a chunk boundary, as after an adopted
+   prefix), the int8
    decode through both of its addressings (paged pool and dense cache
    layer); the mamba2-2.7b chunk step with 4, 2 and 1 slots, a
    zamba2-1.2b whole-prompt bucket of 2 rows and of 1, and a reduced
@@ -91,7 +93,22 @@
    cancelled: every request is finished, shed or cancelled, the arena
    shrinks by exactly the lost blocks, the pool ends free, kernels 1
    and 2 launch after the recovery, and the recovery's own peak device
-   memory is printed.
+   memory is printed;
+9. caches prompt prefixes at full width (``serve_prefix``): a fused pair
+   of qwen2-7b serves one shared-prefix trace (~25 requests, 4 prefixes
+   of 256 tokens an LLM, reuse 0.9) with the prefix cache off, then on:
+   the cache must hit at no less than half the trace's ceiling, the
+   chunk steps must compute exactly the adopted tokens fewer, kernel 2
+   must run chunks at ``q_offset``s off the 64-token grid, where it is
+   held to its plain version on the served inputs, and the first-token
+   logits of 8 hit prompts served with the cache on must hold to those
+   served with it off, while a planted wrong adoption of the same
+   prompts must read far above that bound; a copy-on-write round trip
+   on the served pool must copy pages bit for bit; then the pair
+   unfused on an arena of six
+   longest sequences, sanitized every tick, must evict index entries
+   and drain to index-only blocks, and to none once the views
+   unregister.
 
 Any failed phase raises and the script exits non-zero.  The last two
 lines of standard output are the card (name, power limit) and a JSON
@@ -99,6 +116,7 @@ object; the line before them lists the kernels' numbers as JSON.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -475,9 +493,12 @@ def check_kernels(torch, np, shape: dict) -> dict:
             tolerance=ltol, tolerance_rel=TOL[dname])
         del kg, vg, lk, lv
 
-    # chunk prefill: C-token chunks at mixed offsets
+    # chunk prefill: C-token chunks at mixed offsets; row 1 starts a
+    # block past a chunk boundary, as a first chunk after an adopted
+    # cached prefix does (a multiple of 16, not of C)
     offs = (rng.integers(0, (16 * W - C) // C, rows) * C).astype(np.int32)
     offs[0] = 0
+    offs[1] += 16
     table = _random_tables(np, rng, rows, W, n_groups, gsz,
                            -(-(offs + C) // 16))
     phys = resolve_physical_blocks(torch.from_numpy(table).cuda(), L - 1, KV)
@@ -1794,6 +1815,489 @@ def print_degradation(stream: dict, chaos: dict) -> None:
           f"(max {chaos['sanitizer']['host_ms_max']:.2f})")
 
 
+# ---------------------------------------------------------------------------
+# prefix caching at full width
+# ---------------------------------------------------------------------------
+PREFIX_NAMES = ["llm0", "llm1"]
+PREFIX_TRACE = dict(seed=22, mean_prompt=384, mean_output=16, max_len=512,
+                    n_prefixes=4, prefix_len=256, reuse=0.9)
+PREFIX_HIT_FLOOR = 0.5          # the prefix_cache gate's floor factor
+PREFIX_LOGIT_TOL = TOL["bfloat16"]
+# a planted wrong adoption must read at least this many times the bound
+PREFIX_FAULT_FACTOR = 5
+
+
+def _recorded(unit, rec: dict) -> None:
+    """Record, on the host, what ``unit``'s engines do: every exported
+    chunk job's offsets and true lengths (each one runs: kernel 2 at
+    those ``q_offset`` rows), each admission's adopted prefix tokens,
+    the wall times of each request's submission and first token, and
+    the served first-token logits of each request (float32, the logits
+    row of its prompt's last chunk, from the fused pair's sweep or an
+    engine's own chunk step, whichever served it)."""
+    step = {}
+    for grp in unit.fused_groups:
+        def fused(*args, sweep=grp._prefill_fn,
+                  names=[e.cfg.name for e in grp.engines]):
+            logits = sweep(*args)
+            for m, name in enumerate(names):
+                step[name] = logits[m]
+            return logits
+        grp._prefill_fn = fused
+    for name, eng in unit.engines.items():
+        def exported(export=eng.export_prefill_job):
+            job = export()
+            if job is not None:
+                rec["offs"].extend(int(o) for o in job.offs)
+                rec["computed"] += int(job.clens.sum())
+                if any(int(o) % 64 for o in job.offs):
+                    rec["off_grid_job"] = True
+            return job
+
+        def adopted(sid, r, adopt=eng._adopt_prefix):
+            hit = adopt(sid, r)
+            rec["hits"][r.req_id] = hit
+            return hit
+
+        def chunk(*args, run=eng._chunk_fn, name=name):
+            step[name] = run(*args)
+            return step[name]
+
+        def applied(job, nxt, apply=eng.apply_prefill_result, name=name):
+            for i, r in enumerate(job.reqs):
+                if job.offs[i] + job.clens[i] >= len(r.prompt):
+                    rec["logits"][r.req_id] = step[name][i].float().clone()
+            return apply(job, nxt)
+        eng.export_prefill_job = exported
+        eng._adopt_prefix = adopted
+        eng._chunk_fn = chunk
+        eng.apply_prefill_result = applied
+
+    def submit(r, submit=unit.submit):
+        rec["submit"][r.req_id] = time.perf_counter()
+        submit(r)
+
+    def emit(kind, r, _tok):
+        if kind == "token" and r.req_id not in rec["first"]:
+            rec["first"][r.req_id] = time.perf_counter()
+    unit.submit = submit
+    unit.set_emit(emit)
+
+
+class _HeldChunkKernel:
+    """Kernel 2 held against its plain version inside a served run: the
+    engines' chunk-attention call is wrapped so that the first call
+    after the recorder saw a chunk job with a row off the 64-token grid
+    (that step's layer 0) also runs ``paged_prefill_plain`` on the same
+    q, pool, blocks and offsets.  The bound is ``TOL`` of the dtype
+    times the plain output's largest magnitude (served activations are
+    not unit-scale).  The plain call launches nothing."""
+
+    def __init__(self, torch, rec: dict):
+        from repro_torch.serving import cache_ops
+        self.torch, self.rec, self.ops = torch, rec, cache_ops
+        self.kernel = cache_ops.fused_paged_chunk_attention
+        self.result = None
+
+    def __enter__(self):
+        self.ops.fused_paged_chunk_attention = self
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.fused_paged_chunk_attention = self.kernel
+
+    def __call__(self, q, pool_k, pool_v, phys, q_offset):
+        from repro_torch.kernels import flash_prefill as fp
+        out = self.kernel(q, pool_k, pool_v, phys, q_offset)
+        if self.result is None and self.rec.get("off_grid_job"):
+            ref = fp.paged_prefill_plain(q, pool_k, pool_v, phys, q_offset)
+            scale = ref.float().abs().max().item()
+            dname = str(q.dtype).replace("torch.", "")
+            self.result = dict(
+                rows=q.shape[0], q_offsets=q_offset.tolist(),
+                max_abs_err=(out.float() - ref.float()).abs().max().item(),
+                tolerance=TOL[dname] * scale, tolerance_rel=TOL[dname],
+                plain_max_abs=scale)
+        return out
+
+
+def _logit_errors(torch, picked, on: dict, off: dict) -> dict:
+    """The ``picked`` requests' first-token logits ``on`` against ``off``
+    (dicts by request id): per LLM the largest error over the largest
+    logit (the phase's bound reads the largest of these), per prompt
+    the same ratio, and the greedy flips, all and beyond the reference
+    test's 1 % near-tie."""
+    rel, flips, far, per_prompt = 0.0, 0, 0, []
+    for name in PREFIX_NAMES:
+        ids = [r.req_id for r in picked if r.model == name]
+        if not ids:
+            continue
+        a = torch.stack([on[i] for i in ids])
+        b = torch.stack([off[i] for i in ids])
+        rel = max(rel, float((a - b).abs().max() / b.abs().max()))
+        per_prompt += [float((a[j] - b[j]).abs().max() / b[j].abs().max())
+                       for j in range(len(ids))]
+        f_all, f_far = _greedy_flips(a, b)
+        flips, far = flips + f_all, far + f_far
+    return {"prompts": len(per_prompt), "max_rel_err": rel,
+            "per_prompt": per_prompt, "greedy_flips": flips,
+            "beyond_near_tie_flips": far}
+
+
+def _planted_fault(torch, unit, reqs, picked, rec) -> dict:
+    """The logit check's control: the ``picked`` prompts served again on
+    ``unit`` (one token each, through the same fused path) with each
+    prompt's adoption planted wrong — its first cached blocks replaced
+    by those a prompt of another prefix of the same LLM has in the
+    index, as a hash collision would.  Returns the first-token logits by
+    request id (the check must read these far above its bound)."""
+    from repro_torch.serving.engine import Request
+    saved, rec["logits"] = rec["logits"], {}
+    wrong, copies = {}, []
+    for name in PREFIX_NAMES:
+        idx = unit.engines[name].view.prefix_index
+        cached = [idx.lookup(r.prompt) + (r.prompt,) for r in reqs
+                  if r.model == name]
+        for r in picked:
+            if r.model != name:
+                continue
+            other = next((b for hit, b, p in cached
+                          if hit and p[:16] != r.prompt[:16]), None)
+            if other is None:
+                raise AssertionError(f"no prompt of another prefix cached "
+                                     f"for request {r.req_id}")
+            wrong[tuple(r.prompt)] = list(other)
+            copies.append(Request(req_id=r.req_id, model=name,
+                                  prompt=list(r.prompt), max_new_tokens=1))
+
+        def planted(prompt, lookup=idx.lookup):
+            hit, bases = lookup(prompt)
+            other = wrong.get(tuple(prompt))
+            if hit and other:
+                k = min(len(other), len(bases))
+                bases = other[:k] + list(bases[k:])
+            return hit, bases
+        idx.lookup = planted
+    try:
+        for r in copies:
+            unit.submit(r)
+        unit.run()
+    finally:
+        for name in PREFIX_NAMES:
+            del unit.engines[name].view.prefix_index.lookup
+    if any(not r.done for r in copies):
+        raise AssertionError("the planted-fault requests did not finish")
+    faulted, rec["logits"] = rec["logits"], saved
+    return faulted
+
+
+def _cow_round_trip(torch, unit) -> dict:
+    """Copy-on-write on the card, on a served pool: a sequence adopts an
+    indexed group (real prefilled pages) up to a mid-block token and
+    appends one token: its private group must hold the source's pages
+    bit for bit, the source untouched.  Then a sharer whose donor left
+    first is the sole holder: its append unshares in place, with no
+    allocation and no copy.  The sanitizer checks the pool after each."""
+    from repro_torch.config import BLOCK_TOKENS
+    from repro_torch.serving.sanitize import PoolSanitizer
+    pool = unit.pool
+    view = unit.engines[PREFIX_NAMES[0]].view
+    gs, alloc = view.group_size, pool.allocator
+    san = PoolSanitizer(pool)
+    _, (base, _) = view.prefix_index.entries()[-1]
+    src_k = pool.k[base:base + gs].clone()
+    src_v = pool.v[base:base + gs].clone()
+    sid = 1 << 30
+    refs = alloc.refcount(base)
+    if not view.share_prefix(sid, [base], BLOCK_TOKENS // 2):
+        raise AssertionError("share_prefix refused")
+    if alloc.refcount(base) != refs + 1 or not view.append_tokens(sid, 1):
+        raise AssertionError("the copy-on-write append failed")
+    new = view.seqs[sid].bases[0]
+    problems = []
+    if new == base or view.seqs[sid].shared != 0:
+        problems.append(f"no private group: {new} vs {base}")
+    if not (torch.equal(pool.k[new:new + gs], src_k)
+            and torch.equal(pool.v[new:new + gs], src_v)):
+        problems.append("the private group's pages differ from the source")
+    if not (torch.equal(pool.k[base:base + gs], src_k)
+            and torch.equal(pool.v[base:base + gs], src_v)):
+        problems.append("the copy touched the source group")
+    if alloc.refcount(base) != refs:
+        problems.append(f"source refcount {alloc.refcount(base)} != {refs}")
+    san.check("copy-on-write")
+    # the sole holder: the donor leaves before the sharer writes
+    if not view.append_tokens(sid + 1, BLOCK_TOKENS):
+        raise AssertionError("no room for the sole-holder donor")
+    g = view.seqs[sid + 1].bases[0]
+    if not view.share_prefix(sid + 2, [g], BLOCK_TOKENS // 2):
+        raise AssertionError("share_prefix refused")
+    view.free_seq(sid + 1)
+    free, pages = alloc.free_blocks, pool.k[g:g + gs].clone()
+    if not view.append_tokens(sid + 2, 1):
+        raise AssertionError("the sole holder's append failed")
+    if view.seqs[sid + 2].bases[0] != g or view.seqs[sid + 2].shared:
+        problems.append("the sole holder did not unshare in place")
+    if alloc.free_blocks != free or not torch.equal(pool.k[g:g + gs], pages):
+        problems.append("the sole holder's unshare allocated or copied")
+    san.check("unshare in place")
+    for s in (sid, sid + 2):
+        view.free_seq(s)
+    san.check("after the round trip")
+    if problems:
+        raise AssertionError("copy-on-write: " + "; ".join(problems))
+    return dict(group_blocks=gs, source_base=base, private_base=new,
+                mid_block_tokens=BLOCK_TOKENS // 2, pages_equal=True,
+                sole_holder_in_place=True, sanitizer_checks=san.checks)
+
+
+def serve_prefix(torch, device="cuda", reduced=False) -> dict:
+    """Prefix caching at full width: a fused pair of qwen2-7b (``llm0``,
+    ``llm1``; random bf16 weights from the same seeds in every run, 4
+    slots, 64-token chunks, ADBS, the logical clock) serves one
+    ``shared_prefix_trace`` (α 2.1 over a 12 req/s peak for 1.6 s, ~24
+    requests; 4 prefixes of 256 tokens an LLM, reuse 0.9, 384-token
+    prompts on average, at most 512, 16-token outputs) (a) with the
+    cache off, then (b) with it on, on fresh units.  Checks: (b) hits,
+    at a request hit rate of at least ``PREFIX_HIT_FLOOR`` × the trace's
+    ceiling; the prompt tokens (b)'s chunk steps computed are (a)'s less
+    (b)'s adopted tokens; kernel 2 ran (b)'s chunks at some ``q_offset``
+    that is not a multiple of 64, and kernels 1 and 2 both launched;
+    kernel 2 holds to its plain version at the first such step of (b)
+    (``_HeldChunkKernel``); on 8 hit prompts the first-token logits (b)
+    served (adopted prefix, suffix chunks) hold to those (a) served for
+    the same prompts within ``PREFIX_LOGIT_TOL`` of the largest logit,
+    with equal greedy tokens but on near-ties; a copy-on-write round trip
+    on (b)'s pool (``_cow_round_trip``); the control: the same prompts
+    served again on (b)'s unit with a planted wrong adoption
+    (``_planted_fault``) must read at least ``PREFIX_FAULT_FACTOR`` × the
+    logit bound.  Then (c) the same pair unfused
+    (a fused pair's zero-copy grant would give the arena a weight copy
+    of blocks) on an arena of six longest sequences, the sanitizer on
+    every tick: LRU ``reclaim`` must evict index entries, every request
+    must finish, the drained allocator must hold only index blocks, and
+    none once the views unregister."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.core.workload import (power_law_rates,
+                                           prefix_repeat_fraction,
+                                           shared_prefix_trace)
+    from repro_torch.kernels import ops
+    from repro_torch.serving import driver
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    # the chaos phase's unit lives on in reference cycles (its patched
+    # recovery and sanitizer hooks) until the collector runs: free it
+    # before a weight copy is built
+    _free(torch, dev)
+    cuda = dev.type == "cuda"
+    dtype = torch.bfloat16 if cuda else torch.float32
+    cost = driver.TickCostModel()
+    rates = power_law_rates(PREFIX_NAMES, 2.1, 12.0)
+    wl = shared_prefix_trace(rates, 1.6, **PREFIX_TRACE)
+    ceiling = prefix_repeat_fraction(wl)
+
+    def build(cache, fused=True, pool_blocks=16384):
+        return driver.build_unit_from_specs(
+            [(n, "qwen2-7b", rates[n]) for n in PREFIX_NAMES],
+            pool_blocks=pool_blocks, max_slots=4, chunk_tokens=64, seed=40,
+            policy="adbs", fused=fused, reduced=reduced, dtype=dtype,
+            device=dev, prefix_cache=cache)
+
+    def serve(unit, sanitize=False, hold=False):
+        reqs = driver.requests_from_workload(wl, unit.engines, seed=1,
+                                             max_new_cap=64)
+        rec = dict(offs=[], computed=0, hits={}, submit={}, first={},
+                   logits={}, checks=0)
+        _recorded(unit, rec)
+        mem = _Memory(torch, dev)
+        sess = driver.ServeSession([unit], reqs, cost=cost,
+                                   sanitize=sanitize)
+        if sanitize:
+            check = sess.sanitizer.check
+
+            def counted(where=""):
+                rec["checks"] += 1
+                check(where)
+            sess.sanitizer.check = counted
+        held = _HeldChunkKernel(torch, rec)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with held if hold else contextlib.nullcontext():
+            while sess.step()[0] != "done":
+                pass
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rep = sess.report()
+        nums = _run_numbers(rep, reqs, wall, ops.launch_counts())
+        rec["kernel_2"] = held.result
+        ttft = sorted(rec["first"][i] - rec["submit"][i]
+                      for i in rec["first"])
+        nums.update(wall_ttft_p50_s=float(np.median(ttft)),
+                    logical_ttft_p50_s=rep.aggregate.ttft.p50,
+                    peak_gb=mem.fold(), prompt_tokens_computed=rec["computed"],
+                    prefix=rep.prefix)
+        agg = rep.aggregate
+        if agg.finished != agg.submitted or agg.submitted == 0:
+            raise AssertionError(f"served {agg.finished}/{agg.submitted}")
+        return reqs, rep, rec, nums
+
+    runs = {}
+    # (a) cache off
+    unit = build(False)
+    reqs_a, _, rec_a, runs["(a) cache off"] = serve(unit)
+    if unit.pool.allocator.used:
+        raise AssertionError("(a): the pool was not freed")
+    out_a = {r.req_id: list(r.output) for r in reqs_a}
+    del unit, reqs_a
+    _free(torch, dev)
+
+    # (b) cache on, fresh units
+    unit = build(True)
+    reqs_b, rep_b, rec_b, runs["(b) cache on"] = serve(unit, hold=True)
+    nb, na = runs["(b) cache on"], runs["(a) cache off"]
+    hits = sum(p["hits"] for p in rep_b.prefix.values())
+    lookups = sum(p["lookups"] for p in rep_b.prefix.values())
+    hit_tokens = sum(p["hit_tokens"] for p in rep_b.prefix.values())
+    problems = []
+    if hits == 0 or hits / lookups < PREFIX_HIT_FLOOR * ceiling:
+        problems.append(f"hit rate {hits}/{lookups} below "
+                        f"{PREFIX_HIT_FLOOR} x ceiling {ceiling:.3f}")
+    if rec_b["computed"] != rec_a["computed"] - hit_tokens:
+        problems.append(f"(b) computed {rec_b['computed']} prompt tokens, "
+                        f"(a) {rec_a['computed']} less {hit_tokens} adopted")
+    off64 = sorted({o for o in rec_b["offs"] if o % 64})
+    if not off64:
+        problems.append("no chunk of (b) started off a multiple of 64")
+    for symbol in ("repro_paged_decode", "repro_paged_prefill"):
+        for key, n in (("(a) cache off", na), ("(b) cache on", nb)):
+            if cuda and n["launches"][symbol] <= 0:
+                problems.append(f"{symbol} never launched in {key}")
+    differ = sum(out_a[r.req_id] != list(r.output) for r in reqs_b)
+    if problems:
+        raise AssertionError("prefix phase: " + "; ".join(problems))
+
+    # kernel 2 against its plain version at a served off-grid step
+    k2 = rec_b["kernel_2"]
+    if k2 is None or not any(o % 64 for o in k2["q_offsets"]):
+        problems.append("kernel 2 was not held at an off-grid step")
+    elif not k2["max_abs_err"] <= k2["tolerance"]:
+        problems.append(f"kernel 2 disagrees with its plain version at "
+                        f"served offsets {k2['q_offsets']}: "
+                        f"{k2['max_abs_err']} > {k2['tolerance']}")
+    # the logit check: 8 hit prompts, (b)'s served first-token logits
+    # against (a)'s
+    picked = [r for r in sorted(reqs_b, key=lambda r: r.req_id)
+              if rec_b["hits"].get(r.req_id, 0) > 0][:8]
+    logits = _logit_errors(torch, picked, rec_b["logits"], rec_a["logits"])
+    logits.update(tolerance=PREFIX_LOGIT_TOL,
+                  adopted_tokens=[rec_b["hits"][r.req_id] for r in picked])
+    if logits["prompts"] != 8:
+        problems.append(f"{logits['prompts']} hit prompts for the logit "
+                        f"check")
+    if logits["beyond_near_tie_flips"]:
+        problems.append(f"{logits['beyond_near_tie_flips']} greedy flips "
+                        f"beyond a near-tie")
+    if logits["max_rel_err"] >= PREFIX_LOGIT_TOL:
+        problems.append(f"cached vs uncached first-token logits: max rel "
+                        f"err {logits['max_rel_err']:.4f} >= "
+                        f"{PREFIX_LOGIT_TOL}")
+    cow = _cow_round_trip(torch, unit)
+    # the control: a planted wrong adoption must read far above the bound
+    fault = _logit_errors(torch, picked, _planted_fault(
+        torch, unit, reqs_b, picked, rec_b), rec_a["logits"])
+    fault["floor"] = PREFIX_FAULT_FACTOR * PREFIX_LOGIT_TOL
+    if fault["max_rel_err"] < fault["floor"]:
+        problems.append(f"a planted wrong adoption read "
+                        f"{fault['max_rel_err']:.4f}, under "
+                        f"{fault['floor']}")
+    if problems:
+        raise AssertionError("prefix phase: " + "; ".join(problems))
+    del unit, reqs_b, rep_b, picked
+    _free(torch, dev)
+
+    # (c) an arena of six longest sequences: reclaim must fire
+    cfg = (configs.get_reduced if reduced else configs.get)("qwen2-7b")
+    small = 6 * (-(-(512 + 64) // 16)) * cfg.n_layers * cfg.n_kv_heads
+    unit = build(True, fused=False, pool_blocks=small)
+    _, rep_c, rec_c, runs["(c) cache on, small arena"] = serve(
+        unit, sanitize=True)
+    pool = unit.pool
+    evicted = sum(p["evicted"] for p in rep_c.prefix.values())
+    held = sum(v.prefix_index.held_blocks for v in pool.views.values())
+    if evicted == 0:
+        problems.append("(c): no index entry was evicted")
+    if rec_c["checks"] != rep_c.ticks + 1:
+        problems.append(f"(c): {rec_c['checks']} sanitizer checks for "
+                        f"{rep_c.ticks} ticks")
+    if pool.allocator.used != held or held == 0:
+        problems.append(f"(c): the drained allocator holds "
+                        f"{pool.allocator.used} blocks, the index {held}")
+    for name in PREFIX_NAMES:
+        pool.unregister_model(name)
+    if pool.allocator.used:
+        problems.append(f"(c): {pool.allocator.used} blocks held after "
+                        f"the views unregistered")
+    if problems:
+        raise AssertionError("prefix phase: " + "; ".join(problems))
+    launches = {k: sum(r["launches"][k] for r in runs.values())
+                for k in runs["(a) cache off"]["launches"]}
+    res = dict(
+        models=["qwen2-7b", "qwen2-7b"], chunk_tokens=64,
+        trace={**PREFIX_TRACE, "rates": rates, "horizon": 1.6,
+               "requests": len(wl.requests)},
+        ceiling=ceiling, hits=hits, lookups=lookups, hit_tokens=hit_tokens,
+        off_64_offsets=off64[:16],
+        prompt_tokens_computed={"a": na["prompt_tokens_computed"],
+                                "b": nb["prompt_tokens_computed"]},
+        paged_prefill_launches_saved=(
+            na["launches"]["repro_paged_prefill"]
+            - nb["launches"]["repro_paged_prefill"]),
+        requests_with_other_tokens=differ,
+        kernel_2_at_served_offsets=k2, logit_check=logits,
+        planted_fault=fault,
+        cow=cow, small_arena_blocks=small, evicted=evicted,
+        sanitizer_checks=rec_c["checks"], index_blocks_after_drain=held,
+        runs=runs, launches=launches,
+        phase_s=time.perf_counter() - t_phase)
+    del unit, pool, rep_c
+    _free(torch, dev)
+    return res
+
+
+def print_prefix(res: dict, card: str) -> None:
+    """Print the prefix phase's results."""
+    print("prefix phase: " + json.dumps(
+        {k: v for k, v in res.items() if k != "runs"}))
+    for name, run in res["runs"].items():
+        print(f"  prefix phase, {name}: " + json.dumps(run))
+    a, b = res["runs"]["(a) cache off"], res["runs"]["(b) cache on"]
+    lc, pf, k2 = (res["logit_check"], res["planted_fault"],
+                  res["kernel_2_at_served_offsets"])
+    print(f"prefix phase ({card}): (a) cache off {a['wall_tok_s']:.1f} "
+          f"tok/s wall, TTFT p50 {a['wall_ttft_p50_s']:.3f} s wall, peak "
+          f"{a['peak_gb']:.2f} GB; (b) cache on {b['wall_tok_s']:.1f} tok/s "
+          f"wall, TTFT p50 {b['wall_ttft_p50_s']:.3f} s wall, peak "
+          f"{b['peak_gb']:.2f} GB; {res['hits']}/{res['lookups']} hits, "
+          f"{res['hit_tokens']} hit tokens, "
+          f"{res['paged_prefill_launches_saved']} kernel-2 launches saved; "
+          f"first-token logits max rel err {lc['max_rel_err']:.4f} < "
+          f"{lc['tolerance']} on {lc['prompts']} hit prompts "
+          f"({lc['greedy_flips']} greedy flips, "
+          f"{lc['beyond_near_tie_flips']} beyond a near-tie; per prompt "
+          f"{', '.join(f'{e:.4f}' for e in lc['per_prompt'])}); a planted "
+          f"wrong adoption reads {pf['max_rel_err']:.4f} >= {pf['floor']} "
+          f"(per prompt {', '.join(f'{e:.4f}' for e in pf['per_prompt'])}); "
+          f"kernel 2 at served offsets {k2['q_offsets']}: max abs err "
+          f"{k2['max_abs_err']:.3g} <= {k2['tolerance']:.3g}; "
+          f"{res['requests_with_other_tokens']} served requests' tokens "
+          f"differ between (a) and (b); (c) {res['evicted']} entries "
+          f"evicted; the phase took {res['phase_s']:.1f} s")
+
+
 PLACED = ["qwen2-7b#0", "qwen2-7b#1", "mamba2-2.7b"]
 
 
@@ -2169,8 +2673,10 @@ def main() -> int:
     stream = serve_streaming(torch)
     chaos = serve_chaos(torch)
     print_degradation(stream, chaos)
+    prefix = serve_prefix(torch)
+    print_prefix(prefix, card)
 
-    runs = list(served.values()) + [placed, w8, stream, chaos]
+    runs = list(served.values()) + [placed, w8, stream, chaos, prefix]
     launches = {k.symbol: sum(r["launches"][k.symbol] for r in runs)
                 for k in ops.path_kernels()}
     attn_names = {"repro_paged_decode": ("fused_paged_decode_attention",

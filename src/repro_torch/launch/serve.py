@@ -25,7 +25,10 @@ admission and deadline shedding), ``--faults`` (a deterministic fault
 plan), ``--watchdog-ticks``, ``--frontend`` with ``--router`` (the
 async streaming front end and cross-LLM routing), ``--metrics-json`` /
 ``--port`` (the metrics layer, its HTTP endpoint on localhost) and
-``--sanitize`` (the runtime invariant checker).
+``--sanitize`` (the runtime invariant checker).  ``--prefix-cache``
+shares the KV blocks of common prompt prefixes across requests
+(copy-on-write; needs ``--chunk-tokens``), and ``--prefix-reuse``
+switches the workload to ``core.workload.shared_prefix_trace``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --archs qwen2-7b,mamba2-2.7b --policy adbs --fused \\
@@ -41,7 +44,8 @@ import torch
 from repro_torch import configs, resolve_device
 from repro_torch.config import replace
 from repro_torch.core.placement import load_placement, place, save_placement
-from repro_torch.core.workload import poisson_trace, power_law_rates
+from repro_torch.core.workload import (poisson_trace, power_law_rates,
+                                       shared_prefix_trace)
 from repro_torch.kernels import ops
 from repro_torch.serving.driver import (TickCostModel, build_unit_from_specs,
                                         requests_from_workload, serve_workload,
@@ -82,6 +86,16 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--chunk-tokens", type=int, default=0,
                     help="chunked prefill window (0 = whole-prompt jobs)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="share KV blocks across requests with a common "
+                         "prompt prefix (copy-on-write; needs "
+                         "--chunk-tokens > 0; DESIGN.md §13)")
+    ap.add_argument("--prefix-reuse", type=float, default=0.0,
+                    help="fraction of requests that open with a popular "
+                         "shared prefix (> 0 switches the workload to "
+                         "core.workload.shared_prefix_trace; pairs with "
+                         "--prefix-cache but works without it as the "
+                         "uncached baseline)")
     ap.add_argument("--fused", action="store_true",
                     help="fused multi-LLM tick (one sweep per phase for "
                          "same-architecture engines)")
@@ -191,6 +205,13 @@ def main(argv=None) -> int:
         ap.error(str(e))
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
 
+    if not 0.0 <= args.prefix_reuse <= 1.0:
+        ap.error(f"--prefix-reuse must be in [0, 1] "
+                 f"(got {args.prefix_reuse})")
+    if args.prefix_cache and args.chunk_tokens == 0:
+        ap.error("--prefix-cache requires --chunk-tokens > 0: a partial "
+                 "prefix hit resumes prefill mid-prompt, which only the "
+                 "chunked path can do (DESIGN.md §13)")
     if args.placement and args.save_placement:
         ap.error("--placement and --save-placement are mutually "
                  "exclusive (load a plan OR optimize and save one)")
@@ -264,7 +285,7 @@ def main(argv=None) -> int:
                 policy=args.policy, fused=args.fused,
                 enforce_shares=not args.no_enforce_shares, dtype=dtype,
                 device=device, max_queue=args.max_queue,
-                shed_policy=args.shed_policy)
+                shed_policy=args.shed_policy, prefix_cache=args.prefix_cache)
         else:
             unknown = sorted(set(sm_overrides) - set(names))
             if unknown:
@@ -281,7 +302,7 @@ def main(argv=None) -> int:
                 chunk_tokens=args.chunk_tokens, seed=args.seed,
                 policy=args.policy, fused=args.fused, sm_fracs=sm_fracs,
                 dtype=dtype, device=device, max_queue=args.max_queue,
-                shed_policy=args.shed_policy)]
+                shed_policy=args.shed_policy, prefix_cache=args.prefix_cache)]
     except ValueError as e:
         ap.error(str(e))
 
@@ -320,9 +341,15 @@ def main(argv=None) -> int:
                   f"shares: "
                   + ", ".join(f"{n}:{f:.2f}" for n, f in u.sm_frac.items()))
 
-    wl = poisson_trace(rates, args.horizon, seed=args.seed,
-                       mean_prompt=args.mean_prompt,
-                       mean_output=args.mean_output)
+    if args.prefix_reuse > 0.0:
+        wl = shared_prefix_trace(rates, args.horizon, seed=args.seed,
+                                 mean_prompt=args.mean_prompt,
+                                 mean_output=args.mean_output,
+                                 reuse=args.prefix_reuse)
+    else:
+        wl = poisson_trace(rates, args.horizon, seed=args.seed,
+                           mean_prompt=args.mean_prompt,
+                           mean_output=args.mean_output)
     src = "plan rates" if args.placement else f"α={args.alpha}"
     print(f"[serve] {len(wl.requests)} requests over {args.horizon}s for "
           f"{len(rates)} LLMs ({src}: "
@@ -389,9 +416,18 @@ def main(argv=None) -> int:
     for u in units:
         pool = u.pool
         print(f"[serve] pool: free={pool.allocator.free_blocks}"
-              f"/{pool.n_head_blocks} head-blocks")
+              f"/{pool.n_head_blocks} head-blocks, fragmentation="
+              f"{pool.allocator.fragmentation():.3f}, shrinkable tail="
+              f"{pool.allocator.shrinkable_tail()}")
         for name, view in pool.views.items():
             print(f"[serve]   {name}: quota={view.quota} used={view.used}")
+        if args.prefix_cache:
+            for name, st in pool.prefix_stats().items():
+                print(f"[serve]   {name} prefix cache: "
+                      f"{st['hits']}/{st['lookups']} hits "
+                      f"({st['hit_rate']:.0%}), {st['hit_tokens']} tokens "
+                      f"adopted, {st['entries']} entries holding "
+                      f"{st['held_blocks']} head-blocks")
         print(f"[serve] memory: "
               f"{unique_tree_bytes([e.params for e in u.engines.values()]) / 1e6:.1f}"
               f" MB weights (de-duplicated), {pool.hbm_bytes() / 1e6:.0f} MB "

@@ -7,8 +7,10 @@ serving/kvcache.py).
 
 The attention ops here are the kernel wrappers: CUDA tensors launch the
 Hopper kernels, CPU tensors run their plain versions.  Unlike the JAX
-package the KV writes update the arena in place: the steps never
-re-read a pre-step pool, so nothing needs the old contents.
+package the KV writes and the block-group copy update the arena in
+place: the steps never re-read a pre-step pool, so nothing needs the
+old contents, and the pool's ``k``/``v`` stay views onto its arena
+buffers (``UnifiedKVPool._k_buf``/``_v_buf``).
 """
 from __future__ import annotations
 
@@ -25,9 +27,45 @@ from repro_torch.kernels.paged_attention import (fused_paged_decode_attention,
 from repro_torch.paging import resolve_physical_blocks
 
 __all__ = ["TokenSlots", "token_slots", "write_slots", "write_tokens",
-           "resolve_physical_blocks", "fused_paged_decode_attention",
+           "copy_block_groups", "resolve_physical_blocks", "fused_paged_decode_attention",
            "paged_decode_attention", "fused_paged_chunk_attention",
            "paged_chunk_attention", "flash_prefill"]
+
+
+def copy_block_groups(pool_k, pool_v, src_bases, dst_bases, n_kv, n_layers,
+                      src_k=None, src_v=None):
+    """Device-side page copy between block groups — one gather and one
+    scatter over every (layer, kv-head) page of each group, in place.
+
+    Logical group bases are resolved to physical head-block ids through
+    ``paging.resolve_physical_blocks`` — the SAME resolution every
+    kernel uses, so the copy can never disagree with the pool layout.
+    Source and destination index lists are elementwise aligned, making
+    this an exact page copy.  Powers copy-on-write divergence of a
+    shared prefix block (same pool: ``src_k/src_v`` default to the
+    destination tensors) and cross-pool KV migration (pass the source
+    pool's tensors).  The source pages are gathered into a new tensor
+    before the scatter writes, so a copy within one tensor reads no
+    page it has already overwritten.
+
+    pool_k/pool_v: destination arena [N, BT, hd], written in place
+    src_bases/dst_bases: group base per token-block (host lists)
+    Returns (pool_k, pool_v).
+    """
+    if src_k is None:
+        src_k, src_v = pool_k, pool_v
+
+    def phys(bases, device):
+        t = torch.as_tensor(list(bases), dtype=torch.int32,
+                            device=device)[None, :]
+        return torch.cat([resolve_physical_blocks(t, li, n_kv)
+                          for li in range(n_layers)], dim=1).reshape(-1).long()
+    sp = phys(src_bases, src_k.device)
+    dp = phys(dst_bases, pool_k.device)
+    for dst, src in ((pool_k, src_k), (pool_v, src_v)):
+        dst.index_copy_(0, dp, src.index_select(0, sp).to(
+            device=dst.device, dtype=dst.dtype))
+    return pool_k, pool_v
 
 
 class TokenSlots(NamedTuple):

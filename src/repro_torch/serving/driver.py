@@ -350,7 +350,8 @@ def build_unit_from_specs(specs: Sequence[Tuple[str, str, float]],
                           dtype=torch.bfloat16, device="cuda",
                           params: Optional[Sequence[dict]] = None,
                           max_queue: Optional[int] = None,
-                          shed_policy: str = "none"
+                          shed_policy: str = "none",
+                          prefix_cache: bool = False
                           ) -> MuxScheduler:
     """Instantiate one real colocated unit from ``(name, arch, rate)``
     triples: one engine per spec over a shared ``UnifiedKVPool``, with
@@ -364,10 +365,16 @@ def build_unit_from_specs(specs: Sequence[Tuple[str, str, float]],
     ``i`` draws random weights from a ``torch.Generator`` seeded
     ``seed + i``.  ``sm_fracs`` turns on share enforcement;
     ``max_queue`` and ``shed_policy`` arm the scheduler's degradation
-    ladder.
+    ladder.  ``prefix_cache`` arms per-LLM prefix indexes on the unit's
+    pool (DESIGN.md §13): repeated prompt prefixes are adopted from
+    cache and skip their prefill chunks.  It needs ``chunk_tokens`` —
+    the whole-prompt prefill path cannot resume mid-prompt.
     """
     if not specs:
         raise ValueError("a unit needs at least one (name, arch, rate) spec")
+    if prefix_cache and not chunk_tokens:
+        raise ValueError("prefix_cache requires chunked prefill "
+                         "(chunk_tokens > 0)")
     dev = resolve_device(device)
     cfgs = [replace(configs.get_reduced(arch) if reduced
                     else configs.get(arch), name=name)
@@ -379,7 +386,7 @@ def build_unit_from_specs(specs: Sequence[Tuple[str, str, float]],
         raise ValueError(f"a unit's pool has one head_dim; the specs have "
                          f"{sorted(head_dims)}")
     pool = UnifiedKVPool(pool_blocks, head_dims.pop() if head_dims else 64,
-                         dtype=dtype, device=dev)
+                         dtype=dtype, device=dev, prefix_cache=prefix_cache)
     rate_sum = sum(max(r, 0.0) for _, _, r in specs)
     min_quota = max(pool_blocks // (8 * len(specs)), 1)
     engines: Dict[str, Engine] = {}
@@ -417,7 +424,8 @@ def units_from_placement(pl: Placement, pool_blocks: int = 200_000,
                          device="cuda",
                          params: Optional[Dict[str, dict]] = None,
                          max_queue: Optional[int] = None,
-                         shed_policy: str = "none"
+                         shed_policy: str = "none",
+                         prefix_cache: bool = False
                          ) -> List[MuxScheduler]:
     """The placement → runtime bridge: one real unit per non-empty mesh
     of an optimizer plan (group membership = the mesh's LLM set, fused
@@ -430,8 +438,8 @@ def units_from_placement(pl: Placement, pool_blocks: int = 200_000,
     scheduler enforces the shares and the deterministic clock charges
     phases by them.  ``enforce_shares=False`` builds the same units
     with temporal accounting — the pure-temporal baseline.  ``reduced``,
-    ``dtype``, ``device``, ``max_queue`` and ``shed_policy`` pass
-    through to ``build_unit_from_specs``;
+    ``dtype``, ``device``, ``max_queue``, ``shed_policy`` and
+    ``prefix_cache`` pass through to ``build_unit_from_specs``;
     ``params`` maps spec names to weight trees (e.g. the JAX package's
     carried across by ``models.transformer.params_to_torch``)."""
     total_dev = sum(m.n_devices for m in pl.meshes if m.specs) or 1
@@ -450,7 +458,8 @@ def units_from_placement(pl: Placement, pool_blocks: int = 200_000,
             device=device,
             params=(None if params is None
                     else [params[s.name] for s in m.specs]),
-            max_queue=max_queue, shed_policy=shed_policy)
+            max_queue=max_queue, shed_policy=shed_policy,
+            prefix_cache=prefix_cache)
         # mesh identity, and mesh size for the deterministic clock's
         # per-unit tick scaling
         u.mesh_id = m.mesh_id
@@ -568,11 +577,14 @@ class ServeReport:
     rate_estimates: Dict[str, float] = field(default_factory=dict)
     # per-LLM enforced compute shares (empty when no unit enforces them)
     sm_frac: Dict[str, float] = field(default_factory=dict)
-    # the JAX package's reconfiguration and prefix-cache sections: their
-    # slices fill them, until then they stay empty so the JSON keeps the
-    # schema
+    # the JAX package's reconfiguration section: its slice fills it,
+    # until then it stays None so the JSON keeps the schema
     reconfig: Optional[dict] = None
     faults: Optional[FaultSummary] = None
+    # per-LLM prefix-cache counters (PrefixIndex.stats(); empty when the
+    # prefix cache is off), gathered from the units' CURRENT pool views
+    # at report time — crash recovery replaces views, so an engine map
+    # captured at start would be stale
     prefix: Dict[str, dict] = field(default_factory=dict)
     schema_version: int = SERVE_REPORT_SCHEMA_VERSION
     # final ServingMetrics snapshot, when the run was served with one
@@ -615,6 +627,12 @@ class ServeReport:
             lines.append("compute shares (sm_frac): "
                          + ", ".join(f"{n}:{f:.2f}"
                                      for n, f in self.sm_frac.items()))
+        if self.prefix:
+            lines.append("prefix cache: " + ", ".join(
+                f"{n}: {p['hits']}/{p['lookups']} hits "
+                f"({p['hit_rate']:.0%}, {p['hit_tokens']} tok adopted, "
+                f"{p['entries']} cached)"
+                for n, p in self.prefix.items()))
         if self.faults is not None:
             f = self.faults
             lines.append(
@@ -1072,10 +1090,12 @@ class ServeSession:
         agg = _roll_up("aggregate", self.requests, horizon,
                        self.slo_scales, self.ref_fn)
         shares: Dict[str, float] = {}
+        prefix_stats: Dict[str, dict] = {}
         for u in self.units:
             if u.enforce_shares:
                 shares.update({n: u.sm_frac.get(n, 1.0)
                                for n in u.engines})
+            prefix_stats.update(u.prefix_stats())
         injector, fault_log = self.injector, self.fault_log
         fsum: Optional[FaultSummary] = None
         if injector is not None or fault_log:
@@ -1104,7 +1124,7 @@ class ServeSession:
             planned_rates=self.planned0,
             rate_estimates=(dict(self.monitor.rate_ewma)
                             if self.monitor else {}),
-            sm_frac=shares, faults=fsum,
+            sm_frac=shares, faults=fsum, prefix=prefix_stats,
             metrics=(self.metrics.snapshot()
                      if self.metrics is not None else None))
         return self._report

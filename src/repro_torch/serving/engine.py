@@ -349,6 +349,8 @@ class Engine:
         already selected for the same batch but not yet reserved."""
         if not self.free_slots():
             return False
+        # available_blocks counts evictable prefix-cache inventory:
+        # cached blocks are disposable and must never starve admission
         return self.lifetime_blocks(req) + pending_blocks <= min(
             self.view.quota_headroom(), self.pool.available_blocks())
 
@@ -421,9 +423,29 @@ class Engine:
         return int(lens.sum())
 
     # ------------------------------------------------------------------
+    def _adopt_prefix(self, sid: int, r: Request) -> int:
+        """Consult the per-LLM prefix index at admission (DESIGN.md
+        §13).  On a hit the cached prefix blocks are adopted read-only
+        via ``share_prefix`` and prefill resumes at the first uncached
+        block.  Chunked engines only: the chunk machinery starts at any
+        offset, the whole-prompt path cannot resume mid-prompt.  Returns
+        adopted tokens (0 = miss; always a BLOCK_TOKENS multiple ≤
+        len(prompt) − 1, so prefill still computes the logits the first
+        generated token needs)."""
+        idx = self.view.prefix_index
+        if idx is None:
+            return 0
+        hit, bases = idx.lookup(r.prompt)
+        if hit and self.view.share_prefix(sid, bases, hit):
+            return hit
+        return 0
+
     def admit_chunked(self, reqs: List[Request]) -> None:
-        """Host-side admission for chunked prefill: reserve the prompt,
-        bind a slot and mark it in-flight — no compute."""
+        """Host-side admission for chunked prefill: reserve the prompt
+        (adopting a cached prefix where the index has one), bind a slot
+        and mark it in-flight — no compute."""
+        # prompts reserve immediately, so only the not-yet-reserved
+        # growth of earlier admits carries into ``pending``
         pending = 0
         for r in reqs[:len(self.free_slots())]:
             if not self.free_slots():
@@ -434,14 +456,24 @@ class Engine:
             sid = self._next_seq
             self._next_seq += 1
             used_before = self.view.used
-            ok = self.view.append_tokens(sid, len(r.prompt))
+            hit = self._adopt_prefix(sid, r)
+            ok = self.view.append_tokens(sid, len(r.prompt) - hit)
+            if not ok and hit:
+                # adoption landed but the private remainder could not
+                # be carved out — drop the shared refs and admit the
+                # request unshared (the lifetime check covered it)
+                self.view.free_seq(sid)
+                hit = 0
+                ok = self.view.append_tokens(sid, len(r.prompt))
             assert ok, "admission check guaranteed quota"
             pending += self.lifetime_blocks(r) - (self.view.used
                                                   - used_before)
             self.slots[slot] = r
             self.slot_seq[slot] = sid
             r._seq_id = sid
-            self._prefilling[slot] = 0
+            # prefill resumes at the first uncached token; completion
+            # times stamp at prompt completion, whenever that is
+            self._prefilling[slot] = hit
 
     def export_prefill_job(self) -> Optional[PrefillJob]:
         """Snapshot the in-flight chunk rows (None when nothing is
@@ -475,6 +507,13 @@ class Engine:
             done_tokens += int(job.clens[i])
             if self._prefilling[sl] >= len(r.prompt):
                 del self._prefilling[sl]
+                # prompt complete → its full blocks are final (decode
+                # appends strictly past the prompt): index them before
+                # _finish_slot, so prefill-only requests populate the
+                # cache too (the index's own refs keep the blocks)
+                idx = self.view.prefix_index
+                if idx is not None:
+                    idx.insert(r.prompt, self.view.seqs[r._seq_id].bases)
                 if r.max_new_tokens <= 0:
                     r.first_token = self.clock()
                     self._finish_slot(sl, r)

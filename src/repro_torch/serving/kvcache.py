@@ -19,7 +19,11 @@ buffer, and ``grow`` re-exposes (zeroed) rows the buffer still holds
 before it allocates anything: a crash recovery or a block loss, which
 shrink the arena under live sequences and grow it back, never hold a
 second arena (at full width the arena is as large as a weight copy).
-The prefix cache and cross-pool migration arrive with their slices.
+
+Prefix caching (``PrefixIndex``) shares block groups across sequences
+by refcount, read-only, with copy-on-write (``cache_ops.
+copy_block_groups``, in place on the arena) when a write lands inside
+a shared block.  Cross-pool migration arrives with its slice.
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.config import BLOCK_TOKENS, ModelConfig
+from repro_torch.serving.cache_ops import copy_block_groups
 
 
 class BlockAllocator:
@@ -39,12 +44,13 @@ class BlockAllocator:
 
     Free space kept as a sorted list of ``[start, end)`` ranges.
 
-    Blocks carry the JAX package's refcounts (DESIGN.md §13): ``alloc``
-    hands out ranges at refcount 1 and ``free`` drops one holder, a
-    block returning to the free list when its last holder lets go.
-    ``used`` is refcount-weighted, ``physical_used`` counts distinct
-    live blocks (``free_blocks`` derives from it); until the prefix
-    cache adds shared holders the two are equal.
+    Blocks are refcounted (DESIGN.md §13): ``alloc`` hands out ranges
+    at refcount 1, ``share`` adds a holder, and ``free`` drops one — a
+    block returns to the free list only when its last holder lets go.
+    ``used`` is refcount-weighted (what every holder is charged, so
+    per-view quota sums still equal it), ``physical_used`` counts
+    distinct live blocks (what the arena spends — ``free_blocks``
+    derives from it).  Absent sharing the two are equal.
     """
 
     def __init__(self, n_blocks: int):
@@ -67,6 +73,22 @@ class BlockAllocator:
                     self._refs[b] = 1
                 return s
         return None
+
+    def share(self, start: int, n: int) -> None:
+        """Add one holder to every block in ``[start, start+n)``.  The
+        range must be live — sharing free space is a caller bug."""
+        if n <= 0:
+            return
+        refs = self._refs
+        for b in range(start, start + n):
+            if b not in refs:
+                raise ValueError(f"share of unallocated head-block {b}")
+        for b in range(start, start + n):
+            refs[b] += 1
+        self.used += n
+
+    def refcount(self, block: int) -> int:
+        return self._refs.get(block, 0)
 
     def refcounts(self) -> Dict[int, int]:
         """Copy of the live refcount map (tests/debugging)."""
@@ -174,6 +196,14 @@ class BlockAllocator:
             return e - s
         return 0
 
+    def fragmentation(self) -> float:
+        """1 − largest_free/total_free (0 = one contiguous free range).
+        Like ``largest_free_range`` this describes interior
+        allocatability, not the shrinkable tail."""
+        if self.free_blocks == 0:
+            return 0.0
+        return 1.0 - self.largest_free_range() / self.free_blocks
+
 
 @dataclass
 class SeqCache:
@@ -181,6 +211,173 @@ class SeqCache:
     seq_id: int
     bases: List[int] = field(default_factory=list)   # group base per token-block
     n_tokens: int = 0
+    # leading block groups adopted read-only from other holders via
+    # share_prefix (prefix caching); writes into this region trigger
+    # copy-on-write.  Always a prefix: bases[:shared].
+    shared: int = 0
+
+
+class PrefixIndex:
+    """Per-LLM prompt-prefix → cached-block-group index (DESIGN.md §13).
+
+    Keyed by a hash chain over FULL prompt token-blocks: ``h_i =
+    hash((h_{i−1}, block_i_tokens))``, so an entry for block *i* is only
+    reachable when blocks ``0..i−1`` matched too — a lookup always
+    adopts a chain prefix.  Only fully-written blocks are indexed
+    (chunked prefill's pad garbage lands at positions ≥ the prompt
+    length, never inside an indexed block), and each entry stores the
+    block's tokens beside the base so a hash collision can never adopt
+    wrong KV.  Prompts are lists of Python (or numpy) integers: a block
+    is a tuple of them, and those hash by value — a tensor scalar would
+    hash by identity and never hit.
+
+    Entries hold their own allocator refcount on the group, so cached
+    prefixes survive the inserting sequence; they are disposable pool
+    inventory, never quota-charged: evicted LRU-first under allocation
+    pressure (``reclaim``), dropped when a shrink dooms their tail
+    blocks (``release_from``), and cleared wholesale when the view
+    unregisters (crash recovery).  Dict insertion order doubles as the
+    LRU order.
+    """
+
+    def __init__(self, view: "ModelCacheView"):
+        self.view = view
+        self._entries: Dict[int, Tuple[int, Tuple[int, ...]]] = {}
+        self.lookups = 0
+        self.hits = 0
+        self.hit_tokens = 0
+        self.inserted = 0
+        self.evicted = 0
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    @property
+    def held_blocks(self) -> int:
+        """Head-blocks the index holds a refcount on."""
+        return len(self._entries) * self.view.group_size
+
+    def entries(self) -> List[Tuple[int, Tuple[int, Tuple[int, ...]]]]:
+        """(hash, (base, block_tokens)) pairs in LRU→MRU order."""
+        return list(self._entries.items())
+
+    @staticmethod
+    def chain_hashes(prompt: List[int], n_blocks: int
+                     ) -> List[Tuple[int, Tuple[int, ...]]]:
+        out: List[Tuple[int, Tuple[int, ...]]] = []
+        h = 0
+        for i in range(n_blocks):
+            blk = tuple(prompt[i * BLOCK_TOKENS:(i + 1) * BLOCK_TOKENS])
+            h = hash((h, blk))
+            out.append((h, blk))
+        return out
+
+    def lookup(self, prompt: List[int]) -> Tuple[int, List[int]]:
+        """Longest cached chain prefix of ``prompt`` as ``(n_tokens,
+        group bases)``.  Clamped to ``(len(prompt)−1)//BLOCK_TOKENS``
+        blocks so prefill always computes at least the prompt's last
+        token — the engine needs its logits for the first generated
+        token."""
+        self.lookups += 1
+        bases: List[int] = []
+        max_adopt = (len(prompt) - 1) // BLOCK_TOKENS
+        for h, blk in self.chain_hashes(prompt, max_adopt):
+            ent = self._entries.get(h)
+            if ent is None or ent[1] != blk:
+                break
+            self._entries[h] = self._entries.pop(h)      # LRU touch
+            bases.append(ent[0])
+        if bases:
+            self.hits += 1
+            self.hit_tokens += len(bases) * BLOCK_TOKENS
+        return len(bases) * BLOCK_TOKENS, bases
+
+    def insert(self, prompt: List[int], bases: List[int]) -> int:
+        """Index every full prompt block of a live sequence (called at
+        prompt completion — the blocks are fully written and stable
+        from then on: decode appends past the prompt).  Takes a share
+        ref per new entry; existing hashes are kept (first writer
+        wins).  Returns entries added."""
+        n_full = min(len(prompt) // BLOCK_TOKENS, len(bases))
+        added = 0
+        for (h, blk), base in zip(self.chain_hashes(prompt, n_full), bases):
+            if h in self._entries:
+                continue
+            self.view.pool.allocator.share(base, self.view.group_size)
+            self._entries[h] = (base, blk)
+            added += 1
+        self.inserted += added
+        return added
+
+    def adopt(self, h: int, base: int, blk: Tuple[int, ...]) -> None:
+        """Install a remapped entry (migration rebuild): share the
+        destination group and record it under the unchanged hash."""
+        if h in self._entries:
+            return
+        self.view.pool.allocator.share(base, self.view.group_size)
+        self._entries[h] = (base, blk)
+
+    def evictable_blocks(self) -> int:
+        """Head-blocks ``reclaim`` could free right now (entries whose
+        group the index alone holds)."""
+        alloc = self.view.pool.allocator
+        g = self.view.group_size
+        return sum(g for base, _ in self._entries.values()
+                   if alloc.refcount(base) == 1)
+
+    def reclaim(self, need_blocks: int) -> int:
+        """Evict LRU-first entries whose group the index alone holds
+        until ``need_blocks`` head-blocks returned to the free list.
+        Entries a live sequence shares free nothing by eviction and
+        keep their future hits — skipped.  Returns blocks freed."""
+        alloc = self.view.pool.allocator
+        g = self.view.group_size
+        freed = 0
+        for h, (base, _) in list(self._entries.items()):
+            if freed >= need_blocks:
+                break
+            if alloc.refcount(base) == 1:
+                alloc.free(base, g)
+                del self._entries[h]
+                freed += g
+                self.evicted += 1
+        return freed
+
+    def release_from(self, doomed_start: int) -> int:
+        """Pre-shrink invalidation: drop index-only entries whose group
+        intersects ``[doomed_start, ∞)`` so the doomed tail becomes free
+        and the shrink isn't clamped by disposable cache inventory.
+        Entries a live sequence still shares keep their blocks alive —
+        the shrink clamps below them, the entry stays valid, so it is
+        kept.  Returns blocks freed."""
+        alloc = self.view.pool.allocator
+        g = self.view.group_size
+        dropped = 0
+        for h, (base, _) in list(self._entries.items()):
+            if base + g > doomed_start and alloc.refcount(base) == 1:
+                alloc.free(base, g)
+                del self._entries[h]
+                dropped += g
+                self.evicted += 1
+        return dropped
+
+    def clear(self) -> None:
+        """Drop every entry and its ref (view unregister — crash
+        recovery tears the whole view down)."""
+        alloc = self.view.pool.allocator
+        g = self.view.group_size
+        for base, _ in self._entries.values():
+            alloc.free(base, g)
+        self.evicted += len(self._entries)
+        self._entries.clear()
+
+    def stats(self) -> dict:
+        return {"entries": len(self._entries), "lookups": self.lookups,
+                "hits": self.hits, "hit_tokens": self.hit_tokens,
+                "inserted": self.inserted, "evicted": self.evicted,
+                "held_blocks": self.held_blocks,
+                "hit_rate": (self.hits / self.lookups
+                             if self.lookups else 0.0)}
 
 
 class ModelCacheView:
@@ -192,7 +389,8 @@ class ModelCacheView:
     fixed per-seq state cost (accounted against quota, not the arena).
     """
 
-    def __init__(self, cfg: ModelConfig, pool: "UnifiedKVPool", quota: int):
+    def __init__(self, cfg: ModelConfig, pool: "UnifiedKVPool", quota: int,
+                 prefix_cache: bool = False):
         self.cfg = cfg
         self.pool = pool
         self.quota = quota
@@ -200,6 +398,13 @@ class ModelCacheView:
         self.group_size = cfg.n_attn_layers * cfg.n_kv_heads
         self.seqs: Dict[int, SeqCache] = {}
         self._started: set = set()
+        # prefix caching is a paged-attention feature: SSM/hybrid state
+        # is a running summary of the whole prefix and cannot be
+        # adopted block-wise, so those views never index
+        self.prefix_index: Optional[PrefixIndex] = (
+            PrefixIndex(self)
+            if prefix_cache and self.group_size > 0 and not cfg.ssm
+            else None)
         # SSM quota accounting: state bytes expressed in head-block units
         self._ssm_blocks_per_seq = 0
         if cfg.ssm:
@@ -213,8 +418,11 @@ class ModelCacheView:
         return self.quota - self.used
 
     def can_append(self, seq_id: int, n_tokens: int) -> bool:
+        # available_blocks (not raw free_blocks): prefix-cache blocks
+        # are disposable and evicted on demand, so admission may count
+        # them — otherwise a full cache would starve admission forever
         return self._blocks_needed(seq_id, n_tokens) <= min(
-            self.quota_headroom(), self.pool.allocator.free_blocks)
+            self.quota_headroom(), self.pool.available_blocks())
 
     def _blocks_needed(self, seq_id: int, n_tokens: int) -> int:
         sc = self.seqs.get(seq_id)
@@ -228,12 +436,73 @@ class ModelCacheView:
         return cost
 
     # ---- allocation ---------------------------------------------------
+    def share_prefix(self, seq_id: int, bases: List[int],
+                     n_tokens: int) -> bool:
+        """Adopt ``bases`` — block groups already live in the pool (a
+        cached prefix) — as the leading blocks of a NEW sequence,
+        read-only.  Quota policy (DESIGN.md §13): the sharer is charged
+        fully, exactly as if it had allocated the blocks itself, so a
+        later copy-on-write never needs quota headroom — only physical
+        blocks.  Returns False (nothing changed) when quota is short."""
+        assert seq_id not in self.seqs, "share_prefix needs a new sequence"
+        assert self.group_size > 0 and not self.cfg.ssm, \
+            "prefix sharing is a paged-attention feature"
+        assert (len(bases) - 1) * BLOCK_TOKENS < n_tokens \
+            <= len(bases) * BLOCK_TOKENS, (len(bases), n_tokens)
+        cost = len(bases) * self.group_size
+        if cost > self.quota_headroom():
+            return False
+        for b in bases:
+            self.pool.allocator.share(b, self.group_size)
+        self.seqs[seq_id] = SeqCache(seq_id, list(bases), n_tokens,
+                                     shared=len(bases))
+        self._started.add(seq_id)
+        self.used += cost
+        self.pool.used_by[self.cfg.name] = self.used
+        return True
+
+    def _cow_tail(self, sc: SeqCache) -> bool:
+        """Copy-on-write before a write lands inside the shared prefix.
+        Only the LAST shared block can ever be hit: earlier ones are
+        full and append-only writes never revisit a full block.  Sole
+        remaining holder → unshare in place (no copy); otherwise
+        allocate a private group, copy the pages on the device (in
+        place on the arena), drop our ref on the shared group and swap
+        the base — ``paging.resolve_physical_blocks`` never sees any of
+        this.  View quota/used are untouched (the sharer already paid
+        full charge).  Returns False when no private group can be
+        carved out even after evicting cache inventory."""
+        blk = sc.shared - 1
+        assert sc.n_tokens // BLOCK_TOKENS == blk, \
+            "write into a full shared block — sharing invariant broken"
+        old = sc.bases[blk]
+        alloc = self.pool.allocator
+        if alloc.refcount(old) == 1:
+            sc.shared = blk
+            return True
+        new = alloc.alloc(self.group_size)
+        if new is None:
+            self.pool.reclaim_index_blocks(self.group_size)
+            new = alloc.alloc(self.group_size)
+            if new is None:
+                return False
+        copy_block_groups(self.pool.k, self.pool.v, [old], [new],
+                          self.cfg.n_kv_heads, self.cfg.n_attn_layers)
+        alloc.free(old, self.group_size)
+        sc.bases[blk] = new
+        sc.shared = blk
+        return True
+
     def append_tokens(self, seq_id: int, n_tokens: int) -> bool:
         """Reserve cache space for n_tokens more tokens of seq_id."""
         cost = self._blocks_needed(seq_id, n_tokens)
         if cost > self.quota_headroom():
             return False
         sc = self.seqs.setdefault(seq_id, SeqCache(seq_id))
+        if (n_tokens > 0 and sc.shared
+                and sc.n_tokens < sc.shared * BLOCK_TOKENS):
+            if not self._cow_tail(sc):
+                return False
         have = len(sc.bases) * BLOCK_TOKENS
         need_tokens = max(0, sc.n_tokens + n_tokens - have)
         n_groups = -(-need_tokens // BLOCK_TOKENS)
@@ -241,6 +510,9 @@ class ModelCacheView:
         for _ in range(n_groups):
             if self.group_size > 0:
                 base = self.pool.allocator.alloc(self.group_size)
+                if base is None and self.pool.reclaim_index_blocks(
+                        self.group_size):
+                    base = self.pool.allocator.alloc(self.group_size)
                 if base is None:
                     for b in newly:   # roll back
                         self.pool.allocator.free(b, self.group_size)
@@ -311,11 +583,14 @@ class UnifiedKVPool:
 
     def __init__(self, n_head_blocks: int, head_dim: int,
                  dtype=torch.bfloat16, block_tokens: int = BLOCK_TOKENS,
-                 device="cuda"):
+                 device="cuda", prefix_cache: bool = False):
         self.n_head_blocks = n_head_blocks
         self.head_dim = head_dim
         self.block_tokens = block_tokens
         self.dtype = dtype
+        # pool-level so register_model (including the re-register on
+        # crash recovery) creates per-view prefix indexes uniformly
+        self.prefix_cache = prefix_cache
         self.device = resolve_device(device)
         # the arena's buffers; ``k``/``v`` are their first
         # ``n_head_blocks`` rows (a view: contiguous, what the kernels
@@ -391,10 +666,18 @@ class UnifiedKVPool:
         """Release up to ``extra_blocks`` head-blocks from the arena
         tail — the inverse of ``grow``.  Only free tail space is
         released (the allocator refuses to cut below in-use blocks), so
-        the returned count may be smaller than requested.  The arena's
-        view narrows; its buffer stays for a later ``grow``.  (The
-        prefix cache's index-only tail entries, which the JAX package
-        drops here first, arrive with the prefix-cache slice.)"""
+        the returned count may be smaller than requested.  Index-only
+        prefix-cache entries in the doomed tail are dropped first, so
+        cached blocks never clamp a shrink (and a lost-tail shrink
+        removes exactly what the fault doomed — see ``tail_victims``).
+        The arena's view narrows; its buffer stays for a later
+        ``grow``."""
+        if (extra_blocks > 0
+                and extra_blocks > self.allocator.shrinkable_tail()):
+            doomed = self.n_head_blocks - extra_blocks
+            for v in self.views.values():
+                if v.prefix_index is not None:
+                    v.prefix_index.release_from(doomed)
         removed = self.allocator.shrink(extra_blocks)
         if removed:
             self.n_head_blocks -= removed
@@ -402,10 +685,32 @@ class UnifiedKVPool:
         return removed
 
     def available_blocks(self) -> int:
-        """Free head-blocks admission may count on (the JAX package adds
-        evictable prefix-cache inventory, which arrives with the
-        prefix-cache slice; without it the two are equal)."""
-        return self.allocator.free_blocks
+        """Free head-blocks plus prefix-cache inventory evictable on
+        demand — the figure admission may count on.  Equals
+        ``allocator.free_blocks`` when prefix caching is off."""
+        n = self.allocator.free_blocks
+        for v in self.views.values():
+            if v.prefix_index is not None:
+                n += v.prefix_index.evictable_blocks()
+        return n
+
+    def reclaim_index_blocks(self, need: int) -> int:
+        """Evict prefix-cache entries (LRU-first, index-only holders)
+        across views until ``need`` head-blocks are free.  Returns the
+        blocks actually freed."""
+        freed = 0
+        for v in self.views.values():
+            short = need - self.allocator.free_blocks
+            if short <= 0:
+                break
+            if v.prefix_index is not None:
+                freed += v.prefix_index.reclaim(short)
+        return freed
+
+    def prefix_stats(self) -> Dict[str, dict]:
+        """Per-LLM prefix-cache counters (empty when caching is off)."""
+        return {n: v.prefix_index.stats() for n, v in self.views.items()
+                if v.prefix_index is not None}
 
     def tail_victims(self, n_lost: int) -> Dict[str, List[int]]:
         """Sequences whose cache touches the arena's last ``n_lost``
@@ -433,16 +738,21 @@ class UnifiedKVPool:
             raise ValueError(
                 f"pools are grouped by head_dim: model {cfg.name!r} has "
                 f"head_dim {cfg.hd}, pool has {self.head_dim}")
-        v = ModelCacheView(cfg, self, quota)
+        v = ModelCacheView(cfg, self, quota, prefix_cache=self.prefix_cache)
         self.views[cfg.name] = v
         self.used_by[cfg.name] = 0
         return v
 
     def unregister_model(self, name: str) -> None:
         """Drop a model's view; its sequences must already be freed (a
-        view with live sequences would leak their blocks)."""
+        view with live sequences would leak their blocks).  The view's
+        prefix index is cleared with it: every cached base the index
+        alone held returns to the free list, so crash recovery can never
+        leave a dangling index ref."""
         v = self.views.pop(name, None)
         self.used_by.pop(name, None)
+        if v is not None and v.prefix_index is not None:
+            v.prefix_index.clear()
         if v is not None and v.seqs:
             raise ValueError(f"unregistering view {name!r} with live "
                              f"sequences {sorted(v.seqs)} leaks pool blocks")

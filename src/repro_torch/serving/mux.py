@@ -446,11 +446,11 @@ class MuxScheduler:
 
     def cancel(self, req: Request) -> bool:
         """Client abandonment: release what the request holds NOW — its
-        queue position, or its engine slot and KV blocks
-        (``evict_seqs``) — and record the ``cancelled`` disposition.
-        Returns False when the request already finished, was shed, or
-        isn't held by this unit.  (The prefix-cache references the JAX
-        package also drops here arrive with the prefix-cache slice.)"""
+        queue position, or its engine slot, KV blocks and prefix-index
+        refs (``evict_seqs`` → ``free_seq`` drops shared-prefix
+        refcounts with the rest) — and record the ``cancelled``
+        disposition.  Returns False when the request already finished,
+        was shed, or isn't held by this unit."""
         if req.cancelled or req.shed or req.finish >= 0:
             return False
         removed = False
@@ -515,8 +515,10 @@ class MuxScheduler:
         its matching-signature residents.  The rebuilt engine starts
         from clean state (zero SSM carries, empty slots); restart from
         scratch is exact under greedy decoding.  Requests past
-        ``requeue_budget`` teardowns are shed instead.  Returns the
-        recovery record (also appended to ``fault_events``).
+        ``requeue_budget`` teardowns are shed instead.  The dead view's
+        prefix index is cleared with it (``unregister_model``) and the
+        fresh view's starts cold.  Returns the recovery record (also
+        appended to ``fault_events``).
 
         Memory: the dead engine's weights become the fresh engine's (a
         view, no copy), and the old engine drops its reference before
@@ -561,7 +563,11 @@ class MuxScheduler:
         Sequences with pages in the doomed tail are torn down at the
         engine level and requeued at the head of their queues in
         arrival order; then the tail is entirely free and the pool
-        shrinks by exactly the lost blocks."""
+        shrinks by exactly the lost blocks.  A shared doomed block
+        evicts every sharer (each sharer's block table names it, so
+        ``tail_victims`` lists them all), and ``pool.shrink`` drops
+        doomed prefix-index entries with it — no dangling cached base
+        survives a block loss."""
         n = min(max(n, 0), self.pool.n_head_blocks)
         requeued = shed = 0
         for name, sids in self.pool.tail_victims(n).items():
@@ -588,6 +594,14 @@ class MuxScheduler:
                "requeued": requeued, "shed": shed, "blocks": removed}
         self.fault_events.append(rec)
         return rec
+
+    def prefix_stats(self) -> Dict[str, dict]:
+        """Per-LLM prefix-cache counters for this unit's pool (empty
+        when the prefix cache is off) — the ServeReport's hit-rate
+        source.  Read from the pool's CURRENT views, so counters survive
+        engine replacement on crash recovery (the fresh view's index
+        starts cold, as it must: the old refs died with it)."""
+        return self.pool.prefix_stats()
 
     def shed_all(self, reason: str = "watchdog") -> int:
         """Force-drain the unit: shed every queued AND in-flight request

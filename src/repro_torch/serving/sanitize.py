@@ -5,8 +5,7 @@ Enable it (``serve.py --sanitize``, ``sanitize=True`` on the driver or
 conservation laws of the unified pool and the serving loop, raising
 ``SanitizeError`` with the first violated law *at the tick that broke
 it*.  It reads pool and scheduler state by attribute, as the JAX
-package's does, so the code is that module's; the prefix-index clauses
-arrive with the prefix-cache slice.
+package's does, so the code is that module's.
 
 Checked laws, bottom-up:
 
@@ -15,10 +14,11 @@ Checked laws, bottom-up:
   distinct live blocks; the free list is sorted, coalesced, in-bounds
   and disjoint from the live set; free + live covers the arena exactly.
 * pool/views — each view's ``used`` equals the recomputed charge of its
-  sequences (group blocks + SSM state units); ``pool.used_by`` mirrors
-  it; the allocator's ``used`` equals the sum over all sequences; every
-  sequence base points at a live group; the device arrays match the
-  arena size.
+  sequences (group blocks + SSM state units + shared-prefix full
+  charge); ``pool.used_by`` mirrors it; the allocator's ``used`` equals
+  the sum of all holders (sequence charges + prefix-index refs); every
+  sequence base and every prefix-index entry points at a live group;
+  the device arrays match the arena size.
 * scheduler — the zero-copy grant algebra: ``n_head_blocks == base +
   Σ granted + debt``, with ``base`` adjusted when a block-loss fault
   shrinks the arena (``note_blocks_lost``, wired in
@@ -106,7 +106,8 @@ def allocator_errors(alloc) -> List[str]:
 
 def _view_charge(view) -> int:
     """Recompute what the view's sequences should be charged: group
-    blocks per token-block plus the SSM state footprint."""
+    blocks per token-block (shared prefixes at FULL charge — the
+    DESIGN.md §13 copy-on-write policy) plus the SSM state footprint."""
     charge = sum(len(sc.bases) for sc in view.seqs.values())\
         * view.group_size
     if view.cfg.ssm:
@@ -151,10 +152,19 @@ def pool_errors(pool) -> List[str]:
         # the separate state arena, not the head-block allocator)
         holders += sum(len(sc.bases) for sc in view.seqs.values())\
             * view.group_size
+        if view.prefix_index is not None:
+            holders += view.prefix_index.held_blocks
+            for _h, (base, _blk) in view.prefix_index.entries():
+                if refs.get(base, 0) < 1:
+                    errs.append(f"view {name}: prefix-index entry at "
+                                f"base {base} holds a dead block "
+                                f"(refcount "
+                                f"{refs.get(base, 0)})")
     if pool.allocator.used != holders:
         errs.append(f"allocator.used={pool.allocator.used} != "
-                    f"{holders} summed over holders (sequence charges) — "
-                    f"a holder was dropped or double-counted")
+                    f"{holders} summed over holders (sequence charges "
+                    f"+ prefix-index refs) — a holder was dropped or "
+                    f"double-counted")
     return errs
 
 

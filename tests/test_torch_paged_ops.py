@@ -4,6 +4,11 @@
   JAX package's ids and arenas, including −1 table entries and
   positions past the table (JAX drops those writes; torch must mask
   them explicitly).
+* ``copy_block_groups`` (copy-on-write of a shared prefix block, and
+  the later cross-pool migration) gives exactly the JAX package's
+  pages within one pool — chained copies included, which must gather
+  before they scatter — from another pool, and in place on a pool's
+  arena after a ``shrink`` and ``grow``.
 * The plain versions of the three CUDA kernels equal the JAX oracles
   and the Pallas kernels (interpret mode) on cross-model tables:
   float32 within 2e-5, bfloat16 within 2e-2 (``tests/test_kernels.py``
@@ -104,6 +109,66 @@ def test_write_tokens_exact_including_dropped_slots():
     # row 0: 6 tokens land in block 0, 6 in the −1 block (dropped);
     # row 1: 8 in block 2, 4 past the table (dropped); row 2: none
     assert len(slots.src) == 6 + 8
+
+
+@pytest.mark.parametrize("case", ["same_pool", "chained", "other_pool"])
+def test_copy_block_groups_exact(case):
+    rng = np.random.default_rng(1)
+    n, bt, hd, kv, layers = 96, 16, 8, 2, 3          # groups of 6 blocks
+    pk, pv = (rng.standard_normal((n, bt, hd)).astype(np.float32)
+              for _ in range(2))
+    src, dst = {"same_pool": ([0, 30], [48, 84]),
+                # 0 → 6 and 6 → 12: the second copy reads group 6
+                # before the first one overwrites it
+                "chained": ([0, 6], [6, 12]),
+                "other_pool": ([0, 18, 6], [90, 30, 36])}[case]
+    extra = {}
+    if case == "other_pool":
+        sk, sv = (rng.standard_normal((24, bt, hd)).astype(np.float32)
+                  for _ in range(2))
+        extra = dict(src_k=sk, src_v=sv)
+    jk, jv = jops.copy_block_groups(
+        jnp.asarray(pk), jnp.asarray(pv), src, dst, kv, layers,
+        **{k: jnp.asarray(v) for k, v in extra.items()})
+    tk, tv = torch.from_numpy(pk.copy()), torch.from_numpy(pv.copy())
+    out = tops.copy_block_groups(
+        tk, tv, src, dst, kv, layers,
+        **{k: torch.from_numpy(v) for k, v in extra.items()})
+    assert out[0] is tk and out[1] is tv, "the copy is in place"
+    np.testing.assert_array_equal(np.asarray(jk), tk.numpy())
+    np.testing.assert_array_equal(np.asarray(jv), tv.numpy())
+    assert not np.array_equal(tk.numpy(), pk)
+
+
+def test_copy_block_groups_lands_in_the_arena():
+    """After a ``shrink`` and ``grow`` the pool's ``k``/``v`` are views
+    onto its arena buffers again; the copy writes through them, so the
+    pages survive the next re-slicing of the arena."""
+    from repro.serving.kvcache import UnifiedKVPool as JPool
+    from repro_torch.serving.kvcache import UnifiedKVPool as TPool
+    rng = np.random.default_rng(2)
+    n, bt, hd, kv, layers = 64, 16, 8, 2, 2          # groups of 4 blocks
+    pk, pv = (rng.standard_normal((n, bt, hd)).astype(np.float32)
+              for _ in range(2))
+    tpool = TPool(n, hd, dtype=torch.float32, device="cpu")
+    tpool.k.copy_(torch.from_numpy(pk))
+    tpool.v.copy_(torch.from_numpy(pv))
+    assert tpool.shrink(16) == 16 and tpool.grow(16) == 16
+    jpool = JPool(n, hd, dtype=jnp.float32)
+    jpool.k, jpool.v = jnp.asarray(pk), jnp.asarray(pv)
+    # the arena's grown rows read zero in both packages: an idle arena
+    # starts from fresh zeros
+    np.testing.assert_array_equal(tpool.k.numpy(), np.zeros_like(pk))
+    tpool.k.copy_(torch.from_numpy(pk))
+    tpool.v.copy_(torch.from_numpy(pv))
+    jk, jv = jops.copy_block_groups(jpool.k, jpool.v, [0, 8], [52, 60],
+                                    kv, layers)
+    tops.copy_block_groups(tpool.k, tpool.v, [0, 8], [52, 60], kv, layers)
+    assert tpool.k.data_ptr() == tpool._k_buf.data_ptr()
+    tpool._view_arena()
+    np.testing.assert_array_equal(tpool._k_buf[:n].numpy(), np.asarray(jk))
+    np.testing.assert_array_equal(tpool._v_buf[:n].numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(tpool.k.numpy(), np.asarray(jk))
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])

@@ -8,7 +8,10 @@ the JAX package's ``tests/test_muxlint.py``.
 * the scheduler's grant algebra catches a phantom grant debt;
 * a sanitized run's report equals an unsanitized one, and equals the
   JAX package's sanitized run (the sanitizer is a pure reader);
-* a request that vanished from every queue and slot raises.
+* a request that vanished from every queue and slot raises;
+* the prefix-index clauses: a sanitized run with the prefix cache on
+  stays clean and equals the JAX package's, and a dropped index ref or
+  an index entry on a freed base is caught.
 """
 import numpy as np
 import pytest
@@ -169,3 +172,55 @@ def test_sanitize_env_switch(monkeypatch):
     assert sanitize_enabled()
     sess = ServeSession([_unit()], _requests(), cost=COST, warm=False)
     assert sess.sanitizer is not None
+
+
+def _prefix_requests(cls=Request, n=4, out=3):
+    """Requests of ``a`` opening with one 2-block prompt prefix: the
+    first at 0, the rest at 0.5 s, after its prompt is indexed."""
+    rng = np.random.default_rng(8)
+    pref = list(rng.integers(1, 500, 2 * BLOCK_TOKENS))
+    return [cls(i, "a", pref + list(rng.integers(1, 500, 5 + i)), out,
+                arrival=(0.0 if i == 0 else 0.5)) for i in range(n)]
+
+
+def test_session_sanitizer_clean_over_cached_run():
+    """A sanitized run with the prefix cache on (adoptions, index refs,
+    copy-free sharing) checks clean every tick, and its report — the
+    ``prefix`` section included — equals the JAX package's."""
+    uj, ut = twin_units(SPECS, **UNIT, prefix_cache=True)
+    rj = JD.serve_requests([uj], _prefix_requests(JRequest),
+                           cost=JD.TickCostModel(), warm=False,
+                           sanitize=True)
+    rt = serve_requests([ut], _prefix_requests(), cost=COST, warm=False,
+                        sanitize=True)
+    assert rt.prefix["a"]["hits"] > 0
+    assert report_text(rt) == report_text(rj)
+    PoolSanitizer(ut.pool).check("drained")
+
+
+def _cached_pool():
+    pool = UnifiedKVPool(256, 64, dtype=torch.float32, device="cpu",
+                         prefix_cache=True)
+    view = pool.register_model(configs.get_reduced("qwen2-7b"), quota=256)
+    prompt = list(range(1, 2 * BLOCK_TOKENS + 4))
+    assert view.append_tokens(0, len(prompt))
+    assert view.prefix_index.insert(prompt, view.seqs[0].bases) == 2
+    view.free_seq(0)
+    PoolSanitizer(pool).check("index-only inventory")
+    return pool, view
+
+
+def test_pool_sanitizer_flags_a_dropped_index_ref():
+    pool, view = _cached_pool()
+    h, (base, _) = view.prefix_index.entries()[0]
+    del view.prefix_index._entries[h]           # entry gone, ref kept
+    with pytest.raises(SanitizeError, match="prefix-index refs"):
+        PoolSanitizer(pool).check("dropped entry")
+
+
+def test_pool_sanitizer_flags_an_index_entry_on_a_freed_base():
+    pool, view = _cached_pool()
+    _, (base, _) = view.prefix_index.entries()[-1]
+    pool.allocator.free(base, view.group_size)  # ref gone, entry kept
+    with pytest.raises(SanitizeError, match="prefix-index entry at base"):
+        PoolSanitizer(pool).check("dead base")
