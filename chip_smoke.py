@@ -109,6 +109,18 @@
    longest sequences, sanitized every tick, must evict index entries
    and drain to index-only blocks, and to none once the views
    unregister.
+10. reconfigures live at the published widths, cut in depth
+   (``serve_reconfig``): the ``reconfig_shift`` gate's three qwen2-7b on
+   its two-unit plan and popularity-flip trace (16-token chunks), at the
+   depth whose reckoned peak fits 60 GB, served static and then under
+   ``ReconfigController`` with the sanitizer on every tick: every request
+   finishes, the move of llm2 into a fused triple executes and beats the
+   static run at some SLO scale, every copied page equals its source
+   (``torch.equal``), the carried decodes' first logits after the move
+   hold to the static run's within bf16's tolerance while a planted copy
+   fault reads far above it, and kernels 1 and 2 launch after the move;
+   kernel 2 is also held to its plain version at the gate's 16-query
+   chunk beside the table's 64.
 
 Any failed phase raises and the script exits non-zero.  The last two
 lines of standard output are the card (name, power limit) and a JSON
@@ -564,6 +576,73 @@ def check_kernels(torch, np, shape: dict) -> dict:
                                  f"version at {shape['label']}: "
                                  f"{r['max_abs_err']} > {tol}")
         r["tflops"] = r["flops"] / r["ms"] / 1e9
+    torch.cuda.synchronize()
+    return res
+
+
+def check_gate_chunk(torch, np, shape: dict, rows: int = 12,
+                     C: int = 16) -> dict:
+    """Kernel 2 at the reconfiguration phase's chunk: ``rows`` rows (the
+    fused triple's 3 × 4 slots) of ``C`` queries each, at offsets on the
+    16-token grid below 256 (the gate's prompts), held against
+    ``paged_prefill_plain`` at the dtype's tolerance and timed as the
+    kernel table's chunk row is (inputs from generators of their own)."""
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.paging import resolve_physical_blocks
+    F = torch.nn.functional
+
+    dt = shape["dtype"]
+    dname = str(dt).replace("torch.", "")
+    es = torch.empty((), dtype=dt).element_size()
+    H, KV, hd, L, W = (shape[k] for k in ("H", "KV", "hd", "layers",
+                                          "max_blocks"))
+    G = H // KV
+    rng = np.random.default_rng(2)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+
+    def randn(*s):
+        return torch.randn(s, generator=gen, device="cuda").to(dt)
+    gsz, n_groups = L * KV, rows * W
+    pool_k, pool_v = randn(n_groups * gsz, 16, hd), randn(n_groups * gsz, 16, hd)
+    offs = (rng.integers(0, 256 // C, rows) * C).astype(np.int32)
+    table = _random_tables(np, rng, rows, W, n_groups, gsz,
+                           -(-(offs + C) // 16))
+    phys = resolve_physical_blocks(torch.from_numpy(table).cuda(), L - 1, KV)
+    qo = torch.from_numpy(offs).cuda()
+    q = randn(rows, C, H, hd)
+    out = fp.fused_paged_flash_prefill(q, pool_k, pool_v, phys, qo)
+    ref = fp.paged_prefill_plain(q, pool_k, pool_v, phys, qo)
+    err = (out.float() - ref.float()).abs().max().item()
+    if not err <= TOL[dname]:
+        raise AssertionError(f"kernel 2 disagrees with its plain version at "
+                             f"{rows} x {C} queries: {err} > {TOL[dname]}")
+    idx = phys.long()
+    kg = pool_k[idx].reshape(rows, KV, W * 16, hd).repeat_interleave(G, 1)
+    vg = pool_v[idx].reshape(rows, KV, W * 16, hd).repeat_interleave(G, 1)
+    qpos = qo[:, None] + torch.arange(C, device="cuda")[None, :]
+    mask = (torch.arange(W * 16, device="cuda")[None, None, :]
+            <= qpos[:, :, None])[:, None]
+    qt = q.transpose(1, 2)
+    keys = int((offs + C).sum())
+    pairs = int(sum(C * o + C * (C + 1) // 2 for o in offs))
+    flops = 4 * pairs * H * hd
+    b, why = bound_ms(2 * q.numel() * es + 2 * keys * KV * hd * es
+                      + phys.numel() * 4 + rows * 4, flops, dname)
+
+    def kern():
+        return fp.fused_paged_flash_prefill(q, pool_k, pool_v, phys, qo)
+    ms = time_ms(torch, kern)
+    res = dict(
+        shapes=f"{shape['label']}, {rows} rows x {C} queries",
+        q_offsets=offs.tolist(), max_abs_err=err, tolerance=TOL[dname],
+        flops=flops, ms=ms, tflops=flops / ms / 1e9,
+        plain_ms=time_ms(torch, lambda: fp.paged_prefill_plain(
+            q, pool_k, pool_v, phys, qo)),
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kg, vg, attn_mask=mask)),
+        bound_ms=b, bound_by=why, host_us=host_us(torch, kern),
+        call_us=call_us(torch, kern))
+    del kg, vg, pool_k, pool_v
     torch.cuda.synchronize()
     return res
 
@@ -1166,33 +1245,37 @@ def w8kv8_full_width(torch, np, rows: int = 8, prompt: int = 512,
 
 
 def build_cut_unit(torch, specs, pool_blocks: int, chunk_tokens: int,
-                   seed: int):
+                   seed: int, device="cuda", sm_fracs=None):
     """One colocated unit of ``(name, config, rate)`` specs whose configs
     may be cut in depth (``config.replace(configs.get(arch),
     n_layers=k)``), assembled from ``UnifiedKVPool``, ``Engine`` and
     ``MuxScheduler`` as ``serving/driver.build_unit_from_specs`` does:
-    quotas ∝ rate, random bf16 weights from a ``torch.Generator`` seeded
-    ``seed + i``, fused ADBS (engines of one geometry fuse)."""
+    quotas ∝ rate, random weights (bf16 on the card, float32 on the CPU)
+    from a ``torch.Generator`` seeded ``seed + i``, fused ADBS (engines
+    of one geometry fuse), ``sm_fracs`` enforced when given."""
     from repro_torch.models.transformer import init_params
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.kvcache import UnifiedKVPool
     from repro_torch.serving.mux import MuxScheduler
+    dev = torch.device(device)
+    dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
     head_dims = {cfg.hd for _, cfg, _ in specs if not cfg.attn_free}
     if len(head_dims) != 1:
         raise ValueError(f"one pool, one head_dim: {sorted(head_dims)}")
-    pool = UnifiedKVPool(pool_blocks, head_dims.pop(), dtype=torch.bfloat16,
-                         device="cuda")
+    pool = UnifiedKVPool(pool_blocks, head_dims.pop(), dtype=dtype,
+                         device=dev)
     rate_sum = sum(max(r, 0.0) for _, _, r in specs)
     min_quota = max(pool_blocks // (8 * len(specs)), 1)
     engines = {}
     for i, (name, cfg, rate) in enumerate(specs):
-        gen = torch.Generator(device="cuda").manual_seed(seed + i)
-        tree = init_params(cfg, gen, torch.bfloat16, "cuda")
+        gen = torch.Generator(device=dev).manual_seed(seed + i)
+        tree = init_params(cfg, gen, dtype, dev)
         quota = max(int(pool_blocks * max(rate, 0.0) / rate_sum), min_quota)
         engines[name] = Engine(cfg, tree, pool.register_model(cfg, quota),
                                max_slots=4, chunk_tokens=chunk_tokens or None)
         del tree
-    return MuxScheduler(engines, pool, policy="adbs", fused=True)
+    return MuxScheduler(engines, pool, policy="adbs", fused=True,
+                        sm_frac=sm_fracs)
 
 
 def serve_full_width(torch, *args, **kw) -> dict:
@@ -2298,6 +2381,493 @@ def print_prefix(res: dict, card: str) -> None:
           f"evicted; the phase took {res['phase_s']:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# live reconfiguration at the published widths, cut in depth
+# ---------------------------------------------------------------------------
+RECONFIG_PRE = {"llm0": 25.0, "llm1": 2.0, "llm2": 0.5}
+RECONFIG_POST = {"llm0": 0.5, "llm1": 2.0, "llm2": 25.0}
+RECONFIG_HORIZON = 4.0
+RECONFIG_TRACE = dict(seed=0, mean_prompt=24, mean_output=10, max_len=256)
+RECONFIG_SCALES = (1.5, 2.0, 3.0, 4.0, 6.0, 8.0, 12.0)
+RECONFIG_BUDGET_GB = 60.0       # the reckoned peak the depth cut must fit
+RECONFIG_LOGIT_TOL = TOL["bfloat16"]
+# a planted copy fault must read at least this many times the bound
+RECONFIG_FAULT_FACTOR = 5
+
+
+def weight_bytes(cfg, es: int) -> dict:
+    """Bytes of a dense config's weight tree, from its shapes (the leaves
+    of ``init_params``, ``es`` bytes an element): the embedding, head and
+    final norm; one layer; a layer's largest leaf; the embedding leaf."""
+    from repro_torch.config import pad_vocab
+    d, f, v = cfg.d_model, cfg.d_ff, pad_vocab(cfg.vocab_size)
+    q, kv = cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
+    layer = 2 * d * q + 2 * d * kv + 3 * d * f + 2 * d
+    if cfg.qkv_bias:
+        layer += q + 2 * kv
+    if cfg.qk_norm:
+        layer += 2 * cfg.hd
+    return dict(tok=es * (v * d * (1 if cfg.tie_embeddings else 2) + d),
+                layer=es * layer, layer_leaf=es * max(d * q, d * f),
+                embed=es * v * d)
+
+
+def reconfig_depth(cfg, es: int = 2,
+                   budget_gb: float = RECONFIG_BUDGET_GB) -> dict:
+    """The reconfiguration phase's depth cut, reckoned before the run.
+    With W(k) one LLM's weight bytes at k layers: the static run holds
+    5·W (the fused pair's stack 2W and its zero-copy grant 2W, llm2 W).
+    After the move unit 0 stacks the three (3W) and grows a 3W grant
+    while its sequences live, one arena buffer at a time beside the
+    pair's 2W buffer that ``shrink`` kept: about 7·W, plus one stacked
+    leaf (3 × the largest leaf).  Returns the largest k whose reckoned
+    peak fits ``budget_gb``, with its reckoning."""
+    b = weight_bytes(cfg, es)
+
+    def reckon(k):
+        w = (b["tok"] + k * b["layer"]) / 1e9
+        leaf = 3 * max(k * b["layer_leaf"], b["embed"]) / 1e9
+        return dict(layers=k, weights_gb=w, static_gb=5 * w,
+                    stacked_leaf_gb=leaf, move_gb=7 * w + leaf)
+    fits = [k for k in range(1, cfg.n_layers + 1)
+            if reckon(k)["move_gb"] <= budget_gb]
+    if not fits:
+        raise AssertionError(f"no depth of {cfg.name} fits {budget_gb} GB")
+    return dict(reckon(max(fits)), budget_gb=budget_gb,
+                full=reckon(cfg.n_layers))
+
+
+def _reconfig_plan():
+    """The gate's startup plan (``benchmarks/reconfig_shift.py``,
+    full-width configs as the re-planner prices them): llm0 and llm1 on
+    a 4-device mesh, llm2 alone on 1 device."""
+    from repro_torch import configs
+    from repro_torch.config import replace
+    from repro_torch.core.estimator import LLMSpec
+    from repro_torch.core.placement import Mesh, Placement
+    cfg = configs.get("qwen2-7b")
+
+    def spec(name):
+        return LLMSpec(replace(cfg, name=name), RECONFIG_PRE[name],
+                       mean_prompt=RECONFIG_TRACE["mean_prompt"],
+                       mean_output=RECONFIG_TRACE["mean_output"], tp=1,
+                       sm_frac=1.0, arch="qwen2-7b")
+    return Placement([Mesh(0, 4, [spec("llm0"), spec("llm1")]),
+                      Mesh(1, 1, [spec("llm2")])],
+                     total_tpt=sum(RECONFIG_PRE.values()))
+
+
+def _reconfig_units(torch, dev, cfg):
+    """The units ``units_from_placement`` builds for the gate's plan, at
+    ``cfg``'s depth (``build_cut_unit``): 16,000 pool blocks split by
+    mesh size (12,800 and 4,096), mesh ``m``'s weights from seeds ``m +
+    i``, shares 1.0 enforced, 4 slots, 16-token chunks, fused ADBS."""
+    from repro_torch.config import replace
+    units = []
+    for mesh_id, n_dev, names in ((0, 4, ("llm0", "llm1")),
+                                  (1, 1, ("llm2",))):
+        u = build_cut_unit(
+            torch, [(n, replace(cfg, name=n), RECONFIG_PRE[n]) for n in names],
+            max(int(16000 * n_dev / 5), 4096), 16, mesh_id, device=dev,
+            sm_fracs={n: 1.0 for n in names})
+        u.mesh_id, u.n_devices = mesh_id, n_dev
+        units.append(u)
+    return units
+
+
+class _DecodeRows:
+    """The served decode logits (float32) of the requests ``want(r)``
+    picks, by (request id, output index): ``greedy_tokens`` (engine and
+    mux) keeps each step's logits, and every engine's
+    ``apply_decode_result`` files its rows — row ``i`` of a serial step,
+    row ``[model_index, i]`` of a fused sweep."""
+
+    def __init__(self, units, want):
+        from repro_torch.serving import engine, mux
+        self.mods, self.greedy = (engine, mux), engine.greedy_tokens
+        self.engines = [e for u in units for e in u.engines.values()]
+        self.want, self.rows, self.last = want, {}, None
+
+    def __enter__(self):
+        def greedy(logits):
+            self.last = logits
+            return self.greedy(logits)
+        for m in self.mods:
+            m.greedy_tokens = greedy
+        for eng in self.engines:
+            def applied(job, nxt, apply=eng.apply_decode_result, eng=eng):
+                for i, r in enumerate(job.reqs):
+                    if self.want(r):
+                        row = (self.last[eng.model_index, i]
+                               if self.last.dim() == 3 else self.last[i])
+                        self.rows[(r.req_id, len(r.output))] = \
+                            row.float().clone()
+                return apply(job, nxt)
+            eng.apply_decode_result = applied
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.mods:
+            m.greedy_tokens = self.greedy
+        for eng in self.engines:
+            del eng.apply_decode_result
+        # the rows outlive the run; its engines (and weights) must not
+        self.engines, self.last = [], None
+
+
+class _CheckedCopy:
+    """The migration's page copy (``kvcache.copy_block_groups`` with a
+    source pool) timed to the card's end of it, and every destination
+    group's K and V held to its source group's with ``torch.equal`` right
+    after the copy, before ``migrate_view`` frees the source."""
+
+    def __init__(self, torch, dev):
+        from repro_torch.serving import kvcache
+        self.torch, self.cuda, self.mod = torch, dev.type == "cuda", kvcache
+        self.copy, self.records = kvcache.copy_block_groups, []
+
+    def __enter__(self):
+        self.mod.copy_block_groups = self
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.copy_block_groups = self.copy
+
+    def __call__(self, pool_k, pool_v, src_bases, dst_bases, n_kv, n_layers,
+                 src_k=None, src_v=None):
+        if src_k is None:
+            return self.copy(pool_k, pool_v, src_bases, dst_bases, n_kv,
+                             n_layers)
+        torch = self.torch
+        if self.cuda:
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = self.copy(pool_k, pool_v, src_bases, dst_bases, n_kv, n_layers,
+                        src_k=src_k, src_v=src_v)
+        if self.cuda:
+            torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t)
+        gs = n_kv * n_layers
+        equal = sum(torch.equal(pool_k[d:d + gs], src_k[s:s + gs])
+                    and torch.equal(pool_v[d:d + gs], src_v[s:s + gs])
+                    for s, d in zip(src_bases, dst_bases))
+        self.records.append(dict(
+            groups=len(src_bases), head_blocks=len(src_bases) * gs,
+            groups_equal=int(equal), copy_ms=ms,
+            gb=(torch.cuda.memory_allocated() / 1e9 if self.cuda else 0.0)))
+        return out
+
+
+@contextlib.contextmanager
+def _uncounted():
+    """Kernel launches inside the block leave the launch counts as they
+    were (a side computation, not the served path)."""
+    from repro_torch.kernels import ops
+    saved = {k: k.launches for k in ops.path_kernels()}
+    try:
+        yield
+    finally:
+        for k, n in saved.items():
+            k.launches = n
+
+
+def _side_decode(torch, np, eng, plant: bool) -> dict:
+    """The carried engine's next decode logits computed off a side copy
+    of its rows' block groups (the served pool is not written): with
+    ``plant``, the first group of its first row rolled by one head-block
+    in the side copy (each (layer, head) page takes its neighbour's, as
+    a copy misaligned by one block would leave it).  Returns the logits
+    by (request id, output index)."""
+    from types import SimpleNamespace
+
+    from repro_torch.serving.engine import _next_pow2, _pad_rows
+    job = eng.export_decode_job()
+    pool, gs = eng.pool, eng.view.group_size
+    lens = eng.view.seq_lens(job.seq_ids)
+    table = eng.view.block_table(job.seq_ids, eng.max_blocks)
+    bases = sorted({int(b) for b in table.ravel() if b >= 0})
+    remap = {b: j * gs for j, b in enumerate(bases)}
+    idx = torch.cat([torch.arange(b, b + gs) for b in bases]).to(pool.device)
+    side = SimpleNamespace(k=pool.k[idx], v=pool.v[idx], device=pool.device,
+                           block_tokens=pool.block_tokens)
+    if plant:
+        g = remap[int(table[0, 0])]
+        for t in (side.k, side.v):
+            t[g:g + gs] = torch.roll(t[g:g + gs], 1, dims=0)
+    table = np.vectorize(lambda b: remap.get(int(b), -1))(table).astype(
+        np.int32)
+    last_tok, B = job.last_tok, len(job)
+    if _next_pow2(B) != B:
+        last_tok, lens, table = _pad_rows(
+            _next_pow2(B), (job.last_tok, 0), (lens, 1), (table, -1))
+    with _uncounted():
+        logits = eng._decode_fn(eng.params, eng.model_index, last_tok, lens,
+                                side, table)
+    return {(r.req_id, len(r.output)): logits[i].float()
+            for i, r in enumerate(job.reqs)}
+
+
+def _rel_errors(torch, rows: dict, ref: dict) -> dict:
+    """``rows`` against ``ref`` (same keys): the largest error over the
+    largest reference logit, per row and overall, and the greedy flips,
+    all and beyond the reference test's 1 % near-tie."""
+    keys = sorted(rows)
+    a = torch.stack([rows[k] for k in keys])
+    b = torch.stack([ref[k].to(a.device) for k in keys])
+    per = [float((a[i] - b[i]).abs().max() / b[i].abs().max())
+           for i in range(len(keys))]
+    flips, far = _greedy_flips(a, b)
+    return {"rows": len(keys), "max_rel_err": max(per), "per_row": per,
+            "greedy_flips": flips, "beyond_near_tie_flips": far}
+
+
+def serve_reconfig(torch, device="cuda", reduced=False) -> dict:
+    """Live reconfiguration at the published widths, cut in depth: the
+    ``reconfig_shift`` gate's setup — three qwen2-7b (``llm0``–``llm2``)
+    on its two-unit plan (mesh 0: llm0 + llm1, 4 devices in the cost
+    model; mesh 1: llm2, 1 device; both units on the one card), its
+    ``piecewise_poisson_trace`` (25 / 2 / 0.5 req/s, llm0 and llm2
+    swapping at 2 s of 4; 24-token prompts, 10-token outputs, at most
+    256), 16-token chunks, 4 slots, fused ADBS, shares enforced,
+    ``TickCostModel`` — at the depth ``reconfig_depth`` reckons to fit
+    ``RECONFIG_BUDGET_GB`` (random bf16 weights).  The trace is served
+    static, then, on fresh units, under ``ReconfigController(interval=
+    0.25, drift_threshold=2.0, sustain=2)`` with the sanitizer on every
+    tick.  Checks: both runs finish every request; the reconfig run
+    executes an event with a move and beats the static run at some SLO
+    scale; every copied group's K and V equal its source's
+    (``_CheckedCopy``); each decode the move carried gives, at its first
+    step after the move (inside the fused triple), logits within
+    ``RECONFIG_LOGIT_TOL`` of the largest logit the static run served
+    for the same request and step, with equal greedy tokens but on
+    near-ties, while the same step off a side copy with one copied group
+    rolled by one head-block reads at least ``RECONFIG_FAULT_FACTOR`` ×
+    that bound; kernels 1 and 2 launch after the move.  ``reduced``
+    rehearses the phase on the CPU (reduced width, no depth cut)."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.config import replace
+    from repro_torch.core.workload import piecewise_poisson_trace
+    from repro_torch.kernels import ops
+    from repro_torch.serving import driver
+    from repro_torch.serving.reconfig import (MigrationCostModel,
+                                              ReconfigController)
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    _free(torch, dev)
+    depth = reconfig_depth(configs.get("qwen2-7b"))
+    cfg = (configs.get_reduced("qwen2-7b") if reduced else
+           replace(configs.get("qwen2-7b"), n_layers=depth["layers"]))
+    wl = piecewise_poisson_trace(
+        [(0.0, RECONFIG_PRE), (RECONFIG_HORIZON / 2, RECONFIG_POST)],
+        RECONFIG_HORIZON, **RECONFIG_TRACE)
+    cost = driver.TickCostModel()
+
+    def serve(units, reqs, ctrl=None):
+        sess = driver.ServeSession(units, reqs, slo_scales=RECONFIG_SCALES,
+                                   cost=cost, planned_rates=dict(wl.rates),
+                                   reconfig=ctrl, sanitize=ctrl is not None)
+        checks = []
+        if ctrl is not None:
+            check = sess.sanitizer.check
+
+            def counted(where=""):
+                checks.append(where)
+                check(where)
+            sess.sanitizer.check = counted
+        t0 = time.perf_counter()
+        while sess.step()[0] != "done":
+            pass
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rep = sess.report()
+        agg = rep.aggregate
+        if agg.finished != agg.submitted or agg.submitted != len(reqs):
+            raise AssertionError(f"served {agg.finished}/{agg.submitted} of "
+                                 f"{len(reqs)}")
+        return rep, wall, len(checks)
+
+    def reqs_for(units):
+        engines = {n: e for u in units for n, e in u.engines.items()}
+        return driver.requests_from_workload(wl, engines, seed=1)
+
+    # (a) static: the startup placement throughout
+    ops.reset_launch_counts()
+    mem = _Memory(torch, dev)
+    units = _reconfig_units(torch, dev, cfg)
+    reqs = reqs_for(units)
+    with _DecodeRows(units, lambda r: r.model == "llm2") as static_rows:
+        rep_s, wall_s, _ = serve(units, reqs)
+    runs = {"static": dict(
+        _run_numbers(rep_s, reqs, wall_s, ops.launch_counts()),
+        peak_gb=mem.fold() - mem.held, reckoned_peak_gb=depth["static_gb"])}
+    static_out = {r.req_id: list(r.output) for r in reqs}
+    del units, reqs
+    _free(torch, dev)
+
+    # (b) live reconfiguration, fresh units of the same seeds
+    ops.reset_launch_counts()
+    mem = _Memory(torch, dev)
+    units = _reconfig_units(torch, dev, cfg)
+    reqs = reqs_for(units)
+    ctrl = ReconfigController(_reconfig_plan(), units, interval=0.25,
+                              drift_threshold=2.0, sustain=2,
+                              migration_cost=MigrationCostModel())
+    carried, moves, probes = {}, [], {}
+    execute = ctrl.executor.execute
+
+    def measured(schedule, new_pl, now=0.0):
+        """One executed schedule, timed to the card's end of it, with its
+        own peak; the decodes a move carried, and the side-copy probes of
+        their next step."""
+        held = mem.now()
+        mem.reset()
+        launches_at = ops.launch_counts()
+        n_copies = len(copy.records)
+        t = time.perf_counter()
+        stats = execute(schedule, new_pl, now)
+        if cuda:
+            torch.cuda.synchronize()
+        rec = dict(t=now, s=time.perf_counter() - t, held_gb=held,
+                   peak_gb=(torch.cuda.max_memory_allocated() / 1e9
+                            if cuda else 0.0), after_gb=mem.now(),
+                   executed=[list(m) for m in stats["executed"]],
+                   copies=copy.records[n_copies:], launches_at=launches_at)
+        for name, _, dst in stats["executed"]:
+            eng = ctrl.units[dst].engines[name]
+            live = [eng.slots[s] for s in eng.active_slots()]
+            carried.update({r.req_id: len(r.output) for r in live})
+            rec["carried_prefix_equal"] = sum(
+                static_out[r.req_id][:len(r.output)] == r.output
+                for r in live)
+            probes["side copy"] = _side_decode(torch, np, eng, plant=False)
+            probes["planted fault"] = _side_decode(torch, np, eng,
+                                                   plant=True)
+        moves.append(rec)
+        return stats
+    ctrl.executor.execute = measured
+    with _CheckedCopy(torch, dev) as copy, _DecodeRows(
+            units, lambda r: carried.get(r.req_id) == len(r.output)) as rows:
+        rep_r, wall_r, checks = serve(units, reqs, ctrl)
+    launches = ops.launch_counts()
+    runs["reconfig"] = dict(
+        _run_numbers(rep_r, reqs, wall_r, launches),
+        peak_gb=mem.fold() - mem.held, reckoned_peak_gb=depth["move_gb"],
+        sanitizer_checks=checks)
+
+    problems = []
+    rc = rep_r.reconfig
+    if rc.events < 1 or rc.moves < 1:
+        problems.append(f"{rc.events} events, {rc.moves} moves")
+    s_att, r_att = rep_s.aggregate.attainment, rep_r.aggregate.attainment
+    better = [s for s in RECONFIG_SCALES if r_att[s] > s_att[s]]
+    if not better:
+        problems.append(f"reconfig not above static at any scale: "
+                        f"{r_att} vs {s_att}")
+    if checks != rep_r.ticks + 1:
+        problems.append(f"{checks} sanitizer checks for {rep_r.ticks} ticks")
+    copies = [c for m in moves for c in m["copies"]]
+    if not copies or any(c["groups_equal"] != c["groups"] for c in copies):
+        problems.append(f"migration copies {copies}")
+    at = next((m["launches_at"] for m in moves if m["executed"]), None)
+    for symbol in ("repro_paged_decode", "repro_paged_prefill"):
+        if cuda and (at is None or launches[symbol] <= at[symbol]):
+            problems.append(f"{symbol} did not launch after the move")
+    if not carried or set(carried.items()) != set(rows.rows):
+        problems.append(f"carried decodes {carried}, first steps after the "
+                        f"move {sorted(rows.rows)}")
+    if problems:
+        raise AssertionError("reconfig phase: " + "; ".join(problems))
+    logits = _rel_errors(torch, rows.rows, static_rows.rows)
+    logits["tolerance"] = RECONFIG_LOGIT_TOL
+    side = _rel_errors(torch, probes["side copy"], static_rows.rows)
+    fault = _rel_errors(torch, probes["planted fault"], static_rows.rows)
+    fault["floor"] = RECONFIG_FAULT_FACTOR * RECONFIG_LOGIT_TOL
+    if logits["max_rel_err"] >= RECONFIG_LOGIT_TOL:
+        problems.append(f"carried decodes' logits: max rel err "
+                        f"{logits['max_rel_err']:.4f} >= {RECONFIG_LOGIT_TOL}")
+    if logits["beyond_near_tie_flips"]:
+        problems.append(f"{logits['beyond_near_tie_flips']} greedy flips "
+                        f"beyond a near-tie")
+    if fault["max_rel_err"] < fault["floor"]:
+        problems.append(f"a planted copy fault read {fault['max_rel_err']:.4f}"
+                        f", under {fault['floor']}")
+    if problems:
+        raise AssertionError("reconfig phase: " + "; ".join(problems))
+    per_move = {round(m["t"], 6): m for m in moves}
+    events = []
+    for ev in rc.log:
+        m = per_move.get(round(ev["t"], 6), {})
+        cp = m.get("copies", [])
+        events.append(dict(
+            t=ev["t"], moves=ev["moves"],
+            migrated_blocks=ev["migrated_blocks"], requeued=ev["requeued"],
+            quota_moved=ev["quota_moved"], share_moved=ev["share_moved"],
+            shrunk_blocks=ev["shrunk_blocks"],
+            copy_ms=sum(c["copy_ms"] for c in cp),
+            groups_equal=[c["groups_equal"] for c in cp],
+            cost_model_ms=1e3 * MigrationCostModel().dt(
+                ev["migrated_blocks"]),
+            execute_s=m.get("s"), held_gb=m.get("held_gb"),
+            peak_gb=m.get("peak_gb"), after_gb=m.get("after_gb"),
+            carried_prefix_equal=m.get("carried_prefix_equal")))
+    res = dict(
+        models=["qwen2-7b"] * 3, layers=cfg.n_layers, depth=depth,
+        trace={"pre": RECONFIG_PRE, "post": RECONFIG_POST,
+               "horizon": RECONFIG_HORIZON, **RECONFIG_TRACE,
+               "requests": len(wl.requests)},
+        runs=runs, events=events, better_scales=better,
+        carried={str(k): v for k, v in sorted(carried.items())},
+        logit_check=logits, side_copy=side, planted_fault=fault,
+        launches=launches, launches_at_move=at,
+        summary=rep_r.summary(), phase_s=time.perf_counter() - t_phase)
+    del units, reqs, ctrl, rows, static_rows, probes
+    _free(torch, dev)
+    return res
+
+
+def print_reconfig(res: dict, card: str) -> None:
+    """Print the reconfiguration phase's results."""
+    d = res["depth"]
+    print("reconfig phase: " + json.dumps(
+        {k: v for k, v in res.items() if k not in ("runs", "summary")}))
+    for name, run in res["runs"].items():
+        print(f"  reconfig phase, {name}: " + json.dumps(run))
+    for line in res["summary"].splitlines():
+        print(f"  {line}")
+    print(f"reconfig phase ({card}): qwen2-7b x3 at {res['layers']} of "
+          f"{d['full']['layers']} layers (W {d['weights_gb']:.2f} GB; "
+          f"reckoned peak {d['move_gb']:.2f} GB <= {d['budget_gb']} GB, "
+          f"full depth {d['full']['move_gb']:.1f})")
+    for name, run in res["runs"].items():
+        att = ", ".join(f"{k}x {v:.3f}" for k, v in run["attainment"].items())
+        print(f"  {name}: {run['ticks']} ticks, {run['tick_ms']:.1f} ms a "
+              f"tick, {run['wall_s']:.2f} s wall, {run['wall_tok_s']:.1f} "
+              f"tok/s wall; attainment {att}; peak {run['peak_gb']:.2f} GB "
+              f"(reckoned {run['reckoned_peak_gb']:.2f})")
+    for ev in res["events"]:
+        print(f"  event @{ev['t']:.3f}s: moves {ev['moves']}, "
+              f"{ev['migrated_blocks']} head-blocks migrated, "
+              f"{ev['requeued']} requeued, quota moved {ev['quota_moved']}, "
+              f"share moved {ev['share_moved']:.2f}; copy "
+              f"{ev['copy_ms']:.3f} ms wall (groups equal "
+              f"{ev['groups_equal']}) beside MigrationCostModel.dt "
+              f"{ev['cost_model_ms']:.3f} ms; peak "
+              f"{ev['peak_gb'] or 0.0:.2f} GB with both pools live")
+    lc, sc, pf = res["logit_check"], res["side_copy"], res["planted_fault"]
+    print(f"  carried decodes ({lc['rows']}): first step after the move vs "
+          f"static, max rel err {lc['max_rel_err']:.4f} < "
+          f"{lc['tolerance']} ({lc['greedy_flips']} greedy flips, "
+          f"{lc['beyond_near_tie_flips']} beyond a near-tie); side copy "
+          f"{sc['max_rel_err']:.4f}; planted copy fault "
+          f"{pf['max_rel_err']:.4f} >= {pf['floor']}; the phase took "
+          f"{res['phase_s']:.1f} s")
+
+
 PLACED = ["qwen2-7b#0", "qwen2-7b#1", "mamba2-2.7b"]
 
 
@@ -2540,6 +3110,14 @@ def main() -> int:
     for label, res in checks.items():
         for name, r in res.items():
             print(f"check [{label}] {name}: " + json.dumps(r))
+    gate_chunk = check_gate_chunk(torch, np, full)
+    print(f"check [{gate_chunk['shapes']}] chunk: " + json.dumps(gate_chunk))
+    r = checks[full["label"]]["chunk"]
+    print(f"kernel 2 at the reconfiguration gate's chunk: "
+          f"{gate_chunk['ms']:.4f} ms (bound {gate_chunk['bound_ms']:.5f}, "
+          f"{gate_chunk['bound_by']}) beside {r['ms']:.4f} ms (bound "
+          f"{r['bound_ms']:.5f}) at 8 rows x 64 queries; max abs err "
+          f"{gate_chunk['max_abs_err']:.4g} <= {gate_chunk['tolerance']}")
     # what the compiled decode kernels get on this card: CTAs an SM,
     # shared memory, registers (the bf16 body at each head dim, with one
     # and two 8-head halves of its m16 tile)
@@ -2675,8 +3253,10 @@ def main() -> int:
     print_degradation(stream, chaos)
     prefix = serve_prefix(torch)
     print_prefix(prefix, card)
+    recfg = serve_reconfig(torch)
+    print_reconfig(recfg, card)
 
-    runs = list(served.values()) + [placed, w8, stream, chaos, prefix]
+    runs = list(served.values()) + [placed, w8, stream, chaos, prefix, recfg]
     launches = {k.symbol: sum(r["launches"][k.symbol] for r in runs)
                 for k in ops.path_kernels()}
     attn_names = {"repro_paged_decode": ("fused_paged_decode_attention",
@@ -2734,6 +3314,7 @@ def main() -> int:
             "shapes": full["label"],
             **({"long_context": checks[full["label"]]["decode_long"]}
                if key == "decode" else {}),
+            **({"gate_chunk": gate_chunk} if key == "chunk" else {}),
             "other_shapes": [{"shapes": o["label"], **checks[o["label"]][key]}
                              for o in [zamba] + wide],
             "reduced": {"shapes": small["label"], **s}})

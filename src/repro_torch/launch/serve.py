@@ -29,6 +29,12 @@ async streaming front end and cross-LLM routing), ``--metrics-json`` /
 shares the KV blocks of common prompt prefixes across requests
 (copy-on-write; needs ``--chunk-tokens``), and ``--prefix-reuse``
 switches the workload to ``core.workload.shared_prefix_trace``.
+``--reconfig`` turns on live reconfiguration (``serving/reconfig.py``):
+the drift monitor watches arrival rates over ``--reconfig-interval``
+windows, and once they stray from the plan by ``--drift-threshold``× for
+two windows the placement is re-solved over the fixed meshes and engines
+migrate with their KV; a bare ``--archs`` unit is wrapped in a one-mesh
+plan (quota rebalances only).
 
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --archs qwen2-7b,mamba2-2.7b --policy adbs --fused \\
@@ -43,7 +49,9 @@ import torch
 
 from repro_torch import configs, resolve_device
 from repro_torch.config import replace
-from repro_torch.core.placement import load_placement, place, save_placement
+from repro_torch.core.estimator import LLMSpec
+from repro_torch.core.placement import (Mesh, Placement, load_placement, place,
+                                        save_placement)
 from repro_torch.core.workload import (poisson_trace, power_law_rates,
                                        shared_prefix_trace)
 from repro_torch.kernels import ops
@@ -55,6 +63,7 @@ from repro_torch.serving.faults import FaultPlan
 from repro_torch.serving.frontend import ServingFrontend, serve_and_collect
 from repro_torch.serving.metrics import MetricsServer, ServingMetrics
 from repro_torch.serving.mux import SHED_POLICIES
+from repro_torch.serving.reconfig import ReconfigController
 from repro_torch.serving.router import ROUTER_STRATEGIES
 
 
@@ -170,6 +179,16 @@ def main(argv=None) -> int:
                          "the pool, grant-algebra and request-disposition "
                          "laws after every tick and fail on the first "
                          "violation (also: MUXSERVE_SANITIZE=1)")
+    ap.add_argument("--reconfig", action="store_true",
+                    help="live reconfiguration: watch arrival-rate "
+                         "drift, re-solve the placement online and "
+                         "migrate engines/KV between units "
+                         "(serving/reconfig.py)")
+    ap.add_argument("--reconfig-interval", type=float, default=1.0,
+                    help="drift-monitor window length in clock seconds")
+    ap.add_argument("--drift-threshold", type=float, default=2.0,
+                    help="estimated/planned rate ratio that arms the "
+                         "re-plan trigger (sustained for 2 windows)")
     args = ap.parse_args(argv)
 
     for flag, v in [("--rate", args.rate), ("--horizon", args.horizon),
@@ -178,7 +197,9 @@ def main(argv=None) -> int:
                     ("--max-slots", args.max_slots),
                     ("--mean-prompt", args.mean_prompt),
                     ("--mean-output", args.mean_output),
-                    ("--devices", args.devices)]:
+                    ("--devices", args.devices),
+                    ("--reconfig-interval", args.reconfig_interval),
+                    ("--drift-threshold", args.drift_threshold)]:
         if v <= 0:
             ap.error(f"{flag} must be > 0 (got {v})")
     for flag, v in [("--chunk-tokens", args.chunk_tokens),
@@ -215,6 +236,13 @@ def main(argv=None) -> int:
     if args.placement and args.save_placement:
         ap.error("--placement and --save-placement are mutually "
                  "exclusive (load a plan OR optimize and save one)")
+    if args.reconfig and args.policy == "fcfs":
+        ap.error("--reconfig needs a multiplexing policy (adbs or "
+                 "round_robin); fcfs has no quotas to rebalance")
+    if args.reconfig and not args.deterministic:
+        print("[serve] note: --reconfig under the wall clock uses "
+              "analytic SLO references (TickCostModel at the owning "
+              "mesh's size) instead of startup solo probes")
     if args.router is not None and not args.frontend:
         ap.error("--router needs --frontend (routing happens at the "
                  "front end's submit path)")
@@ -321,7 +349,8 @@ def main(argv=None) -> int:
         if not args.deterministic:
             print("[serve] note: fault times fire against the wall "
                   "clock; use --deterministic for reproducible chaos")
-        if any(e.kind == "migration_abort" for e in fault_plan.events):
+        if any(e.kind == "migration_abort" for e in fault_plan.events)\
+                and not args.reconfig:
             print("[serve] note: migration_abort faults are inert "
                   "without --reconfig")
         print(f"[serve] fault plan armed: {len(fault_plan.events)} "
@@ -358,6 +387,29 @@ def main(argv=None) -> int:
           f"clock={'logical' if args.deterministic else 'wall'}")
     cost = TickCostModel() if args.deterministic else None
 
+    # ---- live reconfiguration control plane --------------------------
+    ctrl = None
+    if args.reconfig:
+        if pl is None:
+            # single colocated unit: wrap it in a one-mesh placement so
+            # the re-planner has a plan to diff against (moves are
+            # impossible with one mesh, quota rebalances still apply)
+            specs = [LLMSpec(replace(configs.get(a), name=n), rates[n],
+                             mean_prompt=args.mean_prompt,
+                             mean_output=args.mean_output,
+                             tp=1, sm_frac=1.0, arch=a)
+                     for n, a in zip(names, archs)]
+            pl_ctrl = Placement([Mesh(0, args.devices, specs)],
+                                sum(rates.values()))
+        else:
+            pl_ctrl = pl
+        ctrl = ReconfigController(pl_ctrl, units,
+                                  interval=args.reconfig_interval,
+                                  drift_threshold=args.drift_threshold)
+        print(f"[serve] reconfig on: window={args.reconfig_interval}s, "
+              f"drift threshold {args.drift_threshold}×, "
+              f"{len(ctrl.units)} unit(s)")
+
     # ---- observability layer -----------------------------------------
     metrics = None
     server = None
@@ -379,7 +431,7 @@ def main(argv=None) -> int:
                              metrics=metrics,
                              planned_rates=dict(wl.rates),
                              slo_scales=slo_scales, cost=cost,
-                             faults=fault_plan,
+                             reconfig=ctrl, faults=fault_plan,
                              watchdog_ticks=args.watchdog_ticks,
                              shed_scale=args.shed_scale,
                              sanitize=args.sanitize)
@@ -394,7 +446,7 @@ def main(argv=None) -> int:
         report = serve_workload(units, wl, seed=args.seed,
                                 max_new_cap=args.max_new,
                                 slo_scales=slo_scales, cost=cost,
-                                faults=fault_plan,
+                                reconfig=ctrl, faults=fault_plan,
                                 watchdog_ticks=args.watchdog_ticks,
                                 shed_scale=args.shed_scale,
                                 metrics=metrics, sanitize=args.sanitize)
@@ -413,6 +465,17 @@ def main(argv=None) -> int:
                   f"{ev.get('requeued', 0)} requeued, "
                   f"{ev.get('shed', 0)} shed, "
                   f"{ev.get('blocks', 0)} blocks{extra}")
+    if report.reconfig is not None:
+        for ev in report.reconfig.log:
+            moves = ", ".join(f"{n}: mesh{src}→mesh{dst}"
+                              for n, src, dst in ev["moves"])\
+                or "quotas/shares only"
+            print(f"[serve] reconfig @{ev['t']:.2f}s "
+                  f"(drift {ev['drift']:.1f}×): {moves}; "
+                  f"{ev['migrated_blocks']} blocks migrated, "
+                  f"{ev['requeued']} prefills requeued, "
+                  f"{ev['quota_moved']} quota moved, "
+                  f"Σ|Δsm_frac|={ev.get('share_moved', 0.0):.2f}")
     for u in units:
         pool = u.pool
         print(f"[serve] pool: free={pool.allocator.free_blocks}"

@@ -31,9 +31,11 @@ watchdog sheds a stalled run's pending work; ``metrics`` records the
 serving taxonomy of ``serving/metrics.py`` and embeds its snapshot in
 the report; ``route_fn`` resolves family-named requests at submit time
 (``serving/router.py``); ``sanitize`` re-checks the runtime invariants
-after every tick (``serving/sanitize.py``).  The async front end
-(``serving/frontend.py``) drives the same ``ServeSession`` stepper.  The
-reconfiguration controller arrives with the live-reconfiguration slice.
+after every tick (``serving/sanitize.py``); ``reconfig`` plugs in a live
+``ReconfigController`` (``serving/reconfig.py``), whose events the loop
+charges to the logical clock and whose moves re-route submissions.  The
+async front end (``serving/frontend.py``) drives the same
+``ServeSession`` stepper.
 """
 from __future__ import annotations
 
@@ -53,7 +55,7 @@ from repro_torch.serving.engine import Engine, Request
 from repro_torch.serving.faults import FaultInjector, RecoveryCostModel
 from repro_torch.serving.kvcache import UnifiedKVPool
 from repro_torch.serving.mux import MuxScheduler
-from repro_torch.serving.reconfig import WorkloadMonitor
+from repro_torch.serving.reconfig import ReconfigController, WorkloadMonitor
 from repro_torch.serving.sanitize import SessionSanitizer, sanitize_enabled
 
 # same default ladder as the JAX package's simulator and driver
@@ -535,6 +537,43 @@ class LLMReport:
 
 
 @dataclass
+class ReconfigSummary:
+    """Reconfiguration-events section of a ``ServeReport``: how often
+    the control plane fired, what it moved, and what it cost
+    (``serving/reconfig.py``)."""
+    events: int = 0
+    moves: int = 0
+    migrated_blocks: int = 0
+    requeued: int = 0
+    quota_moved: int = 0
+    share_moved: float = 0.0
+    stall_ticks: int = 0
+    dt_charged: float = 0.0
+    log: List[dict] = field(default_factory=list)
+
+    @classmethod
+    def of(cls, events) -> "ReconfigSummary":
+        return cls(events=len(events),
+                   moves=sum(len(e.moves) for e in events),
+                   migrated_blocks=sum(e.migrated_blocks for e in events),
+                   requeued=sum(e.requeued for e in events),
+                   quota_moved=sum(e.quota_moved for e in events),
+                   share_moved=sum(e.share_moved for e in events),
+                   stall_ticks=sum(e.stall_ticks for e in events),
+                   dt_charged=sum(e.dt_charged for e in events),
+                   log=[e.to_json() for e in events])
+
+    def to_json(self) -> dict:
+        return {"events": self.events, "moves": self.moves,
+                "migrated_blocks": self.migrated_blocks,
+                "requeued": self.requeued,
+                "quota_moved": self.quota_moved,
+                "share_moved": self.share_moved,
+                "stall_ticks": self.stall_ticks,
+                "dt_charged": self.dt_charged, "log": self.log}
+
+
+@dataclass
 class FaultSummary:
     """Fault-injection/degradation section of a ``ServeReport``
     (``serving/faults.py``): what the plan fired, what the runtime did
@@ -577,9 +616,8 @@ class ServeReport:
     rate_estimates: Dict[str, float] = field(default_factory=dict)
     # per-LLM enforced compute shares (empty when no unit enforces them)
     sm_frac: Dict[str, float] = field(default_factory=dict)
-    # the JAX package's reconfiguration section: its slice fills it,
-    # until then it stays None so the JSON keeps the schema
-    reconfig: Optional[dict] = None
+    # the reconfiguration events (None when no controller ran)
+    reconfig: Optional[ReconfigSummary] = None
     faults: Optional[FaultSummary] = None
     # per-LLM prefix-cache counters (PrefixIndex.stats(); empty when the
     # prefix cache is off), gathered from the units' CURRENT pool views
@@ -627,6 +665,15 @@ class ServeReport:
             lines.append("compute shares (sm_frac): "
                          + ", ".join(f"{n}:{f:.2f}"
                                      for n, f in self.sm_frac.items()))
+        if self.reconfig is not None:
+            r = self.reconfig
+            lines.append(
+                f"reconfig: {r.events} events, {r.moves} moves, "
+                f"{r.migrated_blocks} KV head-blocks migrated, "
+                f"{r.requeued} prefills requeued, "
+                f"Σ|Δsm_frac|={r.share_moved:.2f}, "
+                f"{r.stall_ticks} stall ticks "
+                f"({r.dt_charged * 1e3:.1f}ms charged)")
         if self.prefix:
             lines.append("prefix cache: " + ", ".join(
                 f"{n}: {p['hits']}/{p['lookups']} hits "
@@ -656,7 +703,8 @@ class ServeReport:
                 "planned_rates": dict(self.planned_rates),
                 "rate_estimates": dict(self.rate_estimates),
                 "sm_frac": dict(self.sm_frac),
-                "reconfig": self.reconfig,
+                "reconfig": (self.reconfig.to_json()
+                             if self.reconfig else None),
                 "faults": (self.faults.to_json()
                            if self.faults else None),
                 "prefix": {k: dict(v) for k, v in self.prefix.items()},
@@ -758,10 +806,11 @@ class ServeSession:
     the setup (ownership map, clock install, SLO references, injector
     threading, deadline stamping, drift monitor, sanitizer), ``step()``
     runs one loop iteration (submit due arrivals → tick busy units or
-    account an idle gap → drain fault events → watchdog → monitor), and
-    ``report()`` rolls the timelines up.  Because the front end replays
-    the identical iteration, streamed serving is bit-identical to the
-    closed-loop driver under the deterministic clock by construction.
+    account an idle gap → drain fault events → watchdog → reconfig or
+    monitor), and ``report()`` rolls the timelines up.  Because the
+    front end replays the identical iteration, streamed serving is
+    bit-identical to the closed-loop driver under the deterministic
+    clock by construction.
 
     Front-end extensions (all default-off):
 
@@ -772,11 +821,17 @@ class ServeSession:
     * ``metrics`` — a ``ServingMetrics`` bundle: the session records
       lifecycle counters, latency histograms, queue/pool gauges and
       fault events, and embeds the final snapshot in the report.
-    * ``on_topology_change()`` — for a router to refresh its view when
-      engines move between units (live reconfiguration, a later slice;
-      nothing calls it yet).
+    * ``on_topology_change()`` — called after a reconfiguration moves
+      engines across units, so a router can refresh its view.
     * ``cancel(request)`` — client abandonment: frees the request's
       queue position or slot and KV at once, counted as ``cancelled``.
+
+    Wall clock with reconfiguration: solo probes calibrated once at
+    startup would go stale when a migration moves an engine across
+    meshes, so the session computes ANALYTIC references from a
+    ``TickCostModel()`` at the owning mesh's size at evaluation time —
+    the reference follows the engine to its new mesh.  The
+    deterministic path is unchanged.
     """
 
     def __init__(self, units: Sequence[MuxScheduler],
@@ -787,6 +842,7 @@ class ServeSession:
                  warm: bool = True,
                  max_ticks: int = 500_000,
                  planned_rates: Optional[Dict[str, float]] = None,
+                 reconfig: Optional[ReconfigController] = None,
                  faults=None,
                  recovery_cost: Optional[RecoveryCostModel] = None,
                  watchdog_ticks: int = 1000,
@@ -806,6 +862,7 @@ class ServeSession:
                 self.engines[name] = eng
         self.cost = cost
         self.deterministic = cost is not None
+        self.reconfig = reconfig
         self.max_ticks = max_ticks
         self.watchdog_ticks = watchdog_ticks
         self.slo_scales = tuple(slo_scales)
@@ -818,11 +875,24 @@ class ServeSession:
         else:
             if warm:
                 _warmup_drain(self.units, self.owner, requests)
-            slo = (refs if refs is not None
-                   else calibrate_slo_refs(self.engines))
+            if reconfig is not None:
+                # analytic references (see the class docstring): solo
+                # latency at the CURRENT owner's mesh size
+                rc = TickCostModel()
+                chunk = {n: e.chunk_tokens for n, e in self.engines.items()}
+                owner = self.owner          # updated in place on moves
 
-            def ref_fn(model, plen, olen, _slo=slo):
-                return _slo[model].reference(plen, olen)
+                def ref_fn(model, plen, olen):
+                    u = owner.get(model)
+                    return rc.solo_reference(
+                        plen, olen, chunk.get(model),
+                        devices=(u.n_devices if u is not None else 1))
+            else:
+                slo = (refs if refs is not None
+                       else calibrate_slo_refs(self.engines))
+
+                def ref_fn(model, plen, olen, _slo=slo):
+                    return _slo[model].reference(plen, olen)
             self.ref_fn = ref_fn
             self.clock = WallClock()
         for u in self.units:
@@ -830,14 +900,16 @@ class ServeSession:
             for eng in u.engines.values():
                 eng.clock = self.clock
 
-        # fault injection: one injector serves every unit; recovery
-        # stalls are priced like any tick
+        # fault injection: one injector serves every unit and the
+        # migration executor; recovery stalls are priced like any tick
         self.injector: Optional[FaultInjector] = None
         if faults is not None:
             self.injector = (faults if isinstance(faults, FaultInjector)
                              else FaultInjector(faults))
             for u in self.units:
                 u.injector = self.injector
+            if reconfig is not None:
+                reconfig.executor.injector = self.injector
         self.recovery_cost = (recovery_cost if recovery_cost is not None
                               else RecoveryCostModel())
 
@@ -856,9 +928,14 @@ class ServeSession:
                     r.deadline = r.arrival + self._deadline_slack *\
                         self.ref_fn(r.model, len(r.prompt), 0)
 
-        self.monitor: Optional[WorkloadMonitor] = (
-            WorkloadMonitor(planned_rates) if planned_rates is not None
-            else None)
+        # drift monitor: the controller's when reconfiguring, a
+        # standalone one when only planned rates are known (drift stays
+        # visible in every report), none otherwise
+        self.monitor: Optional[WorkloadMonitor] = None
+        if reconfig is not None:
+            self.monitor = reconfig.monitor
+        elif planned_rates is not None:
+            self.monitor = WorkloadMonitor(planned_rates)
         self.planned0 = dict(self.monitor.planned) if self.monitor else {}
         self.requests = sorted(requests, key=lambda r: r.arrival)
         self.idx, self.ticks = 0, 0
@@ -972,7 +1049,20 @@ class ServeSession:
                 status, wait = "idle", 0.0
             else:
                 status, wait = "idle", gap
-        if self.monitor is not None:
+        if self.reconfig is not None:
+            ev = self.reconfig.step(self.clock())
+            if ev is not None:
+                if self.deterministic:
+                    # the migration's modeled stall hits every queued
+                    # and in-flight request, like any other tick cost
+                    self.clock.advance(ev.dt_charged)
+                if self.metrics is not None:
+                    self._observe_reconfig(ev)
+                if ev.moves:
+                    self.owner.update(self.reconfig.owner_map())
+                    if self.on_topology_change is not None:
+                        self.on_topology_change()
+        elif self.monitor is not None:
             self.monitor.advance(self.clock())
         return (status, wait)
 
@@ -991,7 +1081,7 @@ class ServeSession:
         self.owner[r.model].submit(r)
         self._submitted.add(id(r))
         if self.monitor is not None:
-            self.monitor.observe(r.model)
+            self.monitor.observe(r.model, len(r.prompt) + r.max_new_tokens)
         if self.metrics is not None:
             self.metrics.requests_submitted.inc(llm=r.model)
             self.metrics.log.emit(self.clock(), "submit", r.req_id,
@@ -1071,6 +1161,17 @@ class ServeSession:
                    kind=rec.get("kind"), target=rec.get("target"),
                    requeued=rec.get("requeued", 0))
 
+    def _observe_reconfig(self, ev) -> None:
+        m = self.metrics
+        m.reconfig_events.inc(kind="event")
+        if ev.moves:
+            m.reconfig_events.inc(len(ev.moves), kind="move")
+        if ev.migrated_blocks:
+            m.migrated_blocks.inc(ev.migrated_blocks)
+        m.log.emit(self.clock(), "reconfig", "-", moves=len(ev.moves),
+                   migrated_blocks=ev.migrated_blocks,
+                   requeued=ev.requeued)
+
     # -- roll-up ----------------------------------------------------------
     def report(self) -> ServeReport:
         if self._report is not None:
@@ -1124,7 +1225,10 @@ class ServeSession:
             planned_rates=self.planned0,
             rate_estimates=(dict(self.monitor.rate_ewma)
                             if self.monitor else {}),
-            sm_frac=shares, faults=fsum, prefix=prefix_stats,
+            sm_frac=shares,
+            reconfig=(ReconfigSummary.of(self.reconfig.events)
+                      if self.reconfig is not None else None),
+            faults=fsum, prefix=prefix_stats,
             metrics=(self.metrics.snapshot()
                      if self.metrics is not None else None))
         return self._report
@@ -1137,6 +1241,7 @@ def serve_requests(units: Sequence[MuxScheduler], requests: List[Request],
                    warm: bool = True,
                    max_ticks: int = 500_000,
                    planned_rates: Optional[Dict[str, float]] = None,
+                   reconfig: Optional[ReconfigController] = None,
                    faults=None,
                    recovery_cost: Optional[RecoveryCostModel] = None,
                    watchdog_ticks: int = 1000,
@@ -1155,9 +1260,18 @@ def serve_requests(units: Sequence[MuxScheduler], requests: List[Request],
     calibration), and — unless ``warm=False`` — a warm-up replay of the
     trace first.  ``planned_rates`` enables the drift monitor.
 
+    ``reconfig`` plugs in a live ``ReconfigController``
+    (``serving/reconfig.py``): the loop reports arrivals, calls ``step``
+    each iteration, charges executed events' modeled stall to the
+    logical clock (deterministic mode) and re-routes submissions after
+    engine moves.  Under the wall clock its SLO references are analytic,
+    from ``TickCostModel()`` at the owning mesh's current size (``refs``
+    is ignored then).
+
     Graceful degradation: ``faults`` (a ``FaultPlan`` or
-    ``FaultInjector``) is threaded onto every unit, whose recovery
-    events the loop drains each iteration, charging
+    ``FaultInjector``) is threaded onto every unit, and onto the
+    reconfig executor (asked before each page copy); the units' recovery
+    events are drained each iteration, charging
     ``recovery_cost.dt(requeued, blocks)`` to the logical clock.  A
     unit with ``shed_policy="deadline"`` gets each of its requests
     stamped with the admission deadline ``arrival + (s − 1)·ttft_ref``
@@ -1169,7 +1283,7 @@ def serve_requests(units: Sequence[MuxScheduler], requests: List[Request],
     session = ServeSession(
         units, requests, slo_scales=slo_scales, cost=cost, refs=refs,
         warm=warm, max_ticks=max_ticks, planned_rates=planned_rates,
-        faults=faults, recovery_cost=recovery_cost,
+        reconfig=reconfig, faults=faults, recovery_cost=recovery_cost,
         watchdog_ticks=watchdog_ticks, shed_scale=shed_scale,
         metrics=metrics, sanitize=sanitize)
     while True:
@@ -1187,6 +1301,7 @@ def serve_workload(units: Sequence[MuxScheduler], wl: Workload,
                    cost: Optional[TickCostModel] = None,
                    refs: Optional[Dict[str, SLORef]] = None,
                    max_ticks: int = 500_000,
+                   reconfig: Optional[ReconfigController] = None,
                    faults=None,
                    recovery_cost: Optional[RecoveryCostModel] = None,
                    watchdog_ticks: int = 1000,
@@ -1202,8 +1317,8 @@ def serve_workload(units: Sequence[MuxScheduler], wl: Workload,
                                   max_new_cap=max_new_cap)
     return serve_requests(units, reqs, slo_scales=slo_scales, cost=cost,
                           refs=refs, max_ticks=max_ticks,
-                          planned_rates=dict(wl.rates), faults=faults,
-                          recovery_cost=recovery_cost,
+                          planned_rates=dict(wl.rates), reconfig=reconfig,
+                          faults=faults, recovery_cost=recovery_cost,
                           watchdog_ticks=watchdog_ticks,
                           shed_scale=shed_scale, metrics=metrics,
                           sanitize=sanitize)

@@ -288,6 +288,26 @@ class Engine:
         self.params = tree
         self.model_index = 0
 
+    def rebind_view(self, view: ModelCacheView) -> None:
+        """Point the engine at a migrated cache view (and its pool).
+        The view must carry this engine's live sequences — block tables
+        and lengths are re-resolved from it on every step, so in-flight
+        decodes continue without any engine-side fixup."""
+        if view.cfg.name != self.cfg.name:
+            raise ValueError(f"view of {view.cfg.name!r} for engine "
+                             f"{self.cfg.name!r}")
+        self.view = view
+        self.pool = view.pool
+
+    def evict_prefilling(self) -> List[Request]:
+        """Evict every in-flight (chunk-phase) prefill: free its cache,
+        reset its progress and hand the requests back for requeueing.
+        Migration drains or carries per request — decodes carry their
+        KV to the destination pool, but a half-written prompt is cheaper
+        to restart than to move; greedy decoding makes the restart
+        exact."""
+        return [self._reset(slot) for slot in sorted(self._prefilling)]
+
     def _reset(self, slot: int) -> Request:
         """Free the sequence in ``slot`` and clear its request's
         progress (eviction: the request restarts from scratch, exact

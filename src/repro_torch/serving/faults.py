@@ -22,15 +22,15 @@ carry it on an unbounded queue.  This module is the *injection* half:
         same work next tick, and escalates to a crash recovery past its
         retry budget;
       - ``migration_abort`` — the next reconfiguration move at or after
-        ``at`` aborts mid-copy.  It parses, is counted, and is offered
-        through ``take_migration_abort``; the port has no migration
-        executor yet to ask for it (live reconfiguration), so such an
-        event stays unfired.
+        ``at`` aborts mid-copy; the executor re-homes the engine on its
+        source unit through the same rollback path a fragmentation
+        abort uses (``reconfig.MigrationExecutor``).
 
   * **FaultInjector** — the runtime hook.  ``MuxScheduler.tick`` polls
     it once per tick (``poll`` fires due crash/block-loss events for
     the engines that unit owns, ``consume_transient`` burns one failed
-    tick).  The injector never reads a clock or an RNG at runtime — the
+    tick), and ``MigrationExecutor`` asks ``take_migration_abort``
+    before every page copy.  The injector never reads a clock or an RNG at runtime — the
     plan is fixed up front — so a faulted run under the deterministic
     clock is bit-reproducible.
 

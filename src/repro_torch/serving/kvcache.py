@@ -23,7 +23,9 @@ second arena (at full width the arena is as large as a weight copy).
 Prefix caching (``PrefixIndex``) shares block groups across sequences
 by refcount, read-only, with copy-on-write (``cache_ops.
 copy_block_groups``, in place on the arena) when a write lands inside
-a shared block.  Cross-pool migration arrives with its slice.
+a shared block.  ``migrate_view`` moves one LLM's live cache to another
+pool (live reconfiguration); its page copy writes the destination arena
+in place through the same ``copy_block_groups``.
 """
 from __future__ import annotations
 
@@ -684,6 +686,12 @@ class UnifiedKVPool:
             self._view_arena()
         return removed
 
+    def shrinkable_tail(self) -> int:
+        """Head-blocks a ``shrink`` could remove right now (free tail
+        only) — what reconfiguration should consult instead of
+        ``largest_free_range`` when planning capacity returns."""
+        return self.allocator.shrinkable_tail()
+
     def available_blocks(self) -> int:
         """Free head-blocks plus prefix-cache inventory evictable on
         demand — the figure admission may count on.  Equals
@@ -803,3 +811,123 @@ class UnifiedKVPool:
 
     def utilization(self) -> float:
         return self.allocator.used / self.n_head_blocks
+
+
+def migrate_view(src: ModelCacheView, dst_pool: "UnifiedKVPool",
+                 quota: int) -> Tuple[ModelCacheView, int]:
+    """Move one LLM's live cache between pools (engine/KV migration —
+    the zero-downtime half of live reconfiguration).
+
+    Every sequence keeps its identity: logical token-blocks are
+    re-allocated in the destination arena, the KV pages are copied on
+    the device, in place into the destination arena, through
+    ``copy_block_groups`` (physical ids resolved by
+    ``paging.resolve_physical_blocks``, the resolution every kernel
+    uses), and the per-sequence bookkeeping (block tables, lengths, SSM
+    state accounting) is rebuilt on a fresh ``ModelCacheView``.
+    In-flight decodes continue off the new pool because the pages are
+    exact copies and block tables are re-resolved from the view at
+    every step.  The source view is drained and unregistered, which
+    returns its groups to the source allocator.
+
+    Shared prefix blocks migrate as shared: a group referenced by
+    several sequences is allocated ONCE on the destination and
+    ``share``d for every further holder (the src→dst base map keeps the
+    sharing structure, and ``SeqCache.shared`` carries over so
+    copy-on-write still triggers where it would have).  The prefix
+    index is rebuilt on the destination from the same map (entries
+    whose blocks a migrating sequence holds keep their hashes and
+    refs); cache-only entries are dropped, so warm-cache state never
+    inflates the capacity pre-check.
+
+    Returns ``(dst_view, migrated_head_blocks)``.  Raises
+    ``RuntimeError`` when the destination pool cannot hold the live
+    cache (too few free blocks, or no contiguous group-size run); the
+    source is untouched then and the destination rolled back.
+    """
+    cfg = src.cfg
+    if dst_pool is src.pool:
+        raise ValueError("migrate_view needs two pools")
+    if (dst_pool.block_tokens, dst_pool.head_dim, dst_pool.dtype) != (
+            src.pool.block_tokens, src.pool.head_dim, src.pool.dtype):
+        raise ValueError("pools must share block geometry and dtype for "
+                         "a page-exact migration")
+    # physical need = DISTINCT groups (shared bases land once)
+    uniq = {b for sc in src.seqs.values() for b in sc.bases}
+    need = len(uniq) * src.group_size
+    if need > dst_pool.allocator.free_blocks:
+        dst_pool.reclaim_index_blocks(need)   # cache blocks are disposable
+    if need > dst_pool.allocator.free_blocks:
+        raise RuntimeError(
+            f"destination pool cannot hold migrated KV of {cfg.name}: "
+            f"need {need} head-blocks, "
+            f"free {dst_pool.allocator.free_blocks}")
+
+    dst = dst_pool.register_model(cfg, quota)
+    base_map: Dict[int, int] = {}
+    refs_made: List[int] = []   # one entry per alloc/share, for rollback
+    src_groups: List[int] = []
+    dst_groups: List[int] = []
+    for sid, sc in src.seqs.items():
+        new_bases = []
+        for b in sc.bases:
+            nb = base_map.get(b)
+            if nb is None:
+                nb = dst_pool.allocator.alloc(dst.group_size)
+                if nb is None and dst_pool.reclaim_index_blocks(
+                        dst.group_size):
+                    nb = dst_pool.allocator.alloc(dst.group_size)
+                if nb is None:
+                    # the free total passed the pre-check but no
+                    # CONTIGUOUS group-size run is left (fragmentation):
+                    # roll the half-built destination back; the source
+                    # is untouched until the copy below
+                    for rb in refs_made:
+                        dst_pool.allocator.free(rb, dst.group_size)
+                    dst.seqs.clear()
+                    dst.used = 0
+                    dst_pool.unregister_model(cfg.name)
+                    raise RuntimeError(
+                        f"destination pool too fragmented for {cfg.name}: "
+                        f"no contiguous {dst.group_size}-block run "
+                        f"(free {dst_pool.allocator.free_blocks}, largest "
+                        f"run {dst_pool.allocator.largest_free_range()})")
+                base_map[b] = nb
+                src_groups.append(b)
+                dst_groups.append(nb)
+            else:
+                dst_pool.allocator.share(nb, dst.group_size)
+            refs_made.append(nb)
+            new_bases.append(nb)
+        dst.seqs[sid] = SeqCache(sid, new_bases, sc.n_tokens,
+                                 shared=sc.shared)
+        used = len(new_bases) * dst.group_size
+        if cfg.ssm and sid in src._started:
+            used += dst._ssm_blocks_per_seq
+        dst.used += used
+    dst._started = set(src._started)
+    dst.quota = max(dst.quota, dst.used)
+    dst_pool.used_by[cfg.name] = dst.used
+
+    # rebuild the prefix index under the remap (LRU order preserved);
+    # the hash chain is content-addressed, so hashes carry unchanged
+    if src.prefix_index is not None and dst.prefix_index is not None:
+        for h, (b, blk) in src.prefix_index.entries():
+            nb = base_map.get(b)
+            if nb is not None:
+                dst.prefix_index.adopt(h, nb, blk)
+
+    migrated = 0
+    if src_groups:
+        # each distinct group is copied exactly once, elementwise
+        # aligned src→dst, in place into the destination arena (a view
+        # that shrink/grow re-slice: a new tensor would be lost there)
+        copy_block_groups(dst_pool.k, dst_pool.v, src_groups, dst_groups,
+                          cfg.n_kv_heads, cfg.n_attn_layers,
+                          src_k=src.pool.k, src_v=src.pool.v)
+        migrated = len(src_groups) * src.group_size
+
+    for sid in list(src.seqs):
+        src.free_seq(sid)
+    src.pool.unregister_model(cfg.name)
+    return dst, migrated

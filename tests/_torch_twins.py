@@ -51,3 +51,15 @@ def report_text(rep, wall=("wall_s",)):
     for k in wall:
         d.pop(k)
     return json.dumps(d, sort_keys=True)
+
+
+def placement_trees(pl, seed=0):
+    """The JAX package's weights of ``units_from_placement(pl,
+    seed=seed)`` (mesh ``m`` builds its unit with seed ``seed +
+    m.mesh_id``), by spec name, as the port's trees."""
+    trees = {}
+    for m in pl.meshes:
+        specs = [(s.name, s.arch_id, s.rate) for s in m.specs]
+        trees.update(zip((s[0] for s in specs),
+                         reference_trees(specs, seed + m.mesh_id)))
+    return trees
