@@ -10,13 +10,16 @@ Trees run in the order given, each in a fresh process, so a call like
 ``build/parent:parent . . build/parent:parent`` gives parent, change,
 change, parent on one card.  Each process builds that tree's kernels and
 runs that tree's own ``chip_smoke.check_kernels`` at full-width
-qwen2-7b and zamba2-1.2b's shared attention and ``check_int8`` at
-full-width qwen2-7b, the shapes ``FULL`` and ``ZAMBA`` of this
-checkout's ``chip_smoke.py`` (the same shapes for every tree); the
-kernel times (``time_ms``: median of 25 calls, L2 evicted before each),
-the plain and library times and the bound are printed per tree, then
-one table of kernel times side by side, and the card's name and power
-limit.  Exits non-zero when a tree fails or no
+qwen2-7b and zamba2-1.2b's shared attention, ``check_int8`` at
+full-width qwen2-7b and ``check_ssd`` at the SSD scan's shapes, the
+shapes ``FULL``, ``ZAMBA`` and ``SSD_SHAPES`` of this checkout's
+``chip_smoke.py`` (the same shapes for every tree); the kernel times
+(``time_ms``: median of 25 calls, L2 evicted before each), the plain and
+library times, the bound and, where the tree measures them, the
+wrapper's host time per call (``host_us``) and one call's wall time with
+the card idle (``call_us``) are printed per tree, then one table side by
+side for each of ``ms``, ``host_us`` and ``call_us``, and the card's
+name and power limit.  Exits non-zero when a tree fails or no
 GPU is present.
 """
 from __future__ import annotations
@@ -26,9 +29,11 @@ import subprocess
 import sys
 from pathlib import Path
 
-from chip_smoke import FULL, ZAMBA
+from chip_smoke import FULL, SSD_SHAPES, ZAMBA
 
-FIELDS = ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")
+FIELDS = ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err",
+          "host_us", "call_us")
+TABLES = ("ms", "host_us", "call_us")
 
 _CHILD = r'''
 import importlib.util, json, sys
@@ -45,22 +50,25 @@ torch.backends.cuda.matmul.allow_tf32 = False
 from repro_torch.kernels import build
 build.build_all()
 fields = json.loads(sys.argv[2])
-full, zamba = ({**s, "dtype": getattr(torch, s["dtype"])}
-               for s in json.loads(sys.argv[3]))
+full, zamba, *ssd = ({**s, "dtype": getattr(torch, s["dtype"])}
+                     for s in json.loads(sys.argv[3]))
 out = {}
 for shape in (full, zamba):
     for k, r in cs.check_kernels(torch, np, shape).items():
         out[f"{shape['label']}: {k}"] = {f: r.get(f) for f in fields}
 for k, r in cs.check_int8(torch, np, full).items():
     out[f"{full['label']}: int8 {k}"] = {f: r.get(f) for f in fields}
+for shape in ssd:
+    r = cs.check_ssd(torch, shape)
+    out[f"{shape['label']}: ssd_scan"] = {f: r.get(f) for f in fields}
 print("RESULT " + json.dumps(out), flush=True)
 '''
 
 
 def run_tree(root: str) -> dict:
+    shapes = json.dumps([FULL, ZAMBA, *SSD_SHAPES])
     proc = subprocess.run([sys.executable, "-c", _CHILD, root,
-                           json.dumps(FIELDS), json.dumps([FULL, ZAMBA])],
-                          capture_output=True,
+                           json.dumps(FIELDS), shapes], capture_output=True,
                           text=True, timeout=1200)
     for line in proc.stdout.splitlines():
         if line.startswith("RESULT "):
@@ -85,10 +93,14 @@ def main(argv) -> int:
         res = run_tree(root)
         print(f"tree {tag} ({root}): " + json.dumps(res), flush=True)
         results.append((tag, res))
-    print("kernel ms, in turns: " + ", ".join(t for t, _ in results))
-    for key in results[0][1]:
-        print(f"  {key}: " + ", ".join(
-            f"{r[key]['ms']:.4f}" if key in r else "-" for _, r in results))
+    for field in TABLES:
+        print(f"kernel {field}, in turns: "
+              + ", ".join(t for t, _ in results))
+        for key in results[0][1]:
+            vals = [r.get(key, {}).get(field) for _, r in results]
+            if any(v is not None for v in vals):
+                print(f"  {key}: " + ", ".join(
+                    "-" if v is None else f"{v:.4f}" for v in vals))
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()

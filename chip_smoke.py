@@ -120,7 +120,24 @@
    hold to the static run's within bf16's tolerance while a planted copy
    fault reads far above it, and kernels 1 and 2 launch after the move;
    kernel 2 is also held to its plain version at the gate's 16-query
-   chunk beside the table's 64.
+   chunk beside the table's 64;
+11. trains through kernels 3 and 4, whose autograd nodes launch the
+   kernel in the forward and take the plain version's VJP in the
+   backward: (a) at the training shapes (``GRAD_SHAPES``: zamba2-1.2b's
+   shared attention 2 x 1024 in f32 and bf16, qwen2-7b's windowed 4096
+   over 4352 tokens, zamba2-1.2b's scan) every input's gradient against
+   autograd through the plain version, the Function's forward + backward
+   timed beside the plain version's; (b) three AdamW steps of five
+   reduced architectures on the card against the CPU, and a card
+   checkpoint restored into a CPU tree; (c) zamba2-1.2b at full width
+   and depth, f32, remat, 20 steps of 2 x 1024 tokens: finite losses
+   that fall, a finite non-zero step-1 gradient on every leaf behind a
+   kernel, kernels 3 and 4 launched every step, step time beside the
+   bytes and flops bounds, peak memory, one step's device time by part;
+   (d) the serve steps of ``launch/steps.py`` at full width in f32: the
+   sliding-window ring-buffer decode of qwen2-7b past its 4096-token
+   window, the hybrid (zamba2-1.2b) and SSM (mamba2-2.7b) prefill and
+   decode, each held to ``forward``.
 
 Any failed phase raises and the script exits non-zero.  The last two
 lines of standard output are the card (name, power limit) and a JSON
@@ -162,6 +179,29 @@ TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # fixed absolute bf16 tolerance does not fit its range: its tolerance
 # is relative to the plain output's largest magnitude (same numbers).
 SSD_TOL_REL = TOL
+
+# The SSD scan's shapes, each named by its label, with its dtype by
+# name: the kernel table's (mamba2-2.7b's chunk step at 4, 2 and 1 slots,
+# zamba2-1.2b's whole-prompt bucket of 2 rows and of 1) and a reduced
+# float32 one with two groups and a ragged chunk.
+SSD_SHAPES = [
+    dict(label="mamba2-2.7b chunk step bf16", dtype="bfloat16", b=4,
+         S=64, chunk=64, H=80, G=1, N=128, init=True),
+    dict(label="mamba2-2.7b chunk step bf16, two slots",
+         dtype="bfloat16", b=2, S=64, chunk=64, H=80, G=1, N=128,
+         init=True),
+    dict(label="mamba2-2.7b chunk step bf16, one slot",
+         dtype="bfloat16", b=1, S=64, chunk=64, H=80, G=1, N=128,
+         init=True),
+    dict(label="zamba2-1.2b whole-prompt bucket bf16",
+         dtype="bfloat16", b=2, S=512, chunk=256, H=64, G=1, N=64,
+         init=False),
+    dict(label="zamba2-1.2b whole-prompt bucket bf16, one row",
+         dtype="bfloat16", b=1, S=512, chunk=256, H=64, G=1, N=64,
+         init=False),
+    dict(label="reduced f32, 2 groups, ragged chunk", dtype="float32",
+         b=2, S=72, chunk=32, H=8, G=2, N=16, init=True),
+]
 
 # The attention kernels' shapes, each named by its label, with its dtype
 # by name (``attn_shape`` resolves it): the kernel table's (PERF.md §6),
@@ -3077,6 +3117,592 @@ def cli_placement(torch) -> str:
                         f"{agg['attainment']}"])
 
 
+# ---------------------------------------------------------------------------
+# training through kernels 3 and 4, and the serve steps (launch/steps.py)
+# ---------------------------------------------------------------------------
+# (a) kernel gradients at the training shapes: zamba2-1.2b's shared
+# attention (2 x 1024, 32 heads of 64) in f32 and bf16, qwen2-7b's
+# attention (28/4 heads of 128, bf16) with window 4096 over 4352 tokens,
+# and zamba2-1.2b's SSD scan (b 2, S 1024, chunk 256, 64 heads, N 64)
+GRAD_SHAPES = [
+    dict(label="zamba2-1.2b shared attention f32, 2 x 1024",
+         kernel="flash_prefill", dtype="float32", b=2, S=1024, H=32, KV=32,
+         hd=64, window=None),
+    dict(label="zamba2-1.2b shared attention bf16, 2 x 1024",
+         kernel="flash_prefill", dtype="bfloat16", b=2, S=1024, H=32, KV=32,
+         hd=64, window=None),
+    dict(label="qwen2-7b bf16, window 4096 over 4352 tokens",
+         kernel="flash_prefill", dtype="bfloat16", b=1, S=4352, H=28, KV=4,
+         hd=128, window=4096),
+    dict(label="zamba2-1.2b scan f32, 2 x 1024", kernel="ssd_scan",
+         dtype="float32", b=2, S=1024, H=64, G=1, N=64, chunk=256),
+]
+# (b) the reduced train steps, card (kernels) against CPU (plain)
+TRAIN_ARCHS = ("qwen2-7b", "granite-moe-3b-a800m", "mamba2-2.7b",
+               "zamba2-1.2b", "musicgen-medium")
+TRAIN_TOL = 1e-4   # f32: the loss (relative), each leaf's gradient (of
+#                    its largest element), as the CPU tests hold them
+# (c) full-width training: zamba2-1.2b, 38 layers, f32, remat on
+TRAIN_FULL = dict(arch="zamba2-1.2b", batch=2, seq=1024, steps=20, lr=1e-3)
+KERNEL_LEAVES = {"shared_attn": ("wq", "wk", "wv"),
+                 "layers": ("in_proj", "conv_w", "conv_b", "dt_bias",
+                            "a_log", "d_skip")}
+# (d) the serve steps at full width, f32, against ``forward``
+SERVE_STEPS_TOL = TOL["bfloat16"]
+SERVE_NEW = 8
+
+
+def _attn_work(b, S, H, hd, window) -> int:
+    """(query, key) pairs of causal attention over S tokens (a window
+    keeps the last ``window`` keys), times b * H * hd."""
+    w = S if window is None else min(window, S)
+    pairs = sum(min(i + 1, w) for i in range(S))
+    return b * H * hd * pairs
+
+
+def check_grads(torch, shape: dict) -> dict:
+    """Kernel 3 or 4 on inputs that require grad, at a training shape:
+    the output's node must be the kernel's autograd Function, its forward
+    must launch the kernel once and hold to the plain version run in
+    float32 on the same inputs (attention: ``TOL`` absolute; the scan's
+    y and final state: ``SSD_TOL_REL`` of the plain output's largest, as
+    ``check_ssd`` holds them), and the gradient of every input (the
+    plain version's VJP from the saved inputs) must hold to autograd
+    through the plain version on the same inputs within ``TOL`` of the
+    largest plain gradient.  Times the Function's forward + backward
+    beside the plain version's.  Bound: the bytes of the inputs, the
+    cotangents, the outputs and the gradients once; operations: the
+    forward's products and the backward's (twice as many)."""
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import ssd_scan as ss
+    dname = shape["dtype"]
+    dt_ = getattr(torch, dname)
+    es = torch.empty((), dtype=dt_).element_size()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+
+    def randn(*s, dtype=dt_):
+        return torch.randn(s, generator=gen, device="cuda").to(dtype)
+    b, S = shape["b"], shape["S"]
+    if shape["kernel"] == "flash_prefill":
+        H, KV, hd, w = shape["H"], shape["KV"], shape["hd"], shape["window"]
+        ins = [randn(b, S, H, hd), randn(b, S, KV, hd), randn(b, S, KV, hd)]
+        cots = [randn(b, S, H, hd)]
+        kern = fp.flash_prefill
+        names = ("q", "k", "v")
+
+        def run(fn, args):
+            return (fn(*args, window=w),)
+        plain = fp.flash_prefill_plain
+        node, counter = "_FlashPrefillBackward", fp.FLASH_KERNEL
+        n_bytes = es * (2 * ins[0].numel() * 2 + 2 * 2 * ins[1].numel())
+        flops = 3 * 4 * _attn_work(b, S, H, hd, w)
+    else:
+        H, G, N, Q = shape["H"], shape["G"], shape["N"], shape["chunk"]
+        P = ss.HEAD_DIM
+        f32 = torch.float32
+        ins = [randn(b, S, H, P),
+               torch.nn.functional.softplus(randn(b, S, H, dtype=f32) - 2.0),
+               torch.log(torch.linspace(1.0, 16.0, H, device="cuda")),
+               randn(b, S, G, N), randn(b, S, G, N),
+               torch.ones(H, device="cuda"), randn(b, H, P, N, dtype=f32)]
+        cots = [randn(b, S, H, P), randn(b, H, P, N, dtype=f32)]
+        kern = ss.ssd_scan
+        names = ("x", "dt", "a_log", "B", "C", "d_skip", "init_state")
+
+        def run(fn, args):
+            return fn(*args[:6], Q, args[6])
+        plain = ss.ssd_plain
+        node, counter = "_SsdScanBackward", ss.SSD_KERNEL
+        # each input read and its gradient written once, plus y and the
+        # final state with their cotangents
+        n_bytes = 2 * sum(t.numel() * t.element_size() for t in ins) \
+            + 2 * (ins[0].numel() * es + b * H * P * N * 4)
+        fwd = 0
+        for c0 in range(0, S, Q):
+            q = min(Q, S - c0)
+            fwd += (q * (q + 1) // 2) * (2 * N + 2 * P) + 4 * q * P * N
+        flops = 3 * fwd * b * H
+    leaves_ = [t.requires_grad_() for t in ins]
+    n0 = counter.launches
+    outs = run(kern, leaves_)
+    if type(outs[0].grad_fn).__name__ != node or counter.launches != n0 + 1:
+        raise AssertionError(f"{shape['label']}: the output's node is "
+                             f"{type(outs[0].grad_fn).__name__}, launches "
+                             f"{counter.launches - n0}; expected {node}, 1")
+    # the forward: the kernel's outputs against the plain version in
+    # float32 (the bf16 plain version rounds its scores to bf16, the
+    # kernel does not)
+    with torch.no_grad():
+        fref = run(plain, [t.detach().float() for t in leaves_])
+    fwd_errs, fwd_tols = [], []
+    for o, r in zip(outs, fref):
+        fwd_errs.append((o.detach().float() - r).abs().max().item())
+        fwd_tols.append(TOL[dname] if shape["kernel"] == "flash_prefill"
+                        else SSD_TOL_REL[dname] * r.abs().max().item())
+    del fref
+    if not all(e <= t for e, t in zip(fwd_errs, fwd_tols)):
+        raise AssertionError(f"{shape['label']}: the kernel's forward "
+                             f"differs from the plain version's by "
+                             f"{fwd_errs} > {fwd_tols}")
+    got = torch.autograd.grad(outs, leaves_, cots)
+    ref = torch.autograd.grad(run(plain, leaves_), leaves_, cots)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, a, r in zip(names, got, ref):
+        scale = r.float().abs().max().item()
+        errs[name] = (a.float() - r.float()).abs().max().item() / scale
+        if not (torch.isfinite(a.float()).all() and errs[name] <= TOL[dname]):
+            raise AssertionError(f"{shape['label']}: d{name} differs from "
+                                 f"the plain version's by {errs[name]:.3g} "
+                                 f"of its largest (tolerance {TOL[dname]})")
+    del outs, got, ref
+
+    def fwd_bwd(fn):
+        return lambda: torch.autograd.grad(run(fn, leaves_), leaves_, cots)
+    bnd, why = bound_ms(n_bytes, flops, dname)
+    res = dict(label=shape["label"], ms=time_ms(torch, fwd_bwd(kern), 10),
+               plain_ms=time_ms(torch, fwd_bwd(plain), 10), bound_ms=bnd,
+               bound_by=why, max_rel_err=max(errs.values()),
+               rel_err=errs, tolerance=TOL[dname],
+               fwd_max_abs_err=fwd_errs, fwd_tolerance=fwd_tols)
+    _free(torch, torch.device("cuda"))
+    return res
+
+
+def train_reduced_match(torch, device="cuda") -> dict:
+    """(b) Three AdamW steps (remat on) of the reduced five
+    architectures of the CPU tests' loss test on ``device`` (kernels 3
+    and 4 on the card) and on the CPU (plain versions), from the same
+    float32 weights and ``synth_batch`` batches: every step's loss within
+    ``TRAIN_TOL`` relative, and the first step's gradients of every leaf
+    within ``TRAIN_TOL`` of the leaf's largest.  Then a checkpoint of
+    the card's parameters and AdamW state restores into a CPU tree equal
+    to them.  Returns the numbers and the kernels' launches on the card
+    (main path)."""
+    import tempfile
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import init_params, loss_fn
+    from repro_torch.train import checkpoint
+    from repro_torch.train.data import DataConfig, synth_batch
+    from repro_torch.train.optimizer import AdamWConfig, init_state
+    from repro_torch.train.pytree import leaves, tree_map
+    from repro_torch.train.train_step import _value_and_grad, make_train_step
+
+    t0 = time.perf_counter()
+    launches = {k.symbol: 0 for k in ops.path_kernels()}
+    out, devs = {}, ("cpu", device)
+    for arch in TRAIN_ARCHS:
+        cfg = configs.get_reduced(arch)
+        base = init_params(cfg, torch.Generator().manual_seed(0),
+                           torch.float32, "cpu")
+        opt = AdamWConfig(lr=3e-3, warmup_steps=2, total_steps=60)
+        dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
+                          global_batch=4, seed=1, n_patterns=2,
+                          frontend_dim=cfg.frontend_dim,
+                          n_prefix_tokens=cfg.n_prefix_tokens)
+        run = {}
+        for dev in devs:
+            before = ops.launch_counts()
+            params = tree_map(lambda t: t.to(dev, copy=True), base)
+            state = init_state(params)
+            step = make_train_step(cfg, opt, remat=True)
+
+            def batch(i):
+                toks, labels, prefix = synth_batch(dcfg, i)
+                b = [torch.from_numpy(toks).long().to(dev),
+                     torch.from_numpy(labels).to(dev)]
+                return b + ([] if prefix is None
+                            else [torch.from_numpy(prefix).to(dev)])
+            b0 = batch(0)
+            _, grads = _value_and_grad(lambda p: loss_fn(
+                p, cfg, b0[0], b0[1], b0[2] if len(b0) > 2 else None), params)
+            losses = []
+            for i in range(3):
+                params, state, m = step(params, state, *batch(i))
+                losses.append(float(m["loss"]))
+            after = ops.launch_counts()
+            if dev != "cpu":
+                for k in launches:
+                    launches[k] += after[k] - before[k]
+            run[dev] = dict(grads=[g.cpu() for g in leaves(grads)],
+                            losses=losses,
+                            tree={"p": params, "o": state})
+        cpu, card = run["cpu"], run[device]
+        loss_err = max(abs(a - b) / abs(b) for a, b in
+                       zip(card["losses"], cpu["losses"]))
+        grad_err = max(((a - b).abs().max() / b.abs().max().clamp(
+            min=1e-30)).item() for a, b in zip(card["grads"], cpu["grads"]))
+        with tempfile.TemporaryDirectory() as d:
+            checkpoint.save(d, card["tree"], step=3)
+            like = {"p": tree_map(torch.zeros_like, base)}
+            like["o"] = init_state(like["p"])
+            restored, st, _ = checkpoint.restore(d, like)
+        exact = st == 3 and all(
+            torch.equal(a.cpu(), b) and b.device.type == "cpu"
+            for a, b in zip(leaves(card["tree"]), leaves(restored)))
+        out[arch] = dict(losses_card=card["losses"],
+                         losses_cpu=cpu["losses"], max_loss_rel=loss_err,
+                         max_grad_rel=grad_err, checkpoint_equal=exact)
+        if not (loss_err <= TRAIN_TOL and grad_err <= TRAIN_TOL and exact):
+            raise AssertionError(f"reduced {arch} training, card vs CPU: "
+                                 f"{out[arch]} (tolerance {TRAIN_TOL})")
+    for sym in ("repro_flash_prefill", "repro_ssd_scan"):
+        if device != "cpu" and not launches[sym]:
+            raise AssertionError(f"reduced training launched no {sym}")
+    return dict(archs=out, launches=launches,
+                seconds=time.perf_counter() - t0)
+
+
+def _kernel_leaf_check(torch, grads, cfg) -> dict:
+    """The step-1 gradient of every leaf behind kernel 3 (the shared
+    block's wq, wk, wv) and kernel 4 (each Mamba2 layer's in_proj,
+    conv_w, conv_b, dt_bias, a_log, d_skip): finite and not all zero,
+    per layer.  Returns each leaf's smallest per-layer largest |g|."""
+    res = {}
+    for group, names in KERNEL_LEAVES.items():
+        for name in names:
+            g = grads[group][name]
+            per_layer = [g[li] for li in range(g.shape[0])]
+            amax = [t.abs().max().item() for t in per_layer]
+            if not (all(torch.isfinite(t).all().item() for t in per_layer)
+                    and min(amax) > 0):
+                raise AssertionError(f"full-width training: {group}/{name}"
+                                     f" has a zero or non-finite gradient "
+                                     f"at step 1 (largest per layer "
+                                     f"{amax})")
+            res[f"{group}/{name}"] = min(amax)
+    return res
+
+
+class _Spans:
+    """Device time of labelled spans of work on the current stream:
+    CUDA events around each (no synchronisation until ``ms``), or the
+    host clock on the CPU, where every op is synchronous."""
+
+    def __init__(self, torch, dev):
+        self.torch, self.cuda = torch, dev.type == "cuda"
+        self.marks = {}
+
+    @contextlib.contextmanager
+    def span(self, label: str):
+        if self.cuda:
+            a = self.torch.cuda.Event(enable_timing=True)
+            b = self.torch.cuda.Event(enable_timing=True)
+            a.record()
+            yield
+            b.record()
+        else:
+            a = time.perf_counter()
+            yield
+            b = time.perf_counter()
+        self.marks.setdefault(label, []).append((a, b))
+
+    def ms(self) -> dict:
+        if self.cuda:
+            self.torch.cuda.synchronize()
+        return {k: sum((a.elapsed_time(b) if self.cuda else (b - a) * 1e3)
+                       for a, b in v) for k, v in self.marks.items()}
+
+
+def _step_breakdown(torch, cfg, params, state, opt, toks, labels) -> dict:
+    """One training step (remat on) cut into its parts, device ms each:
+    the forward, the backward and the AdamW update; inside them kernels 3
+    and 4 (their launches in the forward, and again in the backward's
+    remat recompute) and their plain backward (``flash_prefill_vjp``,
+    ``ssd_vjp``).  The kernels and the VJPs are timed through wrappers
+    put in place of the module names their autograd nodes call; the
+    parameters are updated as in any step."""
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.models.transformer import loss_fn
+    from repro_torch.train.optimizer import apply_updates
+    from repro_torch.train.pytree import leaves, tree_map, unflatten
+
+    spans = _Spans(torch, toks.device)
+    phase = ["forward"]
+
+    def timed(fn, label):
+        def run(*a, **kw):
+            with spans.span(f"{label} ({phase[0]})"):
+                return fn(*a, **kw)
+        return run
+
+    class _TimedKernel:
+        def __init__(self, k, label):
+            self.k, self.label = k, label
+
+        def __call__(self, *a, **kw):
+            with spans.span(f"{self.label} ({phase[0]})"):
+                self.k(*a, **kw)
+
+    saved = (fp.FLASH_KERNEL, ss.SSD_KERNEL, fp.flash_prefill_vjp,
+             ss.ssd_vjp)
+    fp.FLASH_KERNEL = _TimedKernel(saved[0], "kernel 3")
+    ss.SSD_KERNEL = _TimedKernel(saved[1], "kernel 4")
+    fp.flash_prefill_vjp = timed(saved[2], "kernel 3 plain VJP")
+    ss.ssd_vjp = timed(saved[3], "kernel 4 plain VJP")
+    try:
+        alias = tree_map(lambda p: p.detach().requires_grad_(), params)
+        with spans.span("forward"):
+            loss = loss_fn(alias, cfg, toks, labels, remat=True)
+        phase[0] = "backward"
+        with spans.span("backward"):
+            grads = torch.autograd.grad(loss, leaves(alias))
+        with spans.span("optimizer"):
+            apply_updates(params, unflatten(params, grads), state, opt)
+    finally:
+        (fp.FLASH_KERNEL, ss.SSD_KERNEL, fp.flash_prefill_vjp,
+         ss.ssd_vjp) = saved
+    ms = spans.ms()
+    ms["step"] = ms["forward"] + ms["backward"] + ms["optimizer"]
+    return ms
+
+
+def train_full_width(torch, device="cuda", reduced=False) -> dict:
+    """(c) zamba2-1.2b at the published widths and full depth (38 Mamba2
+    layers, the shared attention block every 6), float32 parameters as
+    ``launch/train.py`` makes them, remat on, ``TRAIN_FULL['steps']``
+    AdamW steps of ``synth_batch`` (batch 2 x 1024 tokens).  Every loss
+    must be finite and the mean of the last five below the first; at
+    step 1 every leaf behind a kernel must have a finite, non-zero
+    gradient (``_kernel_leaf_check``); kernels 3 and 4 must launch in
+    every step.  ``reduced``: the reduced config on ``device`` (the CPU
+    rehearsal).  Returns per-step losses, seconds and launches, tokens/s,
+    peak memory, the step's bytes (``train_step_bytes``) and flops."""
+    from repro_torch import configs
+    from repro_torch.core.costmodel import step_flops, train_step_bytes
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import init_params, loss_fn
+    from repro_torch.train.data import DataConfig, synth_batch
+    from repro_torch.train.optimizer import AdamWConfig, init_state
+    from repro_torch.train.pytree import leaves
+    from repro_torch.train.train_step import _value_and_grad, make_train_step
+
+    import numpy as np
+    dev = torch.device(device)
+    _free(torch, dev)
+    t_phase = time.perf_counter()
+    arch = TRAIN_FULL["arch"]
+    cfg = configs.get_reduced(arch) if reduced else configs.get(arch)
+    B, S, steps = ((2, 64, 8) if reduced else
+                   (TRAIN_FULL["batch"], TRAIN_FULL["seq"],
+                    TRAIN_FULL["steps"]))
+    mem = _Memory(torch, dev)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         torch.float32, dev)
+    state = init_state(params)
+    opt = AdamWConfig(lr=TRAIN_FULL["lr"], warmup_steps=2,
+                      total_steps=steps)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
+                      seed=0, n_patterns=2)
+
+    def batch(i):
+        toks, labels, _ = synth_batch(dcfg, i)
+        return (torch.from_numpy(toks).long().to(dev),
+                torch.from_numpy(labels).to(dev))
+    # step 1's gradients (the first step's parameters and batch), checked
+    # leaf by leaf before the steps run
+    _, grads = _value_and_grad(lambda p: loss_fn(p, cfg, *batch(0),
+                                                 remat=True), params)
+    checked = _kernel_leaf_check(torch, grads, cfg)
+    del grads
+    step_fn = make_train_step(cfg, opt, remat=True)
+    losses, secs, per_step = [], [], []
+    for i in range(steps):
+        toks, labels = batch(i)
+        before = ops.launch_counts()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, state, m = step_fn(params, state, toks, labels)
+        losses.append(float(m["loss"]))       # syncs
+        secs.append(time.perf_counter() - t)
+        after = ops.launch_counts()
+        per_step.append({k: after[k] - before[k] for k in after})
+    peak = mem.fold()
+    breakdown = _step_breakdown(torch, cfg, params, state, opt,
+                                *batch(steps))
+    need = ("repro_flash_prefill", "repro_ssd_scan") if dev.type == "cuda" \
+        else ()
+    if not all(np.isfinite(x) for x in losses) or \
+            not sum(losses[-5:]) / 5 < losses[0]:
+        raise AssertionError(f"full-width training: losses {losses}")
+    for i, n in enumerate(per_step):
+        if any(n[s] <= 0 for s in need):
+            raise AssertionError(f"full-width training step {i + 1} "
+                                 f"launched {n}")
+    n_params = sum(p.numel() for p in leaves(params))
+    steady = sorted(secs[1:])[len(secs[1:]) // 2]
+    flops = 3 * step_flops(cfg, B * S, S / 2)      # forward + backward
+    res = dict(
+        config=cfg.name, layers=cfg.n_layers, params=n_params, batch=B,
+        seq=S, steps=steps, losses=losses, step_s=secs,
+        step_s_median=steady, tokens_per_s=B * S / steady,
+        first_step_s=secs[0], peak_gb=peak, held_gb=mem.held,
+        launches_per_step=per_step[-1],
+        launches={k: sum(n[k] for n in per_step) for k in per_step[0]},
+        kernel_leaf_grads=checked, breakdown_ms=breakdown,
+        train_step_bytes=train_step_bytes(cfg, B, S, 4),
+        bytes_bound_s=train_step_bytes(cfg, B, S, 4) / HBM_BYTES_PER_S,
+        flops=flops, flops_bound_s=flops / PEAK_FLOPS["float32"],
+        remat_flops=flops * 4 / 3,
+        seconds=time.perf_counter() - t_phase)
+    del params, state
+    _free(torch, dev)
+    return res
+
+
+def _ring(torch, cache, W: int, n: int):
+    """Ring buffers ``[L, B, KV, W, hd]`` holding positions ``max(0,
+    n - W)`` .. ``n - 1`` of a dense prefill cache ``[L, B, S, KV, hd]``
+    at slot p % W (the positions a windowed decode still reads)."""
+    L, b, _, kv, hd = cache.shape
+    ring = torch.zeros((L, b, kv, W, hd), dtype=cache.dtype,
+                       device=cache.device)
+    pos = torch.arange(max(0, n - W), n, device=cache.device)
+    ring[:, :, :, pos % W] = cache[:, :, pos].permute(0, 1, 3, 2, 4)
+    return ring
+
+
+def _rel(torch, a, ref) -> float:
+    return ((a.float() - ref.float()).abs().max()
+            / ref.float().abs().max()).item()
+
+
+def serve_steps_full_width(torch, device="cuda", reduced=False) -> dict:
+    """(d) ``launch/steps.py`` at the published widths, float32 weights:
+
+    * qwen2-7b prefills 2 rows of ``W + 256`` tokens (W = its
+      sliding_window, 4096) through the windowed prefill, fills ring
+      buffers of width W from its cache and takes ``SERVE_NEW`` greedy
+      ring-buffer decode steps.  The last logits must hold to
+      ``forward(window=W)`` over the whole sequence within
+      ``SERVE_STEPS_TOL`` of its largest |logit|, and differ from the
+      unwindowed forward's by more than that: the ring evicted.  The
+      first ``S + SERVE_NEW − W`` tokens (the ones the window drops by
+      the last step) repeat one token, so what the ring evicts is one
+      coherent signal and not noise that averages out;
+    * zamba2-1.2b (hybrid: dense shared-attention caches) and
+      mamba2-2.7b (SSM) prefill 2 rows of 1024 tokens and take
+      ``SERVE_NEW`` decode steps, held the same way to ``forward``.
+
+    ``reduced``: the reduced configs on ``device`` (CPU rehearsal)."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models.transformer import forward, init_params
+
+    dev = torch.device(device)
+    _free(torch, dev)
+    t_phase = time.perf_counter()
+    get = configs.get_reduced if reduced else configs.get
+    before = ops.launch_counts()
+    mem = _Memory(torch, dev)
+    res = {}
+    rng = np.random.default_rng(21)
+    for arch in ("qwen2-7b", "zamba2-1.2b", "mamba2-2.7b"):
+        t0 = time.perf_counter()
+        cfg = get(arch)
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(1),
+                             torch.float32, dev)
+        W = cfg.sliding_window if cfg.family == "dense" else None
+        S = W + (16 if reduced else 256) if W else (40 if reduced else 1024)
+        toks = rng.integers(0, cfg.vocab_size, (2, S))
+        if W:
+            toks[:, :S + SERVE_NEW - W] = 17
+        seq = torch.from_numpy(toks).to(dev)
+        lens = torch.full((2,), S, dtype=torch.int32, device=dev)
+        with torch.no_grad():
+            out = steps.make_prefill_step(cfg, window=W)(params, seq, lens)
+            if W:
+                caches = [_ring(torch, out[k], W, S)
+                          for k in ("cache_k", "cache_v")]
+            else:
+                caches = [out["ssm_state"], out["conv_tail"]]
+            if cfg.family == "hybrid":
+                for k in ("cache_k", "cache_v"):
+                    c = out[k]
+                    caches.append(torch.cat([c, c.new_zeros(
+                        c.shape[:2] + (SERVE_NEW,) + c.shape[3:])], dim=2))
+            logits = out["logits"]
+            del out
+            dec = steps.make_decode_step(cfg, windowed=W is not None)
+            for t in range(SERVE_NEW):
+                nxt = logits.argmax(-1)
+                seq = torch.cat([seq, nxt[:, None]], dim=1)
+                lens2 = torch.full((2,), S + t + 1, dtype=torch.int32,
+                                   device=dev)
+                logits = dec(params, *caches, nxt, lens2)["logits"]
+            del caches
+            ref = forward(params, cfg, seq, window=W, remat=False)[0][:, -1]
+            r = dict(config=cfg.name, layers=cfg.n_layers, prompt=S,
+                     window=W, decode_steps=SERVE_NEW,
+                     rel_err=_rel(torch, logits, ref),
+                     greedy_equal=bool(torch.equal(logits.argmax(-1),
+                                                   ref.argmax(-1))))
+            if W:
+                full = forward(params, cfg, seq, remat=False)[0][:, -1]
+                r["rel_diff_unwindowed"] = _rel(torch, logits, full)
+                del full
+        del params, ref
+        _free(torch, dev)
+        r["seconds"] = time.perf_counter() - t0
+        res[arch] = r
+        if not (np.isfinite(r["rel_err"]) and r["rel_err"] < SERVE_STEPS_TOL
+                and r.get("rel_diff_unwindowed", 1.0) > SERVE_STEPS_TOL):
+            raise AssertionError(f"serve steps of {cfg.name} against "
+                                 f"forward: {r} (tolerance "
+                                 f"{SERVE_STEPS_TOL})")
+    after = ops.launch_counts()
+    return dict(models=res, peak_gb=mem.fold(),
+                launches={k: after[k] - before[k] for k in after},
+                seconds=time.perf_counter() - t_phase)
+
+
+def print_training(grads: list, reduced: dict, full: dict, served: dict,
+                   card: str) -> None:
+    """The training and serve-step phases' lines, each with the card."""
+    for g in grads:
+        print(f"kernel gradients [{g['label']}] ({card}): Function fwd+bwd "
+              f"{g['ms']:.3f} ms beside plain fwd+bwd {g['plain_ms']:.3f} "
+              f"ms (bound {g['bound_ms']:.4f} ms, {g['bound_by']}); "
+              f"forward max |Δ| {[f'{e:.3g}' for e in g['fwd_max_abs_err']]}"
+              f" <= {[f'{t:.3g}' for t in g['fwd_tolerance']]}; max "
+              f"|Δgrad| / max|plain grad| {g['max_rel_err']:.3g} <= "
+              f"{g['tolerance']}")
+    print("reduced training, card vs CPU: " + json.dumps(reduced))
+    f = full
+    print(f"full-width training ({card}): {f['config']} {f['layers']} "
+          f"layers, {f['params'] / 1e9:.3f} B params f32, batch "
+          f"{f['batch']} x {f['seq']}, remat: loss {f['losses'][0]:.4f} -> "
+          f"{sum(f['losses'][-5:]) / 5:.4f} (mean of the last 5 of "
+          f"{f['steps']}); step {f['step_s_median']:.3f} s (first "
+          f"{f['first_step_s']:.2f} s), {f['tokens_per_s']:.0f} tokens/s, "
+          f"peak {f['peak_gb']:.2f} GB; beside train_step_bytes / 3.35 "
+          f"TB/s {f['bytes_bound_s']:.4f} s and 3 x forward flops / 67 "
+          f"TFLOP/s (f32) {f['flops_bound_s']:.4f} s; launches a step "
+          f"{json.dumps(f['launches_per_step'])}")
+    parts = {k: round(v, 3) for k, v in f["breakdown_ms"].items()}
+    print(f"full-width training step, device ms by part ({card}): "
+          + json.dumps(parts))
+    print("full-width training: " + json.dumps(full))
+    for r in served["models"].values():
+        extra = (f", unwindowed forward differs by "
+                 f"{r['rel_diff_unwindowed']:.4f}"
+                 if "rel_diff_unwindowed" in r else "")
+        win = f", window {r['window']}" if r["window"] else ""
+        print(f"serve steps at full width ({card}): {r['config']} prompt "
+              f"{r['prompt']}{win}, {r['decode_steps']} decode steps: "
+              f"last logits vs "
+              f"forward {r['rel_err']:.3g} of the largest (< "
+              f"{SERVE_STEPS_TOL}){extra}; {r['seconds']:.1f} s")
+    print("serve steps: " + json.dumps(served))
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -3128,25 +3754,9 @@ def main() -> int:
            for hd in (64, 96, 128) for g in (8, 16)}
     print("decode occupancy: " + json.dumps(occ))
 
-    ssd_shapes = [
-        dict(label="mamba2-2.7b chunk step bf16", dtype=torch.bfloat16, b=4,
-             S=64, chunk=64, H=80, G=1, N=128, init=True),
-        dict(label="mamba2-2.7b chunk step bf16, two slots",
-             dtype=torch.bfloat16, b=2, S=64, chunk=64, H=80, G=1, N=128,
-             init=True),
-        dict(label="mamba2-2.7b chunk step bf16, one slot",
-             dtype=torch.bfloat16, b=1, S=64, chunk=64, H=80, G=1, N=128,
-             init=True),
-        dict(label="zamba2-1.2b whole-prompt bucket bf16",
-             dtype=torch.bfloat16, b=2, S=512, chunk=256, H=64, G=1, N=64,
-             init=False),
-        dict(label="zamba2-1.2b whole-prompt bucket bf16, one row",
-             dtype=torch.bfloat16, b=1, S=512, chunk=256, H=64, G=1, N=64,
-             init=False),
-        dict(label="reduced f32, 2 groups, ragged chunk", dtype=torch.float32,
-             b=2, S=72, chunk=32, H=8, G=2, N=16, init=True),
-    ]
-    ssd = {s["label"]: check_ssd(torch, s) for s in ssd_shapes}
+    ssd = {s["label"]: check_ssd(torch, {**s,
+                                         "dtype": getattr(torch, s["dtype"])})
+           for s in SSD_SHAPES}
     for label, r in ssd.items():
         print(f"check [{label}] ssd_scan: " + json.dumps(r))
     int8 = {s["label"]: check_int8(torch, np, s)
@@ -3256,7 +3866,21 @@ def main() -> int:
     recfg = serve_reconfig(torch)
     print_reconfig(recfg, card)
 
-    runs = list(served.values()) + [placed, w8, stream, chaos, prefix, recfg]
+    t0 = time.perf_counter()
+    grads = [check_grads(torch, s) for s in GRAD_SHAPES]
+    print(f"phase (a) kernel gradients: {time.perf_counter() - t0:.1f} s")
+    reduced_train = train_reduced_match(torch)
+    print(f"phase (b) reduced training, card vs CPU: "
+          f"{reduced_train['seconds']:.1f} s")
+    full_train = train_full_width(torch)
+    print(f"phase (c) full-width training: {full_train['seconds']:.1f} s")
+    steps_served = serve_steps_full_width(torch)
+    print(f"phase (d) serve steps at full width: "
+          f"{steps_served['seconds']:.1f} s")
+    print_training(grads, reduced_train, full_train, steps_served, card)
+
+    runs = list(served.values()) + [placed, w8, stream, chaos, prefix, recfg,
+                                    reduced_train, full_train, steps_served]
     launches = {k.symbol: sum(r["launches"][k.symbol] for r in runs)
                 for k in ops.path_kernels()}
     attn_names = {"repro_paged_decode": ("fused_paged_decode_attention",
@@ -3272,7 +3896,7 @@ def main() -> int:
         if k.symbol == "repro_ssd_scan":
             # earlier_ms is a constant, not this run's: the check lines
             # print it, the kernels line does not
-            main_shape, *others = ssd_shapes
+            main_shape, *others = SSD_SHAPES
             measured = {label: {k: v for k, v in r.items()
                                 if k != "earlier_ms"}
                         for label, r in ssd.items()}

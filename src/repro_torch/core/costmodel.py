@@ -80,6 +80,24 @@ def prefill_bytes(cfg: ModelConfig, batch: int, seq: int,
     return w + act + flash
 
 
+def train_step_bytes(cfg: ModelConfig, batch: int, seq: int,
+                     dtype_bytes: int = 2) -> float:
+    """HBM traffic of one optimizer step (fwd + bwd with per-layer
+    remat + AdamW): weights ×3 reads (fwd, remat, bwd) + grad write/
+    read + f32 m/v read+write + param write, plus activation traffic
+    and flash K/V re-reads (fwd ×1, remat+bwd ×2)."""
+    n = cfg.param_count()
+    w_traffic = 3 * n * dtype_bytes          # fwd + remat + bwd reads
+    grads = 2 * n * dtype_bytes              # write + read
+    opt = n * (4 + 4) * 2 + n * dtype_bytes  # m,v rw (f32) + param write
+    act = 12.0 * batch * seq * cfg.d_model * cfg.n_layers * dtype_bytes
+    flash = 3 * (prefill_bytes(cfg, batch, seq, dtype_bytes)
+                 - cfg.param_count() * dtype_bytes
+                 - 2.0 * batch * seq * cfg.d_model * cfg.n_layers
+                 * dtype_bytes)
+    return w_traffic + grads + opt + act + max(flash, 0.0)
+
+
 # ---------------------------------------------------------------------------
 # latencies under a compute fraction f and TP degree
 # ---------------------------------------------------------------------------

@@ -11,6 +11,13 @@ Port of ``repro/kernels/flash_prefill.py``:
   .causal_attention``.
 
 CPU tensors run the plain versions; CUDA tensors launch the kernels.
+``flash_prefill`` is differentiable on both: on CUDA tensors the kernel
+computes the forward and the backward is ``flash_prefill_vjp``, the VJP
+of the plain version recomputed from the saved inputs (training,
+``models/transformer.loss_fn``).  Where no input wants a gradient (the
+serving path) the kernel is launched without the autograd node, which
+costs the host a call's worth of time (PERF.md §6).  The paged kernel
+serves only.
 """
 from __future__ import annotations
 
@@ -111,7 +118,9 @@ def fused_paged_flash_prefill(q, pool_k, pool_v, phys, q_offset):
 def flash_prefill(q, k, v, *, window: Optional[int] = None):
     """Causal attention.  q: [B,S,H,hd]; k/v: [B,S,KV,hd]; ``window``:
     optional sliding window.  Any S (the kernel masks the ragged
-    edge)."""
+    edge).  Differentiable on both devices: on CUDA tensors the kernel
+    computes the forward and ``flash_prefill_vjp`` the backward (through
+    ``_FlashPrefill`` only where an input wants a gradient)."""
     if not runs_kernel("flash_prefill", q, k, v):
         return flash_prefill_plain(q, k, v, window=window)
     B, S, H, hd = q.shape
@@ -123,8 +132,45 @@ def flash_prefill(q, k, v, *, window: Optional[int] = None):
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive, got {window}")
     check_operands("flash_prefill", q.device, q=q, k=k, v=v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashPrefill.apply(q, k, v, window)
+    return _launch_flash(q, k, v, window)
+
+
+def _launch_flash(q, k, v, window):
     out = torch.empty_like(q)
+    B, S, H, hd = q.shape
     FLASH_KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 B, S, H, KV, hd, window or 0, dtype_code(q.dtype),
+                 B, S, H, k.shape[2], hd, window or 0, dtype_code(q.dtype),
                  1.0 / math.sqrt(hd), device=q.device)
     return out
+
+
+def flash_prefill_vjp(q, k, v, grad_out, *, window: Optional[int] = None):
+    """The backward of ``flash_prefill``: the vector-Jacobian product of
+    its plain version at (q, k, v) with ``grad_out``, recomputed from the
+    inputs (the JAX package differentiates the same XLA attention; it
+    has no backward kernel).  Returns (dq, dk, dv)."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = flash_prefill_plain(*ins, window=window)
+        return torch.autograd.grad(out, ins, grad_out)
+
+
+class _FlashPrefill(torch.autograd.Function):
+    """Kernel 3 as an autograd node: the forward launches the kernel,
+    the backward is ``flash_prefill_vjp`` on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window):
+        out = _launch_flash(q, k, v, window)
+        ctx.save_for_backward(q, k, v)
+        ctx.window = window
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v = ctx.saved_tensors
+        return (*flash_prefill_vjp(q, k, v, grad_out, window=ctx.window),
+                None)

@@ -15,6 +15,14 @@ of the chunk, the plain version pads the time axis with ``dt = 0`` and
 zero x/B/C and cuts ``y`` back, and the kernel masks the ragged last
 chunk the same way.  A step with ``dt = 0`` neither decays nor feeds the
 state, so both are exact.
+
+Both are differentiable in every input (x, dt, a_log, B, C, d_skip,
+init_state): on CPU tensors autograd differentiates ``ssd_plain``; on
+CUDA tensors the kernel computes the forward and the backward is
+``ssd_vjp``, the VJP of ``ssd_plain`` recomputed from the saved inputs
+(training, ``models/transformer.loss_fn``).  Where no input wants a
+gradient (the serving path) the kernel is launched without the autograd
+node, which costs the host a call's worth of time (PERF.md §6).
 """
 from __future__ import annotations
 
@@ -208,7 +216,18 @@ def launch(x, dt, a_log, B, C, d_skip, chunk: int,
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One launch of the kernel on operands ``ssd_scan`` has checked, at
     a given plan (``ssd_scan`` makes it: bf16 one of ``plan_launch``'s,
-    float32 ``F32_PLAN``; the kernel refuses any other)."""
+    float32 ``F32_PLAN``; the kernel refuses any other).  Through
+    ``_SsdScan`` (backward ``ssd_vjp``) where an input wants a gradient,
+    else a bare launch."""
+    ins = (x, dt, a_log, B, C, d_skip, init_state)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in ins):
+        return _SsdScan.apply(*ins, chunk, p_slice, warps)
+    return _launch_ssd(*ins, chunk, p_slice, warps)
+
+
+def _launch_ssd(x, dt, a_log, B, C, d_skip, init_state, chunk, p_slice,
+                warps):
     b, S, H, P = x.shape
     G, N = B.shape[2], B.shape[3]
     y = torch.empty_like(x)
@@ -219,3 +238,49 @@ def launch(x, dt, a_log, B, C, d_skip, chunk: int,
                y.data_ptr(), final.data_ptr(), b, S, H, G, N, P, chunk,
                dtype_code(x.dtype), p_slice, warps, device=x.device)
     return y, final
+
+
+def ssd_vjp(x, dt, a_log, B, C, d_skip, chunk: int,
+            init_state: Optional[torch.Tensor], grad_y: torch.Tensor,
+            grad_state: Optional[torch.Tensor]) -> Tuple:
+    """The backward of ``ssd_scan``: the vector-Jacobian product of
+    ``ssd_plain`` at its inputs with the cotangents of (y, final state)
+    (``grad_state`` None: the final state was not used), recomputed from
+    the inputs (the JAX package differentiates the same XLA scan, its
+    ``ssd_chunked``; it has no backward kernel).  Returns the gradients
+    of (x, dt, a_log, B, C, d_skip, init_state); the last is None when
+    ``init_state`` is."""
+    with torch.enable_grad():
+        ins = [None if t is None else t.detach().requires_grad_()
+               for t in (x, dt, a_log, B, C, d_skip, init_state)]
+        y, final = ssd_plain(*ins[:6], chunk, init_state=ins[6])
+        outs, cots = [y], [grad_y]
+        if grad_state is not None:
+            outs.append(final)
+            cots.append(grad_state)
+        wrt = [t for t in ins if t is not None]
+        grads = iter(torch.autograd.grad(outs, wrt, cots))
+        return tuple(None if t is None else next(grads) for t in ins)
+
+
+class _SsdScan(torch.autograd.Function):
+    """Kernel 4 as an autograd node: the forward launches the kernel,
+    the backward is ``ssd_vjp`` on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a_log, B, C, d_skip, init_state, chunk,
+                p_slice, warps):
+        y, final = _launch_ssd(x, dt, a_log, B, C, d_skip, init_state,
+                               chunk, p_slice, warps)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, a_log, B, C, d_skip, init_state)
+        ctx.chunk = chunk
+        return y, final
+
+    @staticmethod
+    def backward(ctx, grad_y, grad_state):
+        *ins, init_state = ctx.saved_tensors
+        if grad_y is None:
+            grad_y = torch.zeros_like(ins[0])
+        grads = ssd_vjp(*ins, ctx.chunk, init_state, grad_y, grad_state)
+        return (*grads, None, None, None)

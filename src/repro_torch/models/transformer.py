@@ -15,21 +15,34 @@ leaves stacked ``[L, ...]`` and matrices ``[d_in, d_out]``:
   hybrid the ssm tree plus ``"shared_attn"``: one attention + MLP block
          (Zamba2-style tied weights) with its own ``ln1``/``ln2``, every
          leaf ``[1, ...]``.
-The serving engine runs its own forward (``serving/engine.py``); the
-training forward waits for the training slice.
+``forward`` is the training / prefill forward of every family (port of
+``repro/models/transformer.py``'s ``forward``): a Python loop over the
+stacked ``[L, ...]`` leaves in place of ``jax.lax.scan``, attention
+through ``kernels/flash_prefill.flash_prefill`` (kernel 3 on CUDA) and
+the SSD scan through ``models/mamba2.ssd_chunked`` (kernel 4 on CUDA),
+both differentiable.  ``remat`` checkpoints each layer (each group of
+``attn_every`` Mamba2 layers and the shared block, for the hybrid) with
+``torch.utils.checkpoint``, as the JAX package's ``jax.checkpoint``.
+``loss_fn`` is the causal LM cross-entropy over the PADDED vocabulary,
+as the reference's.  The serving engine runs its own forward
+(``serving/engine.py``).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.config import ModelConfig, pad_vocab
-from repro_torch.models.layers import init_attn, init_embed, init_mlp
-from repro_torch.models.mamba2 import FLOAT32_LEAVES, init_mamba2
-from repro_torch.models.moe import init_moe
+from repro_torch.kernels.flash_prefill import flash_prefill
+from repro_torch.models import moe as MoE
+from repro_torch.models.layers import (attn_qkv, init_attn, init_embed,
+                                       init_mlp, lm_logits, mlp, rms_norm)
+from repro_torch.models.mamba2 import (FLOAT32_LEAVES, init_mamba2,
+                                       mamba2_mixer)
 
 Params = Dict
 
@@ -62,7 +75,8 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
         return p
     # attention first, then the FFN: the generator's draws in tree order
     layers = init_attn(cfg, L, gen, dtype, device)
-    layers.update(init_moe(cfg, L, gen, dtype, device) if cfg.family == "moe"
+    layers.update(MoE.init_moe(cfg, L, gen, dtype, device)
+                  if cfg.family == "moe"
                   else init_mlp(d, cfg.d_ff, L, gen, dtype, device))
     p["layers"] = {**layers, "ln1": ones(L), "ln2": ones(L)}
     return p
@@ -89,3 +103,134 @@ def params_to_torch(tree, device="cuda", dtype=torch.float32,
                            or _key.endswith("_s")) else dtype
     return torch.from_numpy(np.array(tree, np.float32)).to(
         device=device, dtype=to)
+
+
+# ---------------------------------------------------------------------------
+# forward (train / prefill semantics: full sequence, causal)
+# ---------------------------------------------------------------------------
+def _attn_block(x, lp, li, cfg: ModelConfig, positions, window):
+    h = rms_norm(x, lp["ln1"][li], cfg.rms_eps)
+    q, k, v = attn_qkv(h, lp, li, cfg, positions)
+    o = flash_prefill(q, k, v, window=window)
+    b, s, _, _ = o.shape
+    return x + o.reshape(b, s, -1) @ lp["wo"][li]
+
+
+def _mlp_block(x, lp, li, cfg: ModelConfig):
+    h = rms_norm(x, lp["ln2"][li], cfg.rms_eps)
+    return x + mlp(h, lp, li)
+
+
+def _moe_block(x, lp, li, cfg: ModelConfig, dropless: bool = False):
+    h = rms_norm(x, lp["ln2"][li], cfg.rms_eps)
+    fn = MoE.moe_ffn_dropless if dropless else MoE.moe_ffn
+    out, aux = fn(h, lp, li, cfg)
+    return x + out, aux
+
+
+def _ssm_layer(x, lp, li, cfg: ModelConfig):
+    h = rms_norm(x, lp["ln1"][li], cfg.rms_eps)
+    out, _ = mamba2_mixer(h, lp, li, cfg)
+    return x + out
+
+
+def embed_inputs(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                 prefix_emb: Optional[torch.Tensor] = None) -> torch.Tensor:
+    x = params["tok"]["embed"][tokens]                   # [B,S,d]
+    if prefix_emb is not None:
+        x = torch.cat([prefix_emb.to(x.dtype), x], dim=1)
+    return x
+
+
+def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+            prefix_emb: Optional[torch.Tensor] = None,
+            window: Optional[int] = None,
+            remat: bool = True,
+            moe_dropless: bool = False,
+            slice_vocab: bool = True
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full causal forward.  Returns (logits [B, S_total, vocab],
+    aux_loss, a float32 scalar: the MoE layers' load-balance loss summed,
+    0 for the other families).
+
+    ``window`` optionally restricts attention (sliding-window variant);
+    ``moe_dropless`` picks the dropless MoE FFN, else the capacity FFN;
+    ``slice_vocab=False`` keeps the padded vocabulary's columns."""
+    x = embed_inputs(params, cfg, tokens, prefix_emb)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    lp = params["layers"]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def run(fn, *args):
+        if remat:
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
+    if cfg.family in ("dense", "vlm", "audio", "moe"):
+        def layer(x, li):
+            x = _attn_block(x, lp, li, cfg, positions, window)
+            if cfg.family == "moe":
+                return _moe_block(x, lp, li, cfg, moe_dropless)
+            return _mlp_block(x, lp, li, cfg), None
+
+        for li in range(cfg.n_layers):
+            x, a = run(layer, x, li)
+            if a is not None:
+                aux = aux + a
+
+    elif cfg.family == "ssm":
+        for li in range(cfg.n_layers):
+            x = run(_ssm_layer, x, lp, li, cfg)
+
+    elif cfg.family == "hybrid":
+        # [attn_every x mamba2 -> shared attn + MLP] x n_groups, then the
+        # ungrouped tail layers
+        sa = params["shared_attn"]
+        n_groups = cfg.n_layers // cfg.attn_every
+
+        def group(x, gi):
+            for j in range(cfg.attn_every):
+                x = _ssm_layer(x, lp, gi * cfg.attn_every + j, cfg)
+            x = _attn_block(x, sa, 0, cfg, positions, window)
+            return _mlp_block(x, sa, 0, cfg)
+
+        for gi in range(n_groups):
+            x = run(group, x, gi)
+        for li in range(n_groups * cfg.attn_every, cfg.n_layers):
+            x = _ssm_layer(x, lp, li, cfg)
+    else:
+        raise ValueError(cfg.family)
+
+    logits = lm_logits(x, params["tok"], cfg)
+    if slice_vocab:
+        logits = logits[..., :cfg.vocab_size]
+    return logits, aux
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token cross-entropy over the labels >= 0 (−100 masks), in
+    float32, as the reference computes it: the max is taken out without
+    a gradient, the log-sum-exp runs over every column of ``logits``."""
+    mask = labels >= 0
+    safe = labels.clamp(min=0).long()
+    lmax = logits.max(dim=-1, keepdim=True).values.detach()
+    shifted = (logits - lmax).float()
+    lse = torch.log(torch.exp(shifted).sum(dim=-1))
+    picked = torch.gather(shifted, -1, safe[..., None])[..., 0]
+    nll = lse - picked
+    n = mask.sum().clamp(min=1)
+    return (nll * mask).sum() / n
+
+
+def loss_fn(params: Params, cfg: ModelConfig, tokens, labels,
+            prefix_emb=None, remat: bool = True) -> torch.Tensor:
+    """Causal LM cross-entropy (labels −100 are masked) plus the MoE
+    aux loss.  The logits keep the padded vocabulary (``slice_vocab=
+    False``), as the reference's: labels never index the padding, but
+    its columns enter the log-sum-exp."""
+    logits, aux = forward(params, cfg, tokens, prefix_emb, remat=remat,
+                          slice_vocab=False)
+    if prefix_emb is not None:
+        logits = logits[:, prefix_emb.shape[1]:]
+    return cross_entropy(logits, labels) + aux

@@ -10,10 +10,12 @@ Hopper kernels, CPU tensors run their plain versions.  Unlike the JAX
 package the KV writes and the block-group copy update the arena in
 place: the steps never re-read a pre-step pool, so nothing needs the
 old contents, and the pool's ``k``/``v`` stay views onto its arena
-buffers (``UnifiedKVPool._k_buf``/``_v_buf``).
+buffers (``UnifiedKVPool._k_buf``/``_v_buf``).  So does ``write_window``,
+the sliding-window decode's ring-buffer write.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -29,7 +31,8 @@ from repro_torch.paging import resolve_physical_blocks
 __all__ = ["TokenSlots", "token_slots", "write_slots", "write_tokens",
            "copy_block_groups", "resolve_physical_blocks", "fused_paged_decode_attention",
            "paged_decode_attention", "fused_paged_chunk_attention",
-           "paged_chunk_attention", "flash_prefill"]
+           "paged_chunk_attention", "flash_prefill",
+           "windowed_decode_attention", "write_window"]
 
 
 def copy_block_groups(pool_k, pool_v, src_bases, dst_bases, n_kv, n_layers,
@@ -141,3 +144,46 @@ def paged_chunk_attention(q, pool_k, pool_v, table, q_offset, layer, n_kv):
     """
     phys = resolve_physical_blocks(table, layer, n_kv)
     return fused_paged_chunk_attention(q, pool_k, pool_v, phys, q_offset)
+
+
+def windowed_decode_attention(q, win_k, win_v, seq_lens, window):
+    """Decode attention over a ring-buffer sliding-window cache.
+
+    q: [B,H,hd]; win_k/v: [B, KV, W, hd] ring buffers; seq_lens: [B]
+    (length including current token).  Slot for position p is p % W.
+    Operands meet in the wider type, scores and softmax in float32,
+    probabilities cast to q's dtype before P·V, as the reference (plain
+    PyTorch: the reference's is XLA, no Pallas kernel).
+    """
+    B, H, hd = q.shape
+    KV, W = win_k.shape[1], win_k.shape[2]
+    group = H // KV
+    scale = 1.0 / math.sqrt(hd)
+    dt = torch.promote_types(q.dtype, win_k.dtype)
+    qh = q.reshape(B, KV, group, hd).to(dt)
+    scores = torch.einsum("bkgd,bkwd->bkgw", qh, win_k.to(dt)).float() * scale
+    # valid slots: positions in [seq_len - min(seq_len, W), seq_len)
+    slot = torch.arange(W, device=q.device)[None, :]
+    cur = seq_lens.reshape(B, 1).long()
+    # position stored in slot s: the largest p < cur with p % W == s
+    p_in_slot = cur - 1 - torch.remainder(cur - 1 - slot, W)
+    valid = (p_in_slot >= 0) & (p_in_slot >= cur - W)
+    scores = torch.where(valid[:, None, None, :], scores, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    dt = torch.promote_types(q.dtype, win_v.dtype)
+    return torch.einsum("bkgw,bkwd->bkgd", probs.to(dt),
+                        win_v.to(dt)).reshape(B, H, hd)
+
+
+def write_window(win_k, win_v, k_new, v_new, pos):
+    """Write one token's KV into the ring buffer at slot pos % W, in
+    place (the reference returns updated copies).
+
+    win_k/v: [B,KV,W,hd]; k_new/v_new: [B,KV,hd]; pos: [B].
+    Returns (win_k, win_v), the tensors it was given."""
+    W = win_k.shape[2]
+    slot = torch.remainder(pos.long(), W)
+    b_idx = torch.arange(win_k.shape[0], device=win_k.device)
+    win_k[b_idx, :, slot] = k_new.to(win_k.dtype)
+    win_v[b_idx, :, slot] = v_new.to(win_v.dtype)
+    return win_k, win_v

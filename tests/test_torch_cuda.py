@@ -682,3 +682,100 @@ def test_two_mesh_plan_serves_on_the_card(dev):
     for symbol in ("repro_paged_decode", "repro_paged_prefill",
                    "repro_ssd_scan"):
         assert launches[symbol] > 0, launches
+
+
+# kernels 3 and 4 on the training path: inputs that require grad give an
+# output whose grad_fn is the kernel's autograd node, the forward launches
+# the kernel once and the backward none, and the gradients (the plain
+# version's VJP from the saved inputs) equal autograd through the plain
+# version on the same inputs, relative to the largest plain gradient
+def _grads_close(got, ref, tol):
+    for a, b in zip(got, ref):
+        scale = b.float().abs().max().item()
+        err = (a.float() - b.float()).abs().max().item()
+        assert torch.isfinite(a.float()).all() and err <= tol * scale, \
+            (err, scale)
+
+
+@pytest.mark.parametrize("dtype,S,H,KV,hd,window", [
+    (torch.float32, 256, 32, 32, 64, None),      # zamba2 shared attention
+    (torch.bfloat16, 256, 32, 32, 64, None),
+    (torch.bfloat16, 300, 28, 4, 128, 128),       # qwen2-7b, windowed
+])
+def test_flash_kernel_gradients_match_plain(dev, dtype, S, H, KV, hd,
+                                            window):
+    g = torch.Generator(device=dev).manual_seed(6)
+    q, k, v, go = (torch.randn((2, S, n, hd), generator=g,
+                               device=dev).to(dtype)
+                   for n in (H, KV, KV, H))
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    n0 = fp.FLASH_KERNEL.launches
+    out = fp.flash_prefill(*ins, window=window)
+    assert type(out.grad_fn).__name__ == "_FlashPrefillBackward"
+    assert fp.FLASH_KERNEL.launches == n0 + 1
+    got = torch.autograd.grad(out, ins, go)
+    assert fp.FLASH_KERNEL.launches == n0 + 1     # the backward is plain
+    ref_ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref = torch.autograd.grad(fp.flash_prefill_plain(*ref_ins,
+                                                     window=window),
+                              ref_ins, go)
+    torch.cuda.synchronize()
+    _grads_close(got, ref, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype,b,S,H,N,chunk,init", [
+    (torch.float32, 2, 512, 64, 64, 256, False),   # zamba2 scan
+    (torch.float32, 2, 128, 8, 16, 32, True),
+    (torch.bfloat16, 2, 512, 64, 64, 256, True),
+])
+def test_ssd_kernel_gradients_match_plain(dev, dtype, b, S, H, N, chunk,
+                                          init):
+    arrs = _ssd_inputs(dev, dtype, b, S, H, 1, N, init, seed=3)
+    ins = [None if t is None else t.clone().requires_grad_() for t in arrs]
+    n0 = ss.SSD_KERNEL.launches
+    y, fs = ss.ssd_scan(*ins[:6], chunk, ins[6])
+    assert type(y.grad_fn).__name__ == "_SsdScanBackward"
+    assert ss.SSD_KERNEL.launches == n0 + 1
+    g = torch.Generator(device=dev).manual_seed(7)
+    gy = torch.randn(y.shape, generator=g, device=dev).to(dtype)
+    gs = torch.randn(fs.shape, generator=g, device=dev)
+    wrt = [t for t in ins if t is not None]
+    got = torch.autograd.grad((y, fs), wrt, (gy, gs))
+    assert ss.SSD_KERNEL.launches == n0 + 1
+    ref_ins = [None if t is None else t.detach().clone().requires_grad_()
+               for t in arrs]
+    ry, rfs = ss.ssd_plain(*ref_ins[:6], chunk, ref_ins[6])
+    ref = torch.autograd.grad((ry, rfs), [t for t in ref_ins
+                                          if t is not None], (gy, gs))
+    torch.cuda.synchronize()
+    _grads_close(got, ref, TOL[dtype])
+
+
+# without a gradient to take (inputs that want none, or no_grad, as on
+# the serving path) kernels 3 and 4 launch with no autograd node
+@pytest.mark.parametrize("wants_grad", [False, True])
+def test_kernels_3_4_launch_bare_without_a_gradient(dev, wants_grad):
+    g = torch.Generator(device=dev).manual_seed(8)
+    q, k, v = (torch.randn((2, 80, n, 64), generator=g, device=dev)
+               .to(torch.bfloat16) for n in (8, 2, 2))
+    arrs = _ssd_inputs(dev, torch.bfloat16, 2, 128, 8, 1, 16, True, seed=4)
+    if wants_grad:
+        q, k, v = (t.requires_grad_() for t in (q, k, v))
+        arrs = [None if t is None else t.requires_grad_() for t in arrs]
+    n3, n4 = fp.FLASH_KERNEL.launches, ss.SSD_KERNEL.launches
+    with torch.no_grad():
+        out = fp.flash_prefill(q, k, v)
+        y, fs = ss.ssd_scan(*arrs[:6], 32, arrs[6])
+    assert out.grad_fn is None and y.grad_fn is None and fs.grad_fn is None
+    assert fp.FLASH_KERNEL.launches == n3 + 1
+    assert ss.SSD_KERNEL.launches == n4 + 1
+    ref = fp.flash_prefill_plain(q.detach().float(), k.detach().float(),
+                                 v.detach().float())
+    ry, rfs = ss.ssd_plain(*(None if t is None else t.detach()
+                             for t in arrs[:6]), 32,
+                           None if arrs[6] is None else arrs[6].detach())
+    torch.cuda.synchronize()
+    assert (out.float() - ref).abs().max().item() <= TOL[torch.bfloat16]
+    for a, b in ((y, ry), (fs, rfs)):
+        assert (a.float() - b.float()).abs().max().item() <= \
+            TOL[torch.bfloat16] * b.float().abs().max().item()

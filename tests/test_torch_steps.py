@@ -1,7 +1,12 @@
 """The port's serve steps (``repro_torch.launch.steps``) against the
 JAX package's (``repro.launch.steps``), on the CPU, at the reduced
 qwen2-7b (QKV bias), qwen3-14b (QK-norm), granite-moe-3b-a800m and
-qwen3-moe-235b-a22b (MoE; QK-norm) sizes.  The MoE steps run the
+qwen3-moe-235b-a22b (MoE; QK-norm) sizes; the SSM (mamba2-2.7b) and
+hybrid (zamba2-1.2b, dense and windowed shared-attention caches)
+steps, the ring-buffer sliding-window decode and the vlm / audio
+``prefix_emb`` prefill at 2e-5 as well; and, in the port alone, prefill
+then decode against its ``forward`` for all ten architectures, as
+``tests/test_steps.py`` holds the reference.  The MoE steps run the
 capacity FFN by default and the dropless FFN with ``moe_dropless``, as
 the reference's.
 
@@ -47,6 +52,8 @@ from repro_torch import configs as tconfigs
 from repro_torch.launch import steps as TS
 from repro_torch.models.transformer import params_to_torch
 from repro_torch.serving import quantize as TQ
+
+from conftest import ALL_ARCHS
 
 torch.set_num_threads(2)
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -268,9 +275,250 @@ def test_decode_writes_in_place_and_drops_out_of_range_positions():
 
 
 def test_unported_branches_raise():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TS.make_prefill_step(tconfigs.get_reduced("mamba2-2.7b"))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TS.make_decode_step_w8kv8(tconfigs.get_reduced("zamba2-1.2b"))
-    with pytest.raises(NotImplementedError, match="sliding-window"):
-        TS.make_decode_step(tconfigs.get_reduced("qwen2-7b"), windowed=True)
+    """The W8/KV8 step refuses the SSM and hybrid families, as the JAX
+    step does (it asserts an attention family)."""
+    for arch in ("mamba2-2.7b", "zamba2-1.2b"):
+        with pytest.raises(NotImplementedError, match="no W8/KV8 step"):
+            TS.make_decode_step_w8kv8(tconfigs.get_reduced(arch))
+        with pytest.raises(AssertionError):
+            JS.make_decode_step_w8kv8(jconfigs.get_reduced(arch))
+
+
+# ---------------------------------------------------------------------------
+# the SSM, hybrid, windowed and prefix steps against the reference's
+# ---------------------------------------------------------------------------
+def _params(arch, seed=0):
+    cfg = jconfigs.get_reduced(arch)
+    jp = jinit(jax.random.PRNGKey(seed), cfg, jnp.float32)
+    return cfg, jp, params_to_torch(jax.tree_util.tree_map(np.asarray, jp),
+                                    "cpu")
+
+
+def _ring(cache, W, n):
+    """Ring buffers ``[L, B, KV, W, hd]`` holding the first ``n``
+    positions of a dense cache ``[L, B, S, KV, hd]`` at slot p % W, as
+    the reference test fills them (later positions overwrite)."""
+    L, b, _, kv, hd = cache.shape
+    ring = np.zeros((L, b, kv, W, hd), np.float32)
+    for p in range(n):
+        ring[:, :, :, p % W] = cache[:, :, p]
+    return ring
+
+
+def _check(port: dict, ref: dict, keys):
+    for key in keys:
+        np.testing.assert_allclose(port[key].numpy(), _np(ref[key]),
+                                   err_msg=key, **TOL)
+
+
+@pytest.mark.parametrize("arch,windowed", [("mamba2-2.7b", False),
+                                           ("zamba2-1.2b", False),
+                                           ("zamba2-1.2b", True)])
+def test_ssm_and_hybrid_steps_match_reference(arch, windowed):
+    """Prefill (rows of different lengths, the length mask) and three
+    decode steps fed the reference's greedy token: logits and every
+    cache within 2e-5; the port's decode writes its caches in place."""
+    cfg, jp, tp = _params(arch)
+    tcfg = tconfigs.get_reduced(arch)
+    toks, lens = _inputs(cfg)
+    jo = JS.make_prefill_step(cfg, moe_dropless=True)(
+        jp, jnp.asarray(toks), jnp.asarray(lens))
+    to = TS.make_prefill_step(tcfg, moe_dropless=True)(
+        tp, _t(toks).long(), _t(lens))
+    keys = ["logits", "ssm_state", "conv_tail"] + (
+        ["cache_k", "cache_v"] if cfg.family == "hybrid" else [])
+    _check(to, jo, keys)
+    jc = [jo["ssm_state"], jo["conv_tail"]]
+    if cfg.family == "hybrid":
+        for key in ("cache_k", "cache_v"):
+            c = _np(jo[key])
+            if windowed:
+                # rows share the ring's fill: the reference test's way
+                c = _ring(c, cfg.sliding_window, SP)
+            else:
+                c = np.concatenate([c, np.zeros(c.shape[:2] + (N_NEW,)
+                                                + c.shape[3:], np.float32)],
+                                   axis=2)
+            jc.append(jnp.asarray(c))
+    tc = [_t(a) for a in jc]
+    jdec = JS.make_decode_step(cfg, windowed=windowed, moe_dropless=True)
+    tdec = TS.make_decode_step(tcfg, windowed=windowed, moe_dropless=True)
+    logits = _np(jo["logits"])
+    for t in range(N_NEW):
+        nxt = logits.argmax(-1).astype(np.int32)
+        lens2 = lens + t + 1
+        jd = jdec(jp, *jc, jnp.asarray(nxt), jnp.asarray(lens2))
+        td = tdec(tp, *tc, _t(nxt).long(), _t(lens2))
+        for key, c in zip(keys[1:], tc):
+            assert td[key] is c, key                       # in place
+        _check(td, jd, keys)
+        jc = [jd[k] for k in keys[1:]]
+        logits = _np(jd["logits"])
+
+
+def test_windowed_decode_matches_reference():
+    """The attention families' ring-buffer decode (``write_window``,
+    ``windowed_decode_attention``) past the window: logits and ring
+    buffers within 2e-5."""
+    cfg, jp, tp = _params("qwen2-7b")
+    W = cfg.sliding_window
+    sp = W + 8
+    rng = np.random.default_rng(4)
+    toks = rng.integers(0, cfg.vocab_size, (B, sp)).astype(np.int32)
+    lens = np.full((B,), sp, np.int32)
+    jo = JS.make_prefill_step(cfg, window=W)(jp, jnp.asarray(toks),
+                                             jnp.asarray(lens))
+    to = TS.make_prefill_step(tconfigs.get_reduced("qwen2-7b"), window=W)(
+        tp, _t(toks).long(), _t(lens))
+    _check(to, jo, ("logits", "cache_k", "cache_v"))
+    jc = [jnp.asarray(_ring(_np(jo[k]), W, sp)) for k in ("cache_k",
+                                                          "cache_v")]
+    tc = [_t(a) for a in jc]
+    jdec = JS.make_decode_step(cfg, windowed=True)
+    tdec = TS.make_decode_step(tconfigs.get_reduced("qwen2-7b"),
+                               windowed=True)
+    logits = _np(jo["logits"])
+    for t in range(N_NEW):
+        nxt = logits.argmax(-1).astype(np.int32)
+        lens2 = lens + t + 1
+        jd = jdec(jp, *jc, jnp.asarray(nxt), jnp.asarray(lens2))
+        td = tdec(tp, *tc, _t(nxt).long(), _t(lens2))
+        assert td["wkey"] is tc[0] and td["wval"] is tc[1]
+        _check(td, jd, ("logits", "wkey", "wval"))
+        jc = [jd["wkey"], jd["wval"]]
+        logits = _np(jd["logits"])
+
+
+@pytest.mark.parametrize("arch", ["phi-3-vision-4.2b", "musicgen-medium"])
+def test_prefix_prefill_matches_reference(arch):
+    """The vlm / audio prefill with ``prefix_emb``: the embeddings go
+    before the tokens, the last-token logits sit at ``lens + n_pre − 1``
+    and the caches cover prefix and prompt."""
+    cfg, jp, tp = _params(arch)
+    toks, lens = _inputs(cfg)
+    prefix = np.random.default_rng(5).standard_normal(
+        (B, cfg.n_prefix_tokens, cfg.frontend_dim)).astype(np.float32)
+    jo = JS.make_prefill_step(cfg)(jp, jnp.asarray(toks), jnp.asarray(lens),
+                                   jnp.asarray(prefix))
+    to = TS.make_prefill_step(tconfigs.get_reduced(arch))(
+        tp, _t(toks).long(), _t(lens), _t(prefix))
+    assert to["cache_k"].shape[2] == SP + cfg.n_prefix_tokens
+    _check(to, jo, ("logits", "cache_k", "cache_v"))
+
+
+# ---------------------------------------------------------------------------
+# prefill then decode against the port's forward (tests/test_steps.py)
+# ---------------------------------------------------------------------------
+def _gen(cfg, params, n_new=4, s_prompt=16, windowed=False, window=None):
+    """The reference test's ``_gen`` on the port: prefill, then greedy
+    decode steps; returns (sequence, last logits, prefix)."""
+    g = torch.Generator().manual_seed(0)
+    b = 2
+    s_cache = s_prompt + n_new
+    toks = torch.randint(0, cfg.vocab_size, (b, s_prompt), generator=g)
+    lens = torch.full((b,), s_prompt, dtype=torch.int32)
+    prefix = None
+    if cfg.frontend_dim:
+        prefix = torch.randn((b, cfg.n_prefix_tokens, cfg.frontend_dim),
+                             generator=g)
+    pre = TS.make_prefill_step(cfg, moe_dropless=True, window=window)
+    out = pre(params, toks, lens) if prefix is None else \
+        pre(params, toks, lens, prefix)
+    dec = TS.make_decode_step(cfg, windowed=windowed, moe_dropless=True)
+    seq, logits = toks, out["logits"]
+    n_pre = 0 if prefix is None else prefix.shape[1]
+
+    def step(t):
+        nxt = logits.argmax(-1)
+        return nxt, torch.cat([seq, nxt[:, None]], 1), torch.full(
+            (b,), n_pre + s_prompt + t + 1, dtype=torch.int32)
+
+    if cfg.family in TS.ATTENTION_FAMILIES:
+        if windowed:
+            W = cfg.sliding_window
+            ck = torch.from_numpy(_ring(out["cache_k"].numpy(), W,
+                                        s_prompt + n_pre))
+            cv = torch.from_numpy(_ring(out["cache_v"].numpy(), W,
+                                        s_prompt + n_pre))
+        else:
+            shape = (cfg.n_layers, b, s_cache + n_pre, cfg.n_kv_heads,
+                     cfg.hd)
+            ck, cv = torch.zeros(shape), torch.zeros(shape)
+            ck[:, :, :s_prompt + n_pre] = out["cache_k"]
+            cv[:, :, :s_prompt + n_pre] = out["cache_v"]
+        caches = (ck, cv)
+    elif cfg.family == "ssm":
+        caches = (out["ssm_state"], out["conv_tail"])
+    else:
+        shape = (cfg.n_layers // cfg.attn_every, b, s_cache,
+                 cfg.n_kv_heads, cfg.hd)
+        ck, cv = torch.zeros(shape), torch.zeros(shape)
+        ck[:, :, :s_prompt] = out["cache_k"]
+        cv[:, :, :s_prompt] = out["cache_v"]
+        caches = (out["ssm_state"], out["conv_tail"], ck, cv)
+    for t in range(n_new):
+        nxt, seq, lens2 = step(t)
+        logits = dec(params, *caches, nxt, lens2)["logits"]
+    return seq, logits, prefix
+
+
+def _port_params(arch, seed=0):
+    cfg = tconfigs.get_reduced(arch)
+    from repro_torch.models.transformer import init_params
+    return cfg, init_params(cfg, torch.Generator().manual_seed(seed),
+                            torch.float32, "cpu")
+
+
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_decode_matches_full_forward(arch):
+    from repro_torch.models.transformer import forward
+    cfg, params = _port_params(arch)
+    seq, logits, prefix = _gen(cfg, params)
+    ref, _ = forward(params, cfg, seq, prefix_emb=prefix, remat=False,
+                     moe_dropless=True)
+    err = float((logits - ref[:, -1]).abs().max())
+    assert err < 5e-4, f"{arch}: decode diverges from forward by {err}"
+    assert torch.isfinite(logits).all()
+
+
+def test_windowed_decode_matches_windowed_forward():
+    """Ring-buffer sliding-window decode == windowed full attention."""
+    from repro_torch.models.transformer import forward
+    cfg, params = _port_params("qwen2-7b")
+    W = cfg.sliding_window
+    seq, logits, _ = _gen(cfg, params, n_new=4, s_prompt=16, windowed=True,
+                          window=W)
+    ref, _ = forward(params, cfg, seq, remat=False, window=W)
+    assert float((logits - ref[:, -1]).abs().max()) < 5e-4
+
+
+def test_windowed_decode_evicts():
+    """With a prompt longer than the window, the ring buffer holds only
+    the last W positions: the decode equals the windowed forward and
+    differs from the full one."""
+    from repro_torch.models.transformer import forward
+    cfg, params = _port_params("qwen2-7b", seed=1)
+    W = cfg.sliding_window
+    seq, logits, _ = _gen(cfg, params, n_new=3, s_prompt=W + 16,
+                          windowed=True, window=W)
+    ref_w, _ = forward(params, cfg, seq, remat=False, window=W)
+    ref_f, _ = forward(params, cfg, seq, remat=False)
+    assert float((logits - ref_w[:, -1]).abs().max()) < 5e-4
+    assert float((logits - ref_f[:, -1]).abs().max()) > 1e-3
+
+
+@pytest.mark.parametrize("arch", [a for a in ALL_ARCHS
+                                  if not tconfigs.get_reduced(a).frontend_dim])
+def test_prefill_respects_lens(arch):
+    """Padded positions beyond lens must not change the last-token
+    logits (continuous batching mixes lengths in one prefill)."""
+    cfg, params = _port_params(arch)
+    toks = torch.randint(0, cfg.vocab_size, (2, 24),
+                         generator=torch.Generator().manual_seed(2))
+    lens = torch.tensor([16, 16], dtype=torch.int32)
+    pre = TS.make_prefill_step(cfg, moe_dropless=True)
+    o1 = pre(params, toks, lens)
+    toks2 = toks.clone()
+    toks2[:, 16:] = 1                      # scribble past lens
+    o2 = pre(params, toks2, lens)
+    assert float((o1["logits"] - o2["logits"]).abs().max()) < 5e-4
