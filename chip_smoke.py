@@ -137,7 +137,19 @@
    (d) the serve steps of ``launch/steps.py`` at full width in f32: the
    sliding-window ring-buffer decode of qwen2-7b past its 4096-token
    window, the hybrid (zamba2-1.2b) and SSM (mamba2-2.7b) prefill and
-   decode, each held to ``forward``.
+   decode, each held to ``forward``;
+12. holds the lowering tools' accounting against the card
+   (``check_lowering``): on the 1×1 host mesh, qwen2-7b prefill_32k and
+   mamba2-2.7b prefill_32k (batch 1 of 32: kernels 3 and 4 at S =
+   32768), qwen2-7b decode_32k (batch 8 of 128), zamba2-1.2b long_500k
+   and zamba2-1.2b train_4k (batch 2 of 256: one AdamW step through
+   kernels 3 and 4) are each dry-run on meta (``launch/dryrun.predict``)
+   and then run once on the card from arguments materialized from a
+   seeded generator: argument bytes equal to the prediction's, outputs
+   of the predicted shapes and dtypes and finite, a serve pair's peak
+   within 1.1 × the predicted peak + 1 GiB (the train pair's ratio
+   printed), the step time of that first call and of a second, warm
+   one printed beside the predicted FLOPs.
 
 Any failed phase raises and the script exits non-zero.  The last two
 lines of standard output are the card (name, power limit) and a JSON
@@ -3703,6 +3715,223 @@ def print_training(grads: list, reduced: dict, full: dict, served: dict,
     print("serve steps: " + json.dumps(served))
 
 
+# ---------------------------------------------------------------------------
+# 12. the lowering tools held against the card
+# ---------------------------------------------------------------------------
+# (arch, shape, batch): each pair's global batch is cut, never its width
+# or its context
+LOWERING_PAIRS = (
+    ("qwen2-7b", "prefill_32k", 1),       # kernel 3 at S = 32768
+    ("mamba2-2.7b", "prefill_32k", 1),    # kernel 4 at S = 32768
+    ("qwen2-7b", "decode_32k", 8),        # ~15 GB of cache
+    ("zamba2-1.2b", "long_500k", None),   # hybrid windowed decode
+    ("zamba2-1.2b", "train_4k", 2),       # one AdamW step, kernels 3 and 4
+)
+# a serve pair's measured peak must stay within 1.1 × predicted + 1 GiB:
+# the plain blocked attention on meta holds more than kernels 3 and 4
+LOWERING_PEAK = (1.1, 2 ** 30)
+LOWERING_LAUNCH = {"prefill_32k": {"qwen2-7b": ("repro_flash_prefill",),
+                                   "mamba2-2.7b": ("repro_ssd_scan",)},
+                   "train_4k": {"zamba2-1.2b": ("repro_flash_prefill",
+                                                "repro_ssd_scan")}}
+# the CPU rehearsal's contexts (reduced widths)
+LOWERING_REDUCED_SEQ = {"train_4k": 64, "prefill_32k": 64,
+                        "decode_32k": 64, "long_500k": 128}
+
+
+@contextlib.contextmanager
+def _reduced_lowering():
+    """The lowering builders on the reduced configs at the rehearsal's
+    contexts (``LOWERING_REDUCED_SEQ``)."""
+    import dataclasses
+    from unittest import mock
+    from repro_torch import configs
+    from repro_torch.launch import specs
+    shapes = {k: dataclasses.replace(v, seq_len=LOWERING_REDUCED_SEQ[k])
+              for k, v in specs.SHAPES.items()}
+    with mock.patch.object(specs, "SHAPES", shapes), \
+            mock.patch.object(configs, "get", configs.get_reduced):
+        yield
+
+
+def _lowering_args(torch, low, gen, dev) -> list:
+    """The abstract arguments of ``low`` on ``dev`` at their dtypes:
+    weights from ``init_params`` (its scales keep the activations finite
+    through full depth), AdamW state from ``init_state``, caches and
+    prefix embeddings normal × 0.1, tokens, labels and last tokens
+    uniform over the vocabulary, and ``lens`` the shape's context (a
+    decode's new token at the cache's last position)."""
+    from repro_torch.launch import specs
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train.optimizer import init_state
+    cfg = low.cfg
+    params = init_params(cfg, gen, dtype=torch.bfloat16, device=dev)
+
+    def like(t):
+        if t.dtype.is_floating_point:
+            return torch.randn(t.shape, generator=gen, dtype=t.dtype,
+                               device=dev).mul_(0.1)
+        return torch.randint(0, cfg.vocab_size, t.shape, generator=gen,
+                             dtype=t.dtype, device=dev)
+
+    def full(t, n):
+        return torch.full(t.shape, n, dtype=t.dtype, device=dev)
+    if low.kind == "train":
+        return [params, init_state(params)] + [like(t) for t in low.args[2:]]
+    if low.kind == "prefill":
+        toks = like(low.args[1])
+        return [params, toks, full(low.args[2], toks.shape[1])] + \
+            [like(t) for t in low.args[3:]]
+    *caches, last, lens = low.args[1:]
+    return [params] + [like(c) for c in caches] + \
+        [like(last), full(lens, specs.SHAPES[low.shape].seq_len)]
+
+
+def _tensor_table(tree) -> list:
+    """[(path, shape, dtype)] of a tree's tensors in JAX's leaf order."""
+    from repro_torch.train.pytree import flatten_with_path, path_str
+    return [(path_str(p), tuple(t.shape), str(t.dtype).split(".")[-1])
+            for p, t in flatten_with_path(tree) if hasattr(t, "shape")]
+
+
+def _unique_bytes(tree) -> int:
+    from repro_torch.train.pytree import leaves
+    seen = {}
+    for t in leaves(tree):
+        if hasattr(t, "untyped_storage"):
+            st = t.untyped_storage()
+            seen[st._cdata] = st.nbytes()
+    return sum(seen.values())
+
+
+def check_lowering(torch, device="cuda", reduced=False) -> dict:
+    """12. The dry-run's accounting held against the card on the 1×1 host
+    mesh, for each of ``LOWERING_PAIRS``: the lowering dry-runs on meta
+    (``launch/dryrun.predict``, depth extrapolated); its arguments are
+    materialized on the card from a seeded generator; the step runs once
+    with the kernels on, timed with CUDA events, the allocator's peak
+    read over it, then once more, warm, for its time alone.  The argument bytes must equal the prediction's, the
+    outputs' shapes and dtypes too, every output must be finite, the
+    pair's kernels must launch, and a serve pair's peak must stay within
+    ``LOWERING_PEAK`` of the predicted one (the train pair's ratio is
+    printed: the kernels' plain VJPs hold S × S scores, the reference's
+    blocked backward never does).  ``reduced``: the reduced configs at
+    short contexts on ``device`` (the CPU rehearsal)."""
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+    from repro_torch.launch.dryrun import predict
+    from repro_torch.launch.mesh import make_host_mesh
+    dev = torch.device(device)
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    own_world = not dist.is_initialized()      # the mesh brings one up
+    rows, launches = {}, {k: 0 for k in ops.launch_counts()}
+    with (_reduced_lowering() if reduced else contextlib.nullcontext()):
+        mesh = make_host_mesh(device)
+        for arch, shape, batch in LOWERING_PAIRS:
+            _free(torch, dev)
+            t0 = time.perf_counter()
+            pred = predict(arch, shape, mesh, batch=batch)
+            an, low = pred.analysis, pred.low
+            predict_s = time.perf_counter() - t0
+            gen = torch.Generator(device=dev).manual_seed(0)
+            args = _lowering_args(torch, low, gen, dev)
+            if _tensor_table(args) != _tensor_table(low.args):
+                raise AssertionError(f"lowering {arch} x {shape}: the "
+                                     f"materialized arguments differ from "
+                                     f"the abstract ones")
+            arg_bytes = _unique_bytes(args)
+            mem = _Memory(torch, dev)
+            ops.reset_launch_counts()
+            out, step_ms = _timed_step(torch, low.step_fn, args, cuda)
+            n = ops.launch_counts()
+            peak = int(mem.fold() * 1e9)
+            for k in launches:
+                launches[k] += n[k]
+            got = _tensor_table(out)
+            finite = all(bool(torch.isfinite(x).all())
+                         for x in _leaves_of(out) if x.is_floating_point())
+            # a second, warm call on the same arguments (a decode rewrites
+            # its token's cache row, a train step takes one more AdamW
+            # step): the first carries the allocator's growth and the
+            # libraries' first use
+            del out
+            warm_ms = _timed_step(torch, low.step_fn, args, cuda)[1]
+            key = f"{arch} x {shape}" + (f" (batch {batch})" if batch
+                                         else "")
+            bound = LOWERING_PEAK[0] * an.peak_bytes + LOWERING_PEAK[1]
+            row = dict(
+                depths=list(pred.depths), units=pred.units,
+                predict_s=predict_s, step_ms=step_ms, warm_ms=warm_ms,
+                flops_predicted=an.costs.flops,
+                bytes_predicted=an.costs.bytes,
+                argument_bytes=arg_bytes,
+                argument_bytes_predicted=an.argument_bytes,
+                peak_bytes=peak, peak_bytes_predicted=an.peak_bytes,
+                peak_ratio=peak / an.peak_bytes,
+                outputs_equal=got == list(an.outputs), finite=finite,
+                launches={k: v for k, v in n.items() if v})
+            rows[key] = row
+            del args
+            if arg_bytes != an.argument_bytes:
+                raise AssertionError(f"lowering {key}: argument bytes "
+                                     f"{arg_bytes} != predicted "
+                                     f"{an.argument_bytes}")
+            if got != list(an.outputs):
+                raise AssertionError(f"lowering {key}: outputs {got} != "
+                                     f"predicted {an.outputs}")
+            if not finite:
+                raise AssertionError(f"lowering {key}: non-finite output")
+            for k in LOWERING_LAUNCH.get(shape, {}).get(arch, ()):
+                if cuda and not n[k]:
+                    raise AssertionError(f"lowering {key}: {k} never "
+                                         f"launched")
+            if cuda and low.kind != "train" and peak > bound:
+                raise AssertionError(
+                    f"lowering {key}: peak {peak} B > {LOWERING_PEAK[0]} "
+                    f"x predicted {an.peak_bytes} B + 1 GiB")
+    if own_world:
+        dist.destroy_process_group()
+    _free(torch, dev)
+    return dict(pairs=rows, launches=launches,
+                seconds=time.perf_counter() - t_phase)
+
+
+def _timed_step(torch, fn, args, cuda: bool):
+    """(``fn(*args)``, its ms): CUDA events on the card, the host's clock
+    on the CPU."""
+    if cuda:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
+        ev[0].record()
+    t = time.perf_counter()
+    out = fn(*args)
+    if cuda:
+        ev[1].record()
+        torch.cuda.synchronize()
+        return out, ev[0].elapsed_time(ev[1])
+    return out, 1e3 * (time.perf_counter() - t)
+
+
+def _leaves_of(tree) -> list:
+    from repro_torch.train.pytree import leaves
+    return [t for t in leaves(tree) if hasattr(t, "is_floating_point")]
+
+
+def print_lowering(res: dict, card: str) -> None:
+    for key, r in res["pairs"].items():
+        gflop = r["flops_predicted"] / 1e9
+        print(f"lowering phase ({card}): {key}: depths {r['depths']} x "
+              f"{r['units']} units, predicted in {r['predict_s']:.1f} s; "
+              f"step {r['step_ms']:.1f} ms cold, {r['warm_ms']:.1f} ms "
+              f"warm, beside {gflop:.1f} GFLOP predicted; "
+              f"args {r['argument_bytes']} B == predicted; peak "
+              f"{r['peak_bytes'] / 2**30:.2f} GiB vs predicted "
+              f"{r['peak_bytes_predicted'] / 2**30:.2f} GiB (ratio "
+              f"{r['peak_ratio']:.3f}); outputs equal, finite; launches "
+              f"{json.dumps(r['launches'])}")
+    print(f"lowering phase: {res['seconds']:.1f} s")
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -3878,9 +4107,12 @@ def main() -> int:
     print(f"phase (d) serve steps at full width: "
           f"{steps_served['seconds']:.1f} s")
     print_training(grads, reduced_train, full_train, steps_served, card)
+    lowering = check_lowering(torch)
+    print_lowering(lowering, card)
 
     runs = list(served.values()) + [placed, w8, stream, chaos, prefix, recfg,
-                                    reduced_train, full_train, steps_served]
+                                    reduced_train, full_train, steps_served,
+                                    lowering]
     launches = {k.symbol: sum(r["launches"][k.symbol] for r in runs)
                 for k in ops.path_kernels()}
     attn_names = {"repro_paged_decode": ("fused_paged_decode_attention",

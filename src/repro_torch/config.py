@@ -2,14 +2,18 @@
 
 Every model served by the port is described by a frozen
 ``ModelConfig``; architectures live in ``repro_torch.configs``.  The
-port keeps its own copy so that it imports nothing of ``repro``; the
-TPU hardware constants and the TPU mesh/sharding geometry are left out.
+port keeps its own copy so that it imports nothing of ``repro``: the
+model configs, the tensor-parallel head geometry (``TPGeometry``), the
+four assigned input shapes (``SHAPES``) and the production mesh
+(``MeshConfig``, the geometry ``launch/mesh.make_production_mesh``
+builds) that the lowering tools read.  The TPU hardware constants are left out.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 # KV-cache pool granularity: one head-wise block holds BLOCK_TOKENS tokens
 # of a single KV head (paper §3.4: "each block holds the KV cache of one
@@ -152,9 +156,93 @@ class ModelConfig:
         return self.param_count() * dtype_bytes
 
 
+@dataclass(frozen=True)
+class TPGeometry:
+    """Padded attention geometry for an exact tensor-parallel layout.
+
+    ``kv_padded = n_kv * 16/gcd(n_kv,16)`` is divisible by ``tp``;
+    each physical kv head appears ``rep`` times.  Query heads are padded
+    so every kv-head replica carries the same number of query heads.
+    Padding cost is real compute/memory waste and is surfaced in the
+    roofline's useful-FLOPs ratio (DESIGN.md §2).
+    """
+    tp: int
+    n_heads: int          # logical q heads
+    n_kv_heads: int       # logical kv heads
+    h_padded: int         # padded q heads (divisible by tp and kv_padded)
+    kv_padded: int        # padded/replicated kv heads (divisible by tp)
+    rep: int              # kv replication factor
+    q_per_rank: int
+    kv_per_rank: int
+    group: int            # q heads per padded kv head
+
+
+def tp_geometry(n_heads: int, n_kv_heads: int, tp: int = 16) -> TPGeometry:
+    g = math.gcd(n_kv_heads, tp)
+    rep = tp // g
+    kv_padded = n_kv_heads * rep
+    group_logical = n_heads // n_kv_heads
+    group = max(1, math.ceil(group_logical / rep))
+    h_padded = kv_padded * group
+    # ensure divisibility by tp (kv_padded already divisible by tp)
+    assert kv_padded % tp == 0 and h_padded % tp == 0
+    return TPGeometry(
+        tp=tp, n_heads=n_heads, n_kv_heads=n_kv_heads,
+        h_padded=h_padded, kv_padded=kv_padded, rep=rep,
+        q_per_rank=h_padded // tp, kv_per_rank=kv_padded // tp,
+        group=group,
+    )
+
+
 def pad_vocab(v: int, multiple: int = 256) -> int:
     return ((v + multiple - 1) // multiple) * multiple
 
+
+# ---------------------------------------------------------------------------
+# input shapes (assigned)
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str          # train | prefill | decode
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4_096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32_768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524_288, 1, "decode")
+
+SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    multi_pod: bool = False
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return (2, 16, 16) if self.multi_pod else (16, 16)
+
+    @property
+    def axes(self) -> Tuple[str, ...]:
+        return ("pod", "data", "model") if self.multi_pod else ("data", "model")
+
+    @property
+    def n_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+    @property
+    def dp(self) -> int:       # total data-parallel ways (pod × data)
+        return self.n_devices // 16
+
+    @property
+    def tp(self) -> int:
+        return 16
 
 
 def replace(cfg, **kw):

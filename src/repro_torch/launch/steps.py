@@ -34,7 +34,11 @@ flash-prefill kernel (``cache_ops.flash_prefill``, any prompt length,
 optional window), the SSM prefill's scan the SSD kernel (through
 ``models/mamba2.mamba2_mixer``), and the W8/KV8 decode attention the
 int8 decode kernel, which reads each layer of the int8 cache in place;
-CPU tensors run their plain versions.  The bf16 decode attends over its
+CPU tensors run their plain versions.  On ``meta`` tensors (the
+dry-run, ``launch/dryrun.py``) a prompt of 1024 tokens or more attends
+through ``layers.blocked_causal_attention``, as the reference's step
+does, and on a mesh the SSM layers of a prefill run sequence-parallel
+over the model axis.  The bf16 decode attends over its
 dense cache or ring buffer in plain PyTorch, and the SSM decode step is
 plain PyTorch: the JAX package has no TPU kernel for them either.
 
@@ -54,8 +58,11 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.kernels.paged_attention_int8 import \
     dense_decode_attention_int8
-from repro_torch.models.layers import (attn_qkv, linear, lm_logits, mlp,
-                                       rms_norm)
+from repro_torch.models.layers import (attention_on_shards, attn_qkv,
+                                       blocked_causal_attention,
+                                       constrain, linear, lm_logits,
+                                       local_region, mlp, model_axis_size,
+                                       on_local_shards, rms_norm)
 from repro_torch.models.mamba2 import mamba2_decode_step, mamba2_mixer
 from repro_torch.models.moe import ffn
 from repro_torch.paging import dense_decode_attention
@@ -66,6 +73,12 @@ from repro_torch.serving.quantize import QLayerView, qmatmul, quantize_kv
 
 ATTENTION_FAMILIES = ("dense", "moe", "vlm", "audio")
 
+# the decode attention's specs on a mesh: rows on (pod, data), heads on
+# model (q [B, H, hd], a cache layer [B, S, KV, hd], a ring [B, KV, W, hd])
+_BD = ("pod", "data")
+_Q, _ROWS = (_BD, "model", None), (_BD,)
+_CACHE, _RING = (_BD, None, "model", None), (_BD, "model", None, None)
+
 
 # ---------------------------------------------------------------------------
 # helpers
@@ -73,7 +86,11 @@ ATTENTION_FAMILIES = ("dense", "moe", "vlm", "audio")
 def _attention_prefill(x, lp, li, cfg, positions, window):
     h = rms_norm(x, lp["ln1"][li], cfg.rms_eps)
     q, k, v = attn_qkv(h, lp, li, cfg, positions)
-    o = flash_prefill(q, k, v, window=window)
+    if q.device.type == "meta" and x.shape[1] >= 1024:
+        o = blocked_causal_attention(q, k, v, window=window)
+    else:
+        o = attention_on_shards(
+            lambda *a: flash_prefill(*a, window=window), q, k, v)
     b, s, _, _ = o.shape
     return x + linear(o.reshape(b, s, -1), lp["wo"][li]), k, v
 
@@ -81,8 +98,8 @@ def _attention_prefill(x, lp, li, cfg, positions, window):
 def _write_dense(ck, cv, k_new, v_new, pos):
     """Insert one token's KV at pos[b], in place.  ck: [B,S,...];
     k_new [B,...]."""
-    _write_rows(ck, k_new, pos)
-    _write_rows(cv, v_new, pos)
+    on_local_shards(_write_rows, [_CACHE, _Q, _ROWS], ck, k_new, pos)
+    on_local_shards(_write_rows, [_CACHE, _Q, _ROWS], cv, v_new, pos)
 
 
 def _write_rows(cache, new, pos):
@@ -113,8 +130,12 @@ def _decode_attend_dense_q(q, ckq, cvq, sk, sv, lens):
 
     ckq/cvq: [B,S,KV,hd] int8; sk/sv: [B,S,KV] f32 per-token scales
     (the int8 decode kernel on CUDA, read in place)."""
-    return dense_decode_attention_int8(q.contiguous(), ckq, cvq, sk, sv,
-                                       lens.to(torch.int32))
+    def attend(q, ckq, cvq, sk, sv, lens):
+        return dense_decode_attention_int8(q.contiguous(), ckq, cvq, sk, sv,
+                                           lens.to(torch.int32))
+    scale = (_BD, None, "model")
+    return local_region(attend, [_Q, _CACHE, _CACHE, scale, scale, _ROWS],
+                        _Q)(q, ckq, cvq, sk, sv, lens)
 
 
 # ---------------------------------------------------------------------------
@@ -174,10 +195,10 @@ def _last(x, lens, n_pre: int = 0):
     return x[torch.arange(x.shape[0], device=x.device), idx]
 
 
-def _ssm_prefill_layer(x, lp, li, cfg, mask):
+def _ssm_prefill_layer(x, lp, li, cfg, mask, sp):
     h = rms_norm(x, lp["ln1"][li], cfg.rms_eps)
     out, st, tail = mamba2_mixer(h, lp, li, cfg, return_cache=True,
-                                 length_mask=mask)
+                                 length_mask=mask, seq_parallel=sp)
     return x + out, st, tail
 
 
@@ -221,9 +242,14 @@ def make_prefill_step(cfg: ModelConfig, window: Optional[int] = None,
             mask = torch.arange(S, device=x.device)[None, :] < \
                 lens.reshape(B, 1)
             lp = params["layers"]
+            sp = model_axis_size()    # sequence-parallel SSD on a mesh
+            # the residual stream stays sequence-sharded on the model
+            # axis, so the slab reshape inside the mixer is local
+            x = constrain(x, ("pod", "data"), "model", None)
             sts, tails = [], []
             for li in range(cfg.n_layers):
-                x, st, tail = _ssm_prefill_layer(x, lp, li, cfg, mask)
+                x, st, tail = _ssm_prefill_layer(x, lp, li, cfg, mask, sp)
+                x = constrain(x, ("pod", "data"), "model", None)
                 sts.append(st)
                 tails.append(tail)
             logits = lm_logits(_last(x, lens), params["tok"], cfg)
@@ -242,9 +268,10 @@ def make_prefill_step(cfg: ModelConfig, window: Optional[int] = None,
             mask = positions < lens.reshape(B, 1)
             lp = params["layers"]
             sa = params["shared_attn"]
+            sp = model_axis_size()    # sequence-parallel SSD on a mesh
             sts, tails, ks, vs = [], [], [], []
             for li in range(cfg.n_layers):
-                x, st, tail = _ssm_prefill_layer(x, lp, li, cfg, mask)
+                x, st, tail = _ssm_prefill_layer(x, lp, li, cfg, mask, sp)
                 sts.append(st)
                 tails.append(tail)
                 if li % cfg.attn_every == cfg.attn_every - 1 and \
@@ -302,12 +329,17 @@ def make_decode_step(cfg: ModelConfig, windowed: bool = False,
 
     def attend(q, k, v, ck, cv, pos, lens):
         # write the token's K/V, then attend over the dense cache or the
-        # ring buffer of width W
+        # ring buffer of width W (on a mesh shard by shard: rows on
+        # (pod, data), kv heads on model)
         if windowed:
-            write_window(ck, cv, k, v, pos)
-            return windowed_decode_attention(q, ck, cv, lens, W)
+            on_local_shards(write_window, [_RING, _RING, _Q, _Q, _ROWS],
+                            ck, cv, k, v, pos, written=2)
+            return local_region(
+                lambda *a: windowed_decode_attention(*a, W),
+                [_Q, _RING, _RING, _ROWS], _Q)(q, ck, cv, lens)
         _write_dense(ck, cv, k, v, pos)
-        return dense_decode_attention(q, ck, cv, lens)
+        return local_region(dense_decode_attention,
+                            [_Q, _CACHE, _CACHE, _ROWS], _Q)(q, ck, cv, lens)
 
     if fam in ATTENTION_FAMILIES:
         keys = ("wkey", "wval") if windowed else ("cache_k", "cache_v")

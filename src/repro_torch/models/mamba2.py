@@ -10,9 +10,10 @@ Layer structure (Mamba2 block):
 The chunked SSD scan is ``ssd_chunked``: the Hopper kernel
 ``kernels/ssd_scan`` on CUDA tensors, its plain version on CPU tensors.
 Decode keeps a per-sequence cache: conv tail [K-1, conv_dim] and SSM
-state [H, P, N] (float32).  The JAX package's mesh paths
-(``causal_conv_slabbed``, ``ssd_seq_parallel``) have no counterpart on
-one GPU and are left out.
+state [H, P, N] (float32).  The mesh paths of the dry-run
+(``causal_conv_slabbed``, ``ssd_seq_parallel``: the sequence cut into
+slabs that ride the model axis) run in plain PyTorch; ``mamba2_mixer``
+takes them with ``seq_parallel > 1``, which only a mesh sets.
 """
 from __future__ import annotations
 
@@ -24,7 +25,8 @@ import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels.ssd_scan import ssd_scan
-from repro_torch.models.layers import _normal, rms_norm
+from repro_torch.models.layers import (_normal, constrain, current_mesh,
+                                       gathered, local_region, rms_norm)
 
 # leaves kept in float32 whatever the weight dtype (as the JAX package's
 # ``init_mamba2`` keeps them)
@@ -81,20 +83,143 @@ def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return F.silu(out + b)
 
 
-# the JAX package's name for the chunked scan: the kernel's wrapper,
-# which runs the plain version on CPU tensors (any S; init_state carries
-# a sequence's state)
-ssd_chunked = ssd_scan
+def causal_conv_slabbed(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                        slabs: int) -> torch.Tensor:
+    """Causal conv over a sequence whose slabs ride the model axis.
+
+    The K−1 halo of each slab is the previous slab's tail, a shift along
+    the (sharded) slab dim: a [B, slabs, K−1, C] boundary exchange
+    instead of a reshard of the whole shifted sequence.  A zero halo for
+    the first slab is a zero conv tail (prefill semantics)."""
+    B_, S, C = x.shape
+    K = w.shape[0]
+    Ls = S // slabs
+    xs = x.reshape(B_, slabs, Ls, C)
+    xs = constrain(xs, ("pod", "data"), "model", None, None)
+    tails = xs[:, :, Ls - (K - 1):, :]                      # [B,slabs,K-1,C]
+    halo = F.pad(tails[:, :-1], (0, 0, 0, 0, 1, 0))
+    xp = torch.cat([halo, xs], dim=2)                       # [B,slabs,K-1+Ls,C]
+    out = sum(xp[:, :, i:i + Ls] * w[i] for i in range(K))
+    out = F.silu(out + b)
+    return out.reshape(B_, S, C)
+
+
+def ssd_chunked(x, dt, a_log, B, C, d_skip, chunk: int, init_state=None,
+                shard_heads: bool = True):
+    """The chunked SSD scan: the kernel's wrapper ``ssd_scan`` (kernel 4
+    on CUDA tensors, its plain version on CPU and meta tensors; any S,
+    ``init_state`` carries a sequence's state).  Inside a mesh the
+    grouped B / C are first broadcast to the heads and constrained to
+    the model axis with them (``shard_heads``), as the reference
+    constrains its repeated B / C: the scan then runs head-parallel
+    instead of replicated on every model rank."""
+    if not (shard_heads and current_mesh() is not None):
+        return ssd_scan(x, dt, a_log, B, C, d_skip, chunk, init_state)
+    rep = x.shape[2] // B.shape[2]
+    B, C = (constrain(t.repeat_interleave(rep, dim=2),
+                      ("pod", "data"), None, "model", None) for t in (B, C))
+    # the scan is independent per (row, head): it runs shard by shard
+    bd = ("pod", "data")
+    seq, head = (bd, None, "model", None), ("model",)
+    state = (bd, "model", None, None)
+    return local_region(
+        lambda *a: ssd_scan(*a[:6], chunk, a[6]),
+        [seq, (bd, None, "model"), head, seq, seq, head,
+         None if init_state is None else state],
+        [seq, state])(x, dt, a_log, B, C, d_skip, init_state)
+
+
+def _slab_scans(xs, dts, a_log, Bs, Cs, d_skip, chunk: int):
+    """The chunked SSD of every slab from a zero state.  xs [b, slabs,
+    Ls, H, P], dts [b, slabs, Ls, H], Bs / Cs [b, slabs, Ls, G, N] →
+    (y [b, slabs, Ls, H, P], slab state [b, slabs, H, P, N], slab
+    log-decay Σ dA [b, slabs, H], in-slab cumulative log-decay [b, slabs,
+    Ls, H]).  Slabs are independent: on a mesh each device scans its
+    own."""
+    b, n, Ls, H, P = xs.shape
+    N = Bs.shape[-1]
+
+    def rows(t):
+        return t.reshape((b * n, Ls) + tuple(t.shape[3:]))
+    y, fs = ssd_chunked(rows(xs), rows(dts), a_log, rows(Bs), rows(Cs),
+                        d_skip, chunk, shard_heads=False)
+    a = -torch.exp(a_log.to(torch.float32))                  # [H]
+    l_loc = torch.cumsum(dts.to(torch.float32) * a, dim=2)    # [b,n,Ls,H]
+    return (y.reshape(b, n, Ls, H, P), fs.reshape(b, n, H, P, N),
+            l_loc[:, :, -1], l_loc)
+
+
+def _slab_correct(y_loc, Cs, prefix, l_loc):
+    """y[t] += exp(l_local(t)) · C_t · prefix state of t's slab, in
+    float32.  y_loc [b, slabs, Ls, H, P], Cs [b, slabs, Ls, G, N],
+    prefix [b, slabs, H, P, N], l_loc [b, slabs, Ls, H]."""
+    H = y_loc.shape[3]
+    Ch = Cs.to(torch.float32).repeat_interleave(H // Cs.shape[3], dim=3)
+    corr = torch.einsum("bsihN,bshpN,bsih->bsihp", Ch, prefix,
+                        torch.exp(l_loc))
+    return y_loc.to(torch.float32) + corr
+
+
+def ssd_seq_parallel(x, dt, a_log, B, C, d_skip, chunk: int, slabs: int):
+    """Sequence-parallel chunked SSD (the prefill path on a mesh).
+
+    The sequence is cut into ``slabs`` (on a mesh they ride the model
+    axis, one a device); each slab runs the local chunked SSD from a
+    zero state, and the cross-slab composition uses that the SSM is
+    affine in its state:
+
+        s_out = D_slab ⊙ s_in + s_local,  D_slab = exp(Σ_slab dA)
+
+    so a [b, slabs, H, P, N] prefix scan replaces the per-layer
+    tensor-parallel all-reduces of head sharding.  On a mesh the slab
+    scans and the correction run shard by shard (``local_region``: the
+    reference's slab-major merge of the batch is a local reshape there)
+    and only the slab states cross devices.  Equal to ``ssd_chunked``
+    up to float32 reassociation.  Returns (y [b,S,H,P], final state
+    [b,H,P,N] float32)."""
+    b, S, H, P = x.shape
+    if S % slabs:
+        raise ValueError(f"sequence {S} is not a multiple of {slabs} slabs")
+    Ls = S // slabs
+    f32 = torch.float32
+
+    def slab(t):                          # [b, S, ...] → [b, slabs, Ls, ...]
+        return t.reshape((b, slabs, Ls) + tuple(t.shape[2:]))
+
+    bd = ("pod", "data")
+    s4, s5 = (bd, "model", None, None), (bd, "model", None, None, None)
+    y_loc, fs, D, l_loc = local_region(
+        _slab_scans, [s5, s4, (None,), s5, s5, (None,), None],
+        [s5, s5, (bd, "model", None), s4])(
+            slab(x), slab(dt), a_log, slab(B), slab(C), d_skip,
+            min(chunk, Ls))
+
+    # prefix states across slabs: the slab states cross devices here
+    fs = constrain(fs, bd, None, None, None, None)
+    D = constrain(D, bd, None, None)
+    s_in = torch.zeros_like(fs[:, 0], dtype=f32)
+    prefix = []
+    for i in range(slabs):
+        prefix.append(s_in)
+        s_in = s_in * torch.exp(D[:, i])[:, :, None, None] + fs[:, i]
+    prefix = torch.stack(prefix, dim=1)                  # [b,slabs,H,P,N]
+
+    y = local_region(_slab_correct, [s5, s5, s5, s4], s5)(
+        y_loc, slab(C), prefix, l_loc)
+    return y.reshape(b, S, H, P).to(x.dtype), s_in
 
 
 def mamba2_mixer(x, p, li, cfg: ModelConfig, conv_tail=None, ssm_state=None,
-                 return_cache=False, length_mask=None):
+                 return_cache=False, length_mask=None, seq_parallel: int = 0):
     """Full Mamba2 block (prefill path).  x: [B,S,d].
 
     ``length_mask`` [B,S] (True = real token): padded positions get
     dt=0 so they neither update nor decay the SSM state — the final
     state equals the state at the last real token.  ``conv_tail`` /
-    ``ssm_state`` carry a sequence across chunks.
+    ``ssm_state`` carry a sequence across chunks.  ``seq_parallel > 1``
+    (the model axis's size on a mesh) cuts a fresh sequence that many
+    ways divides into slabs: ``causal_conv_slabbed`` and
+    ``ssd_seq_parallel``.
     """
     sc = cfg.ssm
     b, s, _ = x.shape
@@ -102,25 +227,42 @@ def mamba2_mixer(x, p, li, cfg: ModelConfig, conv_tail=None, ssm_state=None,
                      sc.conv_kernel)
     di = cfg.d_inner
 
-    zxbcdt = x @ p["in_proj"][li]
+    zxbcdt = x @ gathered(p["in_proj"][li])
     z, xs, B, C, dt = _split_proj(zxbcdt, cfg)
     xbc_pre = torch.cat([xs, B, C], dim=-1)                 # pre-conv inputs
-    xbc = causal_conv(xbc_pre, p["conv_w"][li], p["conv_b"][li], conv_tail)
+    slabbed = seq_parallel > 1 and s % seq_parallel == 0
+    if slabbed and conv_tail is None:
+        xbc = causal_conv_slabbed(xbc_pre, p["conv_w"][li], p["conv_b"][li],
+                                  seq_parallel)
+    else:
+        xbc = causal_conv(xbc_pre, p["conv_w"][li], p["conv_b"][li],
+                          conv_tail)
     xs, B, C = torch.split(xbc, [di, G * N, G * N], dim=-1)
 
     dt = F.softplus(dt.float() + p["dt_bias"][li])
     if length_mask is not None:
         dt = dt * length_mask[:, :, None].to(dt.dtype)
+    xh = xs.reshape(b, s, H, P).contiguous()
+    Bg = B.reshape(b, s, G, N).contiguous()
+    Cg = C.reshape(b, s, G, N).contiguous()
     # a chunk of min(chunk_size, S); a longer S that the chunk does not
     # divide is padded inside the scan (the JAX package asserts there)
-    y, final_state = ssd_chunked(
-        xs.reshape(b, s, H, P).contiguous(), dt.contiguous(),
-        p["a_log"][li], B.reshape(b, s, G, N).contiguous(),
-        C.reshape(b, s, G, N).contiguous(), p["d_skip"][li],
-        min(sc.chunk_size, s), init_state=ssm_state)
+    chunk = min(sc.chunk_size, s)
+    if slabbed and ssm_state is None:
+        y, final_state = ssd_seq_parallel(xh, dt, p["a_log"][li], Bg, Cg,
+                                          p["d_skip"][li], chunk,
+                                          slabs=seq_parallel)
+    else:
+        # SSM head parallelism: heads ride the model axis (the scan is
+        # independent per head)
+        xh = constrain(xh, ("pod", "data"), None, "model", None)
+        dt = constrain(dt, ("pod", "data"), None, "model")
+        y, final_state = ssd_chunked(xh, dt.contiguous(), p["a_log"][li],
+                                     Bg, Cg, p["d_skip"][li], chunk,
+                                     init_state=ssm_state)
     y = y.reshape(b, s, di)
     y = rms_norm(y * F.silu(z), p["gnorm"][li], cfg.rms_eps)
-    out = y @ p["out_proj"][li]
+    out = y @ gathered(p["out_proj"][li])
     if not return_cache:
         return out, final_state
     # conv tail = last K-1 *pre-activation* conv inputs of each sequence
@@ -147,7 +289,7 @@ def mamba2_decode_step(x, p, li, cfg: ModelConfig, conv_tail, ssm_state):
     H, P, G, N = cfg.n_ssm_heads, sc.head_dim, sc.n_groups, sc.d_state
     di = cfg.d_inner
 
-    zxbcdt = x @ p["in_proj"][li]
+    zxbcdt = x @ gathered(p["in_proj"][li])
     z, xs, B, C, dt = _split_proj(zxbcdt, cfg)
     xbc_new = torch.cat([xs, B, C], dim=-1)                 # [B, conv_dim]
 
@@ -174,4 +316,4 @@ def mamba2_decode_step(x, p, li, cfg: ModelConfig, conv_tail, ssm_state):
         p["d_skip"][li][None, :, None] * xh
     y = y.reshape(b, di).to(x.dtype)
     y = rms_norm(y * F.silu(z), p["gnorm"][li], cfg.rms_eps)
-    return y @ p["out_proj"][li], new_tail, new_state
+    return y @ gathered(p["out_proj"][li]), new_tail, new_state

@@ -35,7 +35,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig, MoEConfig
-from repro_torch.models.layers import mlp
+from repro_torch.models.layers import (constrain, current_mesh, gathered,
+                                       grad_placements, mlp, placements)
 
 _LEAVES = ("router", "w_gate", "w_up", "w_down")
 
@@ -69,7 +70,7 @@ def route(x: torch.Tensor, router_w: torch.Tensor, mc: MoEConfig
     """x: [T, d] → (gates [T, k] f32, expert_idx [T, k], aux_loss).
     Scores in float32, as the reference, so both packages pick the same
     experts."""
-    logits = x.float() @ router_w.float()                 # [T, E]
+    logits = x.float() @ gathered(router_w).float()       # [T, E]
     probs = torch.softmax(logits, dim=-1)
     gates, idx = torch.topk(probs, mc.top_k, dim=-1)
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
@@ -89,6 +90,7 @@ def _swiglu(x, wg, wu, wd):
     wider float type, as ``jnp.einsum`` promotes them."""
     dt = torch.promote_types(x.dtype, wg.dtype)
     x = x.to(dt)
+    wg, wu, wd = gathered(wg), gathered(wu), gathered(wd)
     h = F.silu(x @ wg.to(dt)) * (x @ wu.to(dt))
     return h @ wd.to(dt)
 
@@ -124,11 +126,16 @@ def moe_ffn(x: torch.Tensor, p: Dict, li, cfg: ModelConfig
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Capacity-based dispatch.  x: [B, S, d] → (out [B, S, d],
     aux_loss): each expert takes at most ``expert_capacity(T)`` of its
-    (token, slot) pairs, in flat order; the rest are dropped."""
+    (token, slot) pairs, in flat order; the rest are dropped.
+
+    On a mesh the token-major tensors ride the (pod, data) axes and the
+    expert-major dispatch buffer the model axis, as the reference
+    constrains them: the token-sharded → expert-sharded transition is
+    the expert-parallel exchange."""
     mc = cfg.moe
     b, s, d = x.shape
     T = b * s
-    xt = x.reshape(T, d)
+    xt = constrain(x.reshape(T, d), ("pod", "data"), None)
     gates, idx, aux = route(xt, p["router"][li], mc)     # [T, k]
     E, k = mc.n_experts, mc.top_k
     cap = expert_capacity(T, mc)
@@ -140,24 +147,123 @@ def moe_ffn(x: torch.Tensor, p: Dict, li, cfg: ModelConfig
                             flat_e[:, None])[:, 0]
     keep = pos_in_e < cap                                 # capacity mask
 
-    # dispatch: [E, cap, d]; dropped slots add 0 at (0, cap - 1)
+    # dispatch: [E, cap, d]; dropped slots add 0 at (0, cap - 1).  Slot
+    # i belongs to token i // k: the token→slot expansion is a local
+    # broadcast, the scatter into the E-major buffer the exchange.
     e_safe = torch.where(keep, flat_e, 0)
     p_safe = torch.where(keep, pos_in_e, cap - 1)
     xt_rep = xt[:, None].expand(T, k, d).reshape(T * k, d)
     upd = torch.where(keep[:, None], xt_rep, torch.zeros((), dtype=xt.dtype))
-    disp = torch.zeros((E, cap, d), dtype=xt.dtype, device=xt.device)
-    disp.index_put_((e_safe, p_safe), upd, accumulate=True)
+    upd = constrain(upd, ("pod", "data"), None)
+    disp = _dispatch(upd, e_safe, p_safe, E, cap)
+    disp = constrain(disp, "model", None, None)
 
-    # expert FFN: [E, cap, d] x [E, d, fe]
+    # expert FFN: [E, cap, d] x [E, d, fe]  (E on the model axis)
     y = _swiglu(disp, p["w_gate"][li], p["w_up"][li], p["w_down"][li])
+    y = constrain(y, "model", None, None)
 
     # combine: slot outputs back in token order, summed over the k slots
-    slot_out = y[e_safe, p_safe]                          # [T*k, d]
+    slot_out = _combine(y, e_safe, p_safe)                # [T*k, d]
+    slot_out = constrain(slot_out, ("pod", "data"), None)
     slot_out = torch.where(keep[:, None], slot_out,
                            torch.zeros((), dtype=slot_out.dtype))
     w = (gates.reshape(-1) * keep).to(slot_out.dtype)     # [T*k]
     out = (slot_out * w[:, None]).reshape(T, k, d).sum(dim=1)
+    out = constrain(out, ("pod", "data"), None)
     return out.reshape(b, s, d), aux
+
+
+def _dispatch(upd, e_safe, p_safe, E: int, cap: int) -> torch.Tensor:
+    """The [E, cap, d] buffer with ``upd``'s rows added at (e_safe,
+    p_safe)."""
+    if current_mesh() is not None:
+        return _dispatch_on_mesh(upd, e_safe, p_safe, E, cap)
+    disp = torch.zeros((E, cap, upd.shape[-1]), dtype=upd.dtype,
+                       device=upd.device)
+    disp.index_put_((e_safe, p_safe), upd, accumulate=True)
+    return disp
+
+
+def _combine(y, e_safe, p_safe) -> torch.Tensor:
+    """The slot rows ``y[e_safe, p_safe]`` of the expert outputs."""
+    if current_mesh() is not None:
+        return _combine_on_mesh(y, e_safe, p_safe)
+    return y[e_safe, p_safe]
+
+
+# On a mesh the scatter into the expert-major buffer and the gather back
+# have no DTensor rule.  Each runs shard by shard (``local_map``) between
+# the reference's constraint specs: a device scatters the slots of its
+# own tokens that go to its own experts, and the token shards' partial
+# buffers are summed over (pod, data); on the way back a device gathers
+# its tokens' slots from its own experts, and the expert shards' partial
+# rows are summed over the model axis.  Nothing is replicated that the
+# specs shard.
+def _expert_shard(mesh, E: int):
+    """(first expert, experts) of this device's shard of the E axis."""
+    names = mesh.mesh_dim_names
+    if "model" not in names:
+        return 0, E
+    n = mesh.size(names.index("model"))
+    if E % n:
+        raise ValueError(f"{E} experts do not divide the model axis ({n})")
+    return mesh.get_local_rank("model") * (E // n), E // n
+
+
+def _region_placements(mesh, token_major_out: bool):
+    from torch.distributed.tensor import Partial
+    tok = placements(mesh, (("pod", "data"), None))
+    tok1 = placements(mesh, (("pod", "data"),))
+    exp = placements(mesh, ("model", None, None))
+    if token_major_out:       # token rows, partial over the experts
+        out = [Partial() if a == "model" else pl
+               for a, pl in zip(mesh.mesh_dim_names, tok)]
+    else:                     # expert rows, partial over the tokens
+        out = [Partial() if a in ("pod", "data") else pl
+               for a, pl in zip(mesh.mesh_dim_names, exp)]
+    return tok, tok1, exp, out
+
+
+def _dispatch_on_mesh(upd, e_safe, p_safe, E: int, cap: int):
+    from torch.distributed.tensor.experimental import local_map
+    mesh = current_mesh()
+    e0, n_e = _expert_shard(mesh, E)
+    tok, tok1, _, out = _region_placements(mesh, token_major_out=False)
+
+    def local(u, e, p):
+        e = e - e0
+        ok = (e >= 0) & (e < n_e)
+        disp = torch.zeros((n_e, cap, u.shape[-1]), dtype=u.dtype,
+                           device=u.device)
+        disp.index_put_((torch.where(ok, e, 0), p),
+                        torch.where(ok[:, None], u,
+                                    torch.zeros((), dtype=u.dtype)),
+                        accumulate=True)
+        return disp
+    ins = (tok, tok1, tok1)
+    return local_map(local, out_placements=out, in_placements=ins,
+                     in_grad_placements=grad_placements(ins, out),
+                     device_mesh=mesh,
+                     redistribute_inputs=True)(upd, e_safe, p_safe)
+
+
+def _combine_on_mesh(y, e_safe, p_safe):
+    from torch.distributed.tensor.experimental import local_map
+    mesh = current_mesh()
+    e0, n_e = _expert_shard(mesh, y.shape[0])
+    _, tok1, exp, out = _region_placements(mesh, token_major_out=True)
+
+    def local(yl, e, p):
+        e = e - e0
+        ok = (e >= 0) & (e < n_e)
+        rows = yl[torch.where(ok, e, 0), p]
+        return torch.where(ok[:, None], rows,
+                           torch.zeros((), dtype=rows.dtype))
+    ins = (exp, tok1, tok1)
+    return local_map(local, out_placements=out, in_placements=ins,
+                     in_grad_placements=grad_placements(ins, out),
+                     device_mesh=mesh,
+                     redistribute_inputs=True)(y, e_safe, p_safe)
 
 
 def ffn(h: torch.Tensor, lp, li, cfg: ModelConfig, dropless: bool = True

@@ -20,7 +20,11 @@ leaves stacked ``[L, ...]`` and matrices ``[d_in, d_out]``:
 stacked ``[L, ...]`` leaves in place of ``jax.lax.scan``, attention
 through ``kernels/flash_prefill.flash_prefill`` (kernel 3 on CUDA) and
 the SSD scan through ``models/mamba2.ssd_chunked`` (kernel 4 on CUDA),
-both differentiable.  ``remat`` checkpoints each layer (each group of
+both differentiable.  On ``meta`` tensors (the dry-run) attention is
+``layers.blocked_causal_attention``, as the reference's forward always
+runs it; on a mesh the residual stream is constrained between layers
+(``layers.shard_activation``) and the SSM layers run sequence-parallel
+over the model axis.  ``remat`` checkpoints each layer (each group of
 ``attn_every`` Mamba2 layers and the shared block, for the hybrid) with
 ``torch.utils.checkpoint``, as the JAX package's ``jax.checkpoint``.
 ``loss_fn`` is the causal LM cross-entropy over the PADDED vocabulary,
@@ -39,8 +43,12 @@ from repro_torch import resolve_device
 from repro_torch.config import ModelConfig, pad_vocab
 from repro_torch.kernels.flash_prefill import flash_prefill
 from repro_torch.models import moe as MoE
-from repro_torch.models.layers import (attn_qkv, init_attn, init_embed,
-                                       init_mlp, lm_logits, mlp, rms_norm)
+from repro_torch.models.layers import (attention_on_shards, attn_qkv,
+                                       blocked_causal_attention,
+                                       current_mesh, distributed, init_attn,
+                                       init_embed, init_mlp, linear,
+                                       lm_logits, mlp, model_axis_size,
+                                       rms_norm, shard_activation)
 from repro_torch.models.mamba2 import (FLOAT32_LEAVES, init_mamba2,
                                        mamba2_mixer)
 
@@ -111,9 +119,13 @@ def params_to_torch(tree, device="cuda", dtype=torch.float32,
 def _attn_block(x, lp, li, cfg: ModelConfig, positions, window):
     h = rms_norm(x, lp["ln1"][li], cfg.rms_eps)
     q, k, v = attn_qkv(h, lp, li, cfg, positions)
-    o = flash_prefill(q, k, v, window=window)
+    if q.device.type == "meta":
+        o = blocked_causal_attention(q, k, v, window=window)
+    else:
+        o = attention_on_shards(
+            lambda *a: flash_prefill(*a, window=window), q, k, v)
     b, s, _, _ = o.shape
-    return x + o.reshape(b, s, -1) @ lp["wo"][li]
+    return x + linear(o.reshape(b, s, -1), lp["wo"][li])
 
 
 def _mlp_block(x, lp, li, cfg: ModelConfig):
@@ -128,10 +140,10 @@ def _moe_block(x, lp, li, cfg: ModelConfig, dropless: bool = False):
     return x + out, aux
 
 
-def _ssm_layer(x, lp, li, cfg: ModelConfig):
+def _ssm_layer(x, lp, li, cfg: ModelConfig, sp: int = 0):
     h = rms_norm(x, lp["ln1"][li], cfg.rms_eps)
-    out, _ = mamba2_mixer(h, lp, li, cfg)
-    return x + out
+    out, _ = mamba2_mixer(h, lp, li, cfg, seq_parallel=sp)
+    return shard_activation(x + out, seq="model")
 
 
 def embed_inputs(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -156,7 +168,7 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     ``window`` optionally restricts attention (sliding-window variant);
     ``moe_dropless`` picks the dropless MoE FFN, else the capacity FFN;
     ``slice_vocab=False`` keeps the padded vocabulary's columns."""
-    x = embed_inputs(params, cfg, tokens, prefix_emb)
+    x = shard_activation(embed_inputs(params, cfg, tokens, prefix_emb))
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     lp = params["layers"]
@@ -171,8 +183,10 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         def layer(x, li):
             x = _attn_block(x, lp, li, cfg, positions, window)
             if cfg.family == "moe":
-                return _moe_block(x, lp, li, cfg, moe_dropless)
-            return _mlp_block(x, lp, li, cfg), None
+                x, a = _moe_block(x, lp, li, cfg, moe_dropless)
+            else:
+                x, a = _mlp_block(x, lp, li, cfg), None
+            return shard_activation(x, seq="model"), a
 
         for li in range(cfg.n_layers):
             x, a = run(layer, x, li)
@@ -180,25 +194,28 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                 aux = aux + a
 
     elif cfg.family == "ssm":
+        sp = model_axis_size()        # sequence-parallel SSD on a mesh
         for li in range(cfg.n_layers):
-            x = run(_ssm_layer, x, lp, li, cfg)
+            x = run(_ssm_layer, x, lp, li, cfg, sp)
 
     elif cfg.family == "hybrid":
         # [attn_every x mamba2 -> shared attn + MLP] x n_groups, then the
         # ungrouped tail layers
         sa = params["shared_attn"]
         n_groups = cfg.n_layers // cfg.attn_every
+        sp = model_axis_size()        # sequence-parallel SSD on a mesh
 
         def group(x, gi):
             for j in range(cfg.attn_every):
-                x = _ssm_layer(x, lp, gi * cfg.attn_every + j, cfg)
+                x = _ssm_layer(x, lp, gi * cfg.attn_every + j, cfg, sp)
             x = _attn_block(x, sa, 0, cfg, positions, window)
-            return _mlp_block(x, sa, 0, cfg)
+            x = _mlp_block(x, sa, 0, cfg)
+            return shard_activation(x, seq="model")
 
         for gi in range(n_groups):
             x = run(group, x, gi)
         for li in range(n_groups * cfg.attn_every, cfg.n_layers):
-            x = _ssm_layer(x, lp, li, cfg)
+            x = _ssm_layer(x, lp, li, cfg, sp)
     else:
         raise ValueError(cfg.family)
 
@@ -211,13 +228,24 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean token cross-entropy over the labels >= 0 (−100 masks), in
     float32, as the reference computes it: the max is taken out without
-    a gradient, the log-sum-exp runs over every column of ``logits``."""
+    a gradient, the log-sum-exp runs over every column of ``logits``
+    (on a mesh the vocab dim rides the model axis)."""
+    logits = shard_activation(logits, last="model")
     mask = labels >= 0
     safe = labels.clamp(min=0).long()
     lmax = logits.max(dim=-1, keepdim=True).values.detach()
     shifted = (logits - lmax).float()
     lse = torch.log(torch.exp(shifted).sum(dim=-1))
-    picked = torch.gather(shifted, -1, safe[..., None])[..., 0]
+    if current_mesh() is None:
+        picked = torch.gather(shifted, -1, safe[..., None])[..., 0]
+    else:
+        # the label's logit by an iota compare, as the reference picks
+        # it: a gather along the sharded vocab dim has no DTensor rule;
+        # the iota is sharded as the vocab dim is
+        vocab = distributed(torch.arange(shifted.shape[-1],
+                                         device=shifted.device), "model")
+        picked = torch.where(vocab == safe[..., None], shifted,
+                             0.0).sum(dim=-1)
     nll = lse - picked
     n = mask.sum().clamp(min=1)
     return (nll * mask).sum() / n

@@ -52,8 +52,8 @@ def make_train_step(cfg: ModelConfig, opt: AdamWConfig,
             n = B // M
             loss = torch.zeros((), dtype=torch.float32,
                                device=tokens.device)
-            g_acc = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
+            g_acc = tree_map(lambda p: torch.zeros_like(
+                p, dtype=torch.float32), params)
             for i in range(M):
                 rows = slice(i * n, (i + 1) * n)
                 pe = None if prefix_emb is None else prefix_emb[rows]

@@ -62,3 +62,20 @@ def test_entry_points_default_to_the_gpu():
     unit = build_unit_from_specs([("a", "qwen2-7b", 1.0)], pool_blocks=64,
                                  dtype=torch.float32, device="cpu")
     assert unit.pool.k.device.type == "cpu"
+
+
+def test_lowering_tools_bring_up_no_world_until_asked():
+    """Importing the lowering tools starts no process group; the host
+    mesh defaults to the GPU and raises where there is none."""
+    import importlib
+
+    import torch.distributed as dist
+    for name in ("mesh", "sharding", "specs", "op_analysis", "dryrun"):
+        importlib.import_module(f"repro_torch.launch.{name}")
+    assert not dist.is_initialized()
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    from repro_torch.launch.mesh import make_host_mesh
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_host_mesh()
+    assert not dist.is_initialized()
