@@ -58,7 +58,15 @@
    group 7), whole-prompt; a cut config is
    ``config.replace(configs.get(arch), n_layers=k)`` served by a unit
    this script assembles (``build_cut_unit``); launches are counted in
-   each phase;
+   each phase.  The dense steps of every phase run as CUDA graphs, one
+   per shape bucket (``serving/graphs.py``); the graphs phase
+   (``serve_graphs``) serves the fused qwen2-7b pair's trace eagerly
+   (``disable_graphs``) and with graphs, then both again with the arena
+   grown past its buffer under live sequences: equal reports, tokens
+   and launch counts, the first fused decodes' logits within bf16's
+   tolerance, each graph on the old arena dropped and recaptured once;
+   it prints the captures, their seconds, the graph pool's bytes, peak
+   memory and per-tick wall ms and host µs in each mode;
 5. plans full-width qwen2-7b ×2 + mamba2-2.7b for one H100 with the
    paper's placement algorithm (``core/placement.place``, H100
    constants), round-trips the plan through its JSON file, serves ~16
@@ -166,6 +174,7 @@ import shutil
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -1458,6 +1467,265 @@ def _serve_phase(torch, archs, chunk_tokens: int, n_target: int, seed: int,
 
 
 # ---------------------------------------------------------------------------
+# compiled steps: one CUDA graph per shape bucket (serving/graphs.py)
+# ---------------------------------------------------------------------------
+GRAPH_NAMES = ["qwen2-7b#0", "qwen2-7b#1"]
+# the first fused decodes' logits, graphs against eager: max |Δ| over
+# the largest |logit| (expected 0: the graph replays the same kernels).
+# The first fused decode is the one that captures (its result is the
+# eager first run's); the second is the first replay
+GRAPH_LOGIT_TOL = 2e-2
+FIRST_DECODES = 3
+
+
+def _graph_pool_bytes(torch, graphs):
+    """Bytes of the segments of the registry's graph pool (the card's
+    allocator snapshot), or None where the snapshot names no pool."""
+    pool = getattr(graphs.REGISTRY.capture, "pool", None)
+    if pool is None or not torch.cuda.is_available():
+        return None
+    segs = [s for s in torch.cuda.memory_snapshot()
+            if tuple(s.get("segment_pool_id", ())) == tuple(pool)]
+    return sum(s["total_size"] for s in segs) if segs else None
+
+
+def _pct(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))] if xs else float("nan")
+
+
+def serve_graphs(torch, device="cuda", reduced=False) -> dict:
+    """The compiled steps at full width: the fused chunked serve phase's
+    pair and trace (two qwen2-7b, random bf16 weights from seed 0, 4
+    slots, 64-token chunks, ADBS, the logical clock) served (a) under
+    ``graphs.disable_graphs()``, (b) with graphs, then (c) with graphs
+    and (d) eagerly with the arena grown past its buffer at a third of
+    the run (live sequences: the arena reallocates).  Checks: (b)'s
+    report equals (a)'s but for the wall fields, and so do (c)'s and
+    (d)'s; every greedy token equal; the first ``FIRST_DECODES`` fused
+    decodes' logits (the first replay among them) within
+    ``GRAPH_LOGIT_TOL`` of the largest; the launch counts equal
+    between the eager and graph runs; in (c) every graph on the old
+    arena dropped at the grow and each step recaptured at most once
+    after it, the fused decode exactly once.  Measures the captures by
+    kind and their seconds, the graph pool's bytes, the peak memory of
+    each run, and per tick (capture ticks aside) the wall ms and the
+    host µs spent in the step calls (planning and enqueue; the argmax
+    waits for the card after them)."""
+    from repro_torch.core.workload import synthesize
+    from repro_torch.kernels import ops
+    from repro_torch.serving import driver, graphs
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    _free(torch, dev)
+    cuda = dev.type == "cuda"
+    dtype = torch.bfloat16 if cuda else torch.float32
+    wl = synthesize(GRAPH_NAMES, alpha=2.1, max_rate=16 / 2.0, horizon=1.6,
+                    seed=0, mean_prompt=256, mean_output=40, max_len=512)
+    cost = driver.TickCostModel()
+
+    def run(mode, grow_at=None):
+        unit = driver.build_unit_from_specs(
+            [(n, "qwen2-7b", wl.rates[n]) for n in GRAPH_NAMES],
+            pool_blocks=16384, max_slots=4, chunk_tokens=64, seed=0,
+            policy="adbs", fused=True, reduced=reduced, dtype=dtype,
+            device=dev)
+        reqs = driver.requests_from_workload(wl, unit.engines, seed=0,
+                                             max_new_cap=64)
+        rec = _timed_steps(unit)
+        mem = _Memory(torch, dev)
+        sess = driver.ServeSession([unit], reqs, cost=cost)
+        ctx = (graphs.disable_graphs() if mode == "eager"
+               else contextlib.nullcontext())
+        ticks, grow = [], None
+        n_log = len(graphs.REGISTRY.log)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with ctx:
+            while True:
+                if grow_at is not None and grow is None \
+                        and unit.stats.ticks == grow_at:
+                    grow = _grow_past_buffer(torch, unit, graphs)
+                n0, caps = unit.stats.ticks, len(graphs.REGISTRY.log)
+                rec["host"] = 0.0
+                t = time.perf_counter()
+                status = sess.step()[0]
+                if unit.stats.ticks > n0:
+                    ticks.append(dict(
+                        wall_ms=1e3 * (time.perf_counter() - t),
+                        host_us=1e6 * rec["host"],
+                        captured=len(graphs.REGISTRY.log) > caps))
+                if status == "done":
+                    break
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rep = sess.report()
+        agg = rep.aggregate
+        if agg.finished != agg.submitted or agg.submitted == 0:
+            raise AssertionError(f"graphs phase ({mode}): served "
+                                 f"{agg.finished}/{agg.submitted}")
+        if unit.pool.allocator.used:
+            raise AssertionError(f"graphs phase ({mode}): the pool was "
+                                 f"not freed")
+        if grow_at is not None and grow is None:
+            raise AssertionError(f"graphs phase ({mode}): no grow at tick "
+                                 f"{grow_at}")
+        steady = [t for t in ticks if not t["captured"]]
+        nums = dict(
+            ticks=rep.ticks, wall_s=wall,
+            tick_ms_p50=_pct([t["wall_ms"] for t in steady], 0.5),
+            tick_ms_p90=_pct([t["wall_ms"] for t in steady], 0.9),
+            host_us_p50=_pct([t["host_us"] for t in steady], 0.5),
+            host_us_p90=_pct([t["host_us"] for t in steady], 0.9),
+            capture_ticks=len(ticks) - len(steady),
+            peak_gb=mem.fold(), launches=ops.launch_counts(),
+            captured=[k[0][0] for k in graphs.REGISTRY.log[n_log:]],
+            # while the run's graphs live (they go with the unit)
+            graph_pool_bytes=_graph_pool_bytes(torch, graphs))
+        if grow is not None:
+            log = graphs.REGISTRY.log[grow["log_at"]:]
+            grow["recaptured"] = dict(Counter(k[0][0] for k in log))
+            grow["slots_recaptured_twice"] = sum(
+                n > 1 for n in Counter(k[0] for k in log).values())
+            nums["grow"] = grow
+        out = dict(report=_report_text(rep),
+                   tokens={r.req_id: list(r.output) for r in reqs},
+                   first=rec["first"], nums=nums)
+        del unit, reqs, sess, rep
+        _free(torch, dev)
+        return out
+
+    caps0, secs0 = Counter(graphs.GRAPH_CAPTURES), Counter(
+        graphs.CAPTURE_SECONDS)
+    runs = {"(a) eager": run("eager")}
+    runs["(b) graphs"] = run("graphs")
+    grow_at = runs["(a) eager"]["nums"]["ticks"] // 3
+    runs["(c) graphs, grown"] = run("graphs", grow_at)
+    runs["(d) eager, grown"] = run("eager", grow_at)
+    a, b = runs["(a) eager"], runs["(b) graphs"]
+    c, d = runs["(c) graphs, grown"], runs["(d) eager, grown"]
+    problems = []
+    for x, y, what in ((a, b, "(b)"), (d, c, "(c)")):
+        if x["report"] != y["report"]:
+            problems.append(f"{what}'s report differs from the eager run's")
+        differ = sum(x["tokens"][i] != y["tokens"][i] for i in x["tokens"])
+        if differ:
+            problems.append(f"{what}: {differ} requests with other tokens")
+        if x["nums"]["launches"] != y["nums"]["launches"]:
+            problems.append(f"{what} launches {y['nums']['launches']} != "
+                            f"eager {x['nums']['launches']}")
+    if len(b["first"]) != FIRST_DECODES:
+        problems.append(f"{len(b['first'])} fused decodes")
+    first_err = max((y - x).abs().max().item() / x.abs().max().item()
+                    for x, y in zip(a["first"], b["first"]))
+    if not first_err < GRAPH_LOGIT_TOL:
+        problems.append(f"first fused decodes: max rel err {first_err}")
+    for x, what in ((a, "(a)"), (d, "(d)")):
+        if x["nums"]["captured"]:
+            problems.append(f"{what} captured {x['nums']['captured']} "
+                            f"under disable_graphs")
+    caught = Counter(b["nums"]["captured"])
+    if caught["fused_decode"] != 1 or caught["fused_prefill_chunk"] != 1:
+        problems.append(f"(b) captured {dict(caught)}")
+    g = c["nums"]["grow"]
+    if not g["live_blocks"] or g["reallocated"] is not True:
+        problems.append(f"the grow: {g}")
+    if g["graphs_left_on_old_arena"]:
+        problems.append(f"{g['graphs_left_on_old_arena']} graphs kept "
+                        f"the old arena")
+    if g["recaptured"].get("fused_decode") != 1 \
+            or g["slots_recaptured_twice"]:
+        problems.append(f"recaptures after the grow: {g}")
+    if problems:
+        raise AssertionError("graphs phase: " + "; ".join(problems))
+    launches = {k: sum(r["nums"]["launches"][k] for r in runs.values())
+                for k in a["nums"]["launches"]}
+    return dict(
+        models=["qwen2-7b", "qwen2-7b"], chunk_tokens=64,
+        requests=len(a["tokens"]),
+        captures={k: graphs.GRAPH_CAPTURES[k] - caps0[k]
+                  for k in graphs.GRAPH_CAPTURES},
+        capture_s={k: graphs.CAPTURE_SECONDS[k] - secs0[k]
+                   for k in graphs.CAPTURE_SECONDS},
+        graph_pool_bytes=b["nums"]["graph_pool_bytes"],
+        first_decode_rel_err=first_err,
+        runs={k: r["nums"] for k, r in runs.items()}, launches=launches,
+        phase_s=time.perf_counter() - t_phase)
+
+
+def _timed_steps(unit) -> dict:
+    """Wrap ``unit``'s step functions: the returned record sums the wall
+    seconds spent in them under ``host`` and keeps the first
+    ``FIRST_DECODES`` fused decodes' logits (float32, on the host) under
+    ``first``."""
+    rec = dict(host=0.0, first=[])
+
+    def timed(fn, first=False):
+        def call(*args):
+            t = time.perf_counter()
+            out = fn(*args)
+            rec["host"] += time.perf_counter() - t
+            if first and len(rec["first"]) < FIRST_DECODES:
+                rec["first"].append(out.float().cpu())
+            return out
+        return call
+    for grp in unit.fused_groups:
+        grp._decode_fn = timed(grp._decode_fn, first=True)
+        grp._prefill_fn = timed(grp._prefill_fn)
+    for eng in unit.engines.values():
+        eng._decode_fn = timed(eng._decode_fn)
+        eng._chunk_fn = timed(eng._chunk_fn)
+    return rec
+
+
+def _grow_past_buffer(torch, unit, graphs) -> dict:
+    """Grow ``unit``'s arena past its buffer, under live sequences: the
+    arena reallocates and the graphs captured on it must go."""
+    pool = unit.pool
+    k_old = pool.arena()[0]
+    old_ptr = k_old.data_ptr()
+    extra = k_old.shape[0] - pool.n_head_blocks + 1024
+    del k_old
+    def on_old():
+        return sum(key[1][0] == old_ptr for key in graphs.REGISTRY.graphs)
+    before = on_old()
+    live = pool.allocator.used
+    pool.grow(extra)
+    return dict(at_tick=unit.stats.ticks, live_blocks=live,
+                added_blocks=extra, graphs_on_old_arena=before,
+                reallocated=pool.arena()[0].data_ptr() != old_ptr,
+                graphs_left_on_old_arena=on_old(),
+                log_at=len(graphs.REGISTRY.log))
+
+
+def print_graphs(res: dict, card: str) -> None:
+    """Print the graphs phase's results, each number beside the card."""
+    print(f"graphs phase ({card}): " + json.dumps(
+        {k: v for k, v in res.items() if k != "runs"}))
+    for name, r in res["runs"].items():
+        print(f"graphs phase ({card}): {name}: {r['ticks']} ticks, tick "
+              f"{r['tick_ms_p50']:.2f} ms p50 / {r['tick_ms_p90']:.2f} p90, "
+              f"host {r['host_us_p50']:.0f} us p50 / {r['host_us_p90']:.0f} "
+              f"p90 a tick in the step calls, {r['capture_ticks']} capture "
+              f"ticks, wall {r['wall_s']:.2f} s, peak {r['peak_gb']:.2f} GB, "
+              f"captured {dict(Counter(r['captured']))}"
+              + (f", grow {r['grow']}" if "grow" in r else ""))
+    caps = res["captures"]
+    pool = res["graph_pool_bytes"]
+    print(f"graphs phase ({card}): captures {caps} in "
+          f"{sum(res['capture_s'].values()):.2f} s "
+          f"({ {k: round(v, 3) for k, v in res['capture_s'].items()} }); "
+          f"graph pool "
+          + ("not named by the allocator's snapshot" if pool is None
+             else f"{pool / 1e6:.1f} MB")
+          + f"; first {FIRST_DECODES} fused decodes graphs vs eager max rel err "
+          f"{res['first_decode_rel_err']:.3g} < {GRAPH_LOGIT_TOL}; "
+          f"phase {res['phase_s']:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 # the live serving layer and graceful degradation at full width
 # ---------------------------------------------------------------------------
 STREAM_FAMILIES = {"llm0": "qwen2-7b", "llm1": "mamba2-2.7b"}
@@ -1970,11 +2238,21 @@ def _recorded(unit, rec: dict) -> None:
     the served first-token logits of each request (float32, the logits
     row of its prompt's last chunk, from the fused pair's sweep or an
     engine's own chunk step, whichever served it)."""
+    from repro_torch.serving import graphs
     step = {}
+
+    def held_step():
+        # the step ``_HeldChunkKernel`` checks runs eagerly: a replayed
+        # graph calls no Python wrapper
+        held = rec.get("held")
+        return (graphs.disable_graphs() if held is not None
+                and held.result is None and rec.get("off_grid_job")
+                else contextlib.nullcontext())
     for grp in unit.fused_groups:
         def fused(*args, sweep=grp._prefill_fn,
                   names=[e.cfg.name for e in grp.engines]):
-            logits = sweep(*args)
+            with held_step():
+                logits = sweep(*args)
             for m, name in enumerate(names):
                 step[name] = logits[m]
             return logits
@@ -1995,7 +2273,8 @@ def _recorded(unit, rec: dict) -> None:
             return hit
 
         def chunk(*args, run=eng._chunk_fn, name=name):
-            step[name] = run(*args)
+            with held_step():
+                step[name] = run(*args)
             return step[name]
 
         def applied(job, nxt, apply=eng.apply_prefill_result, name=name):
@@ -2026,7 +2305,9 @@ class _HeldChunkKernel:
     (that step's layer 0) also runs ``paged_prefill_plain`` on the same
     q, pool, blocks and offsets.  The bound is ``TOL`` of the dtype
     times the plain output's largest magnitude (served activations are
-    not unit-scale).  The plain call launches nothing."""
+    not unit-scale).  The plain call launches nothing.  On the card that
+    one step runs eagerly (``_recorded``): a step replayed as a CUDA
+    graph calls no Python wrapper."""
 
     def __init__(self, torch, rec: dict):
         from repro_torch.serving import cache_ops
@@ -2036,10 +2317,12 @@ class _HeldChunkKernel:
 
     def __enter__(self):
         self.ops.fused_paged_chunk_attention = self
+        self.rec["held"] = self
         return self
 
     def __exit__(self, *exc):
         self.ops.fused_paged_chunk_attention = self.kernel
+        self.rec.pop("held")
 
     def __call__(self, q, pool_k, pool_v, phys, q_offset):
         from repro_torch.kernels import flash_prefill as fp
@@ -4069,6 +4352,8 @@ def main() -> int:
           f"(256-token chunks)")
     print("every served step had finite logits (engine.greedy_tokens "
           "raises otherwise); every request finished; pools freed")
+    compiled = serve_graphs(torch)
+    print_graphs(compiled, card)
 
     placed = serve_placement(torch)
     print_placement(placed)
@@ -4110,7 +4395,8 @@ def main() -> int:
     lowering = check_lowering(torch)
     print_lowering(lowering, card)
 
-    runs = list(served.values()) + [placed, w8, stream, chaos, prefix, recfg,
+    runs = list(served.values()) + [compiled, placed, w8, stream, chaos,
+                                    prefix, recfg,
                                     reduced_train, full_train, steps_served,
                                     lowering]
     launches = {k.symbol: sum(r["launches"][k.symbol] for r in runs)

@@ -16,7 +16,7 @@ the sliding-window decode's ring-buffer write.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import Dict, NamedTuple
 
 import numpy as np
 import torch
@@ -28,7 +28,7 @@ from repro_torch.kernels.paged_attention import (fused_paged_decode_attention,
                                                  paged_decode_attention)
 from repro_torch.paging import resolve_physical_blocks
 
-__all__ = ["TokenSlots", "token_slots", "write_slots", "write_tokens",
+__all__ = ["TokenSlots", "plan_slots", "token_slots", "write_slots", "write_tokens",
            "copy_block_groups", "resolve_physical_blocks", "fused_paged_decode_attention",
            "paged_decode_attention", "fused_paged_chunk_attention",
            "paged_chunk_attention", "flash_prefill",
@@ -72,52 +72,78 @@ def copy_block_groups(pool_k, pool_v, src_bases, dst_bases, n_kv, n_layers,
 
 
 class TokenSlots(NamedTuple):
-    """Where the new tokens of one step land in the pool, computed once
-    per step on the host and reused by every layer.
+    """Where the new tokens of one step land in the pool: a plan of fixed
+    length (every one of the step's ``B*S`` new tokens has an entry),
+    made once per step on the host and reused by every layer.
 
-    src: [n] flat index of the token into the step's ``B*S`` new tokens
-    base: [n] group base of the token's block
+    src: [n] flat index of the written token into the step's ``B*S``
+    base: [n] group base of its block
     off: [n] position inside the block
-    Only tokens that land in the table are listed: positions past the
-    table, or in a block whose base is −1, are dropped — what the JAX
-    package's scatter does with ``mode="drop"``.
+    live: [] bool, whether the step keeps any write
+    A token the JAX package's scatter drops (``mode="drop"``: a position
+    past the table, or a block whose base is −1) is planned as a copy of
+    the step's first kept write: the same place and the same value, so
+    it changes nothing.  A step that keeps no write rewrites one arena
+    entry (group base 0, position 0) with its own contents.  The length
+    depends on shapes only, so a captured step replays at any table
+    (``serving/graphs.py``).
     """
     src: torch.Tensor
     base: torch.Tensor
     off: torch.Tensor
+    live: torch.Tensor
+
+
+def plan_slots(table, start_pos, n_new: int,
+               block_tokens: int) -> Dict[str, np.ndarray]:
+    """The host half of ``token_slots``: the plan of ``n_new`` tokens per
+    row starting at ``start_pos`` [B] against group-base ``table`` [B,
+    max_blocks], as numpy arrays: ``src``, ``base``, ``off`` [B*n_new]
+    int64 and ``live`` [] bool."""
+    table = np.asarray(table, np.int64)
+    start = np.asarray(start_pos, np.int64)
+    B, W = table.shape
+    pos = start[:, None] + np.arange(n_new)[None, :]          # [B, S]
+    blk = pos // block_tokens
+    base = np.take_along_axis(table, np.minimum(blk, W - 1), axis=1)
+    keep = ((blk < W) & (base >= 0)).reshape(-1)
+    kept = np.flatnonzero(keep)
+    if kept.size == 0:
+        zero = np.zeros(B * n_new, np.int64)
+        return dict(src=zero, base=zero, off=zero, live=np.array(False))
+    src = np.where(keep, np.arange(B * n_new), kept[0])
+    return dict(src=src, base=base.reshape(-1)[src],
+                off=(pos % block_tokens).reshape(-1)[src],
+                live=np.array(True))
 
 
 def token_slots(table, start_pos, n_new: int, block_tokens: int,
                 device) -> TokenSlots:
     """Plan the writes of ``n_new`` tokens per row starting at
     ``start_pos`` [B] against group-base ``table`` [B, max_blocks]
-    (host arrays or tensors)."""
-    table = np.asarray(torch.as_tensor(table).cpu(), np.int64)
-    start = np.asarray(torch.as_tensor(start_pos).cpu(), np.int64)
-    B, W = table.shape
-    pos = start[:, None] + np.arange(n_new)[None, :]          # [B, S]
-    blk = pos // block_tokens
-    in_table = blk < W
-    base = np.take_along_axis(table, np.minimum(blk, W - 1), axis=1)
-    keep = (in_table & (base >= 0)).reshape(-1)
-    src = np.nonzero(keep)[0]
-
-    def dev(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-    return TokenSlots(dev(src), dev(base.reshape(-1)[src]),
-                      dev((pos % block_tokens).reshape(-1)[src]))
+    (host arrays or tensors) and move the plan to ``device``."""
+    plan = plan_slots(np.asarray(torch.as_tensor(table).cpu()),
+                      np.asarray(torch.as_tensor(start_pos).cpu()), n_new,
+                      block_tokens)
+    return TokenSlots(*(torch.from_numpy(plan[k]).to(device)
+                        for k in TokenSlots._fields))
 
 
 def write_slots(pool_k, pool_v, k_new, v_new, slots: TokenSlots, layer: int,
                 n_kv: int) -> None:
     """Scatter new KV ``k_new/v_new`` [B, S, KV, hd] of attention layer
-    ``layer`` into the arena, in place, at the planned ``slots``."""
+    ``layer`` into the arena, in place, at the planned ``slots``.  Where
+    the plan keeps no write, the one planned entry is written with the
+    contents it had (gathered before the scatter).  No host data, no
+    data-dependent shape: a CUDA graph captures it."""
     hd = k_new.shape[-1]
     heads = torch.arange(n_kv, device=slots.base.device)
     phys = slots.base[:, None] + layer * n_kv + heads[None, :]   # [n, KV]
     off = slots.off[:, None].expand_as(phys)
-    pool_k[phys, off] = k_new.reshape(-1, n_kv, hd)[slots.src].to(pool_k.dtype)
-    pool_v[phys, off] = v_new.reshape(-1, n_kv, hd)[slots.src].to(pool_v.dtype)
+    for pool, new in ((pool_k, k_new), (pool_v, v_new)):
+        val = new.reshape(-1, n_kv, hd)[slots.src].to(pool.dtype)
+        val = torch.where(slots.live, val, pool[phys[:1], off[:1]])
+        pool[phys, off] = val
 
 
 def write_tokens(pool_k, pool_v, k_new, v_new, table, start_pos, layer, n_kv):

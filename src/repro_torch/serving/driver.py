@@ -753,7 +753,8 @@ def _warmup_drain(units: Sequence[MuxScheduler],
                   requests: List[Request], max_ticks: int = 50_000) -> None:
     """Run every shape bucket live serving will hit BEFORE the wall
     clock starts, so one-time costs (kernel builds, allocator growth,
-    library autotuning) stay out of the measured window.
+    library autotuning, and on the card each dense step's CUDA graph
+    capture, ``serving/graphs.py``) stay out of the measured window.
 
     Two passes: (1) per engine, one solo drain per (row-bucket ×
     prompt-bucket) combination present in the trace; (2) a flat-out

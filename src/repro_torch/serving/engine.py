@@ -19,15 +19,17 @@ fused bodies on a one-model slice of that tree (a view, no copy).
 Shape stability: batches are padded to bucketed shapes — power-of-2
 rows and block-multiple prompt lengths — exactly as the JAX package
 pads them, so the two packages see the same batches; ``TRACE_COUNTS``
-counts the distinct shape buckets each step ran at (the set a CUDA
-graph per bucket would capture).
+counts the distinct shape buckets each step ran at.
 
-The step functions run eagerly; on CUDA tensors the attention and the
-SSD scan go through the Hopper kernels (``serving/cache_ops``,
-``models/mamba2``), on CPU tensors through their plain versions.  KV
-writes update the arena in place.  SSM state (constant size) lives in
-per-slot arrays: ``ssm_state`` [L, slots, H, P, N] float32 and
-``conv_tail`` [L, slots, K-1, conv_dim].
+Compiled steps: on the card the dense attention family's decode and
+chunked-prefill steps (fused and serial) run as one CUDA graph per
+shape bucket (``serving/graphs.py``, the JAX package's
+``jitted_step``); the other steps run eagerly.  On CUDA tensors the
+attention and the SSD scan go through the Hopper kernels
+(``serving/cache_ops``, ``models/mamba2``), on CPU tensors through
+their plain versions.  KV writes update the arena in place.  SSM state
+(constant size) lives in per-slot arrays: ``ssm_state`` [L, slots, H,
+P, N] float32 and ``conv_tail`` [L, slots, K-1, conv_dim].
 """
 from __future__ import annotations
 
@@ -45,7 +47,7 @@ from repro_torch.models import mamba2 as M2
 from repro_torch.models.layers import (attn_qkv, embed_tokens, linear,
                                        lm_logits, mlp, rms_norm)
 from repro_torch.models.moe import ffn
-from repro_torch.serving import cache_ops
+from repro_torch.serving import cache_ops, graphs
 from repro_torch.serving.kvcache import ModelCacheView
 
 
@@ -164,8 +166,9 @@ def unique_tree_bytes(trees) -> int:
 # shape-bucket counting
 # ---------------------------------------------------------------------------
 # distinct (step, geometry, shapes) buckets each step kind has run at —
-# the JAX package's TRACE_COUNTS; bounded after warm-up when the
-# bucketing holds
+# the JAX package's TRACE_COUNTS (its compiled programs); bounded after
+# warm-up when the bucketing holds.  The CUDA graphs captured on the
+# card are counted apart (``graphs.GRAPH_CAPTURES``).
 TRACE_COUNTS: Counter = Counter()
 _BUCKETS: set = set()
 
@@ -175,6 +178,10 @@ def _note_step(kind: str, cfg: ModelConfig, *shapes) -> None:
     if key not in _BUCKETS:
         _BUCKETS.add(key)
         TRACE_COUNTS[kind] += 1
+
+
+def total_traces() -> int:
+    return sum(TRACE_COUNTS.values())
 
 
 def _select_model(params, midx: int):
@@ -705,8 +712,7 @@ class Engine:
         engine fusion-ineligible (SSM/hybrid keep their own scan, MoE
         its own routed FFN): the scheduler runs it on the serial path."""
         cfg = self.cfg
-        if cfg.family not in ("dense", "vlm", "audio") or cfg.ssm \
-                or cfg.moe:
+        if not dense_attention(cfg):
             return None
         return (cfg.family, cfg.n_layers, cfg.d_model, cfg.n_heads,
                 cfg.n_kv_heads, cfg.hd, cfg.d_ff, cfg.vocab_size,
@@ -719,15 +725,125 @@ class Engine:
 # ---------------------------------------------------------------------------
 # step functions
 #
-# Each takes host (numpy) token/length/table arrays, moves them to the
-# pool's device once, plans the step's KV writes once (token slots), and
-# runs the layers over a param tree with a leading model axis M —
-# matmuls batched over M, KV writes and attention over all M×R rows at
-# once (each row's table resolves to its own model's blocks).
+# The dense attention steps (fused decode / chunk, and their serial
+# one-model forms) are split in two.  The host part (``_decode_inputs``,
+# ``_chunk_inputs``) turns the numpy token / length / offset / table
+# arrays of one bucket into fixed-shape arrays, the KV write plan
+# included (``cache_ops.plan_slots``: one entry per new token, so its
+# length is the bucket's).  The device part (``_decode_body``,
+# ``_chunk_body``) takes device tensors only — no host data, no
+# data-dependent shape — and runs the layers over a param tree with a
+# leading model axis M: matmuls batched over M, KV writes and attention
+# over all M×R rows at once (each row's table resolves to its own
+# model's blocks).  ``graphs.run_step`` runs the device part as a CUDA
+# graph of its bucket on the card (``serving/graphs.py``), eagerly on
+# the CPU and under ``graphs.disable_graphs()``.  The other steps run
+# eagerly.
 # ---------------------------------------------------------------------------
 def _to(dev, a, dtype=None) -> torch.Tensor:
     t = torch.from_numpy(np.ascontiguousarray(a))
     return t.to(device=dev, dtype=dtype) if dtype is not None else t.to(dev)
+
+
+def dense_attention(cfg: ModelConfig) -> bool:
+    """The dense attention family (dense, vlm and audio without experts
+    or SSM): the engines that fuse (``Engine.fusion_signature``) and
+    whose steps run as CUDA graphs."""
+    return cfg.family in ("dense", "vlm", "audio") and not cfg.ssm \
+        and not cfg.moe
+
+
+def _decode_inputs(toks, lens, tables, block_tokens: int) -> dict:
+    """Host part of a decode step: toks [M, R] last tokens, lens [M, R]
+    lengths incl. the current token, tables [M, R, W] group bases."""
+    M, R = toks.shape
+    flat = tables.reshape(M * R, -1)
+    pos = lens.astype(np.int64) - 1
+    return dict(toks=toks.astype(np.int64),
+                lens=lens.reshape(-1).astype(np.int32), pos=pos,
+                table=flat.astype(np.int32),
+                **cache_ops.plan_slots(flat, pos.reshape(-1), 1,
+                                       block_tokens))
+
+
+def _chunk_inputs(toks, offs, clens, tables, block_tokens: int) -> dict:
+    """Host part of a chunked-prefill step: toks [M, R, C], offs and
+    clens [M, R], tables [M, R, W]."""
+    M, R, C = toks.shape
+    flat = tables.reshape(M * R, -1)
+    return dict(toks=toks.astype(np.int64),
+                offs=offs.reshape(-1).astype(np.int32),
+                positions=(offs[..., None].astype(np.int64)
+                           + np.arange(C)[None, None, :]),
+                last=np.maximum(clens - 1, 0).astype(np.int64),
+                table=flat.astype(np.int32),
+                **cache_ops.plan_slots(flat, offs.reshape(-1), C,
+                                       block_tokens))
+
+
+def _slots(a) -> cache_ops.TokenSlots:
+    return cache_ops.TokenSlots(a["src"], a["base"], a["off"], a["live"])
+
+
+def _decode_body(params, pool_k, pool_v, a, *, cfg: ModelConfig
+                 ) -> torch.Tensor:
+    """Device part of a decode step over the arena ``pool_k/pool_v``
+    and ``_decode_inputs``' tensors ``a``.  Returns logits [M, R,
+    vocab]."""
+    M, R = a["toks"].shape
+    lp = params["layers"]
+    n_h, n_kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    slots = _slots(a)
+    pos_t = a["pos"][:, :, None]                                # [M,R,1]
+    x = embed_tokens(params["tok"]["embed"], a["toks"])
+    for li in range(cfg.n_layers):
+        h = rms_norm(x, lp["ln1"][:, li], cfg.rms_eps)
+        q, k, v = attn_qkv(h[:, :, None, :], lp, li, cfg, pos_t)
+        cache_ops.write_slots(pool_k, pool_v, k.reshape(M * R, 1, n_kv, hd),
+                              v.reshape(M * R, 1, n_kv, hd), slots, li, n_kv)
+        phys = cache_ops.resolve_physical_blocks(a["table"], li, n_kv)
+        o = cache_ops.fused_paged_decode_attention(
+            q.reshape(M * R, n_h, hd).contiguous(), pool_k, pool_v, phys,
+            a["lens"])
+        x = x + linear(o.reshape(M, R, n_h * hd), lp["wo"][:, li])
+        h = rms_norm(x, lp["ln2"][:, li], cfg.rms_eps)
+        x = x + ffn(h, lp, li, cfg)
+    return lm_logits(x, params["tok"], cfg)[..., :cfg.vocab_size]
+
+
+def _chunk_body(params, pool_k, pool_v, a, *, cfg: ModelConfig
+                ) -> torch.Tensor:
+    """Device part of a chunked-prefill step over the arena and
+    ``_chunk_inputs``' tensors ``a``.  Returns logits [M, R, vocab] at
+    each row's last true token."""
+    M, R, C = a["toks"].shape
+    lp = params["layers"]
+    n_h, n_kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    slots = _slots(a)
+    x = embed_tokens(params["tok"]["embed"], a["toks"])
+    for li in range(cfg.n_layers):
+        h = rms_norm(x, lp["ln1"][:, li], cfg.rms_eps)
+        q, k, v = attn_qkv(h, lp, li, cfg, a["positions"])  # [M,R,C,{H,KV},hd]
+        cache_ops.write_slots(pool_k, pool_v, k.reshape(M * R, C, n_kv, hd),
+                              v.reshape(M * R, C, n_kv, hd), slots, li, n_kv)
+        phys = cache_ops.resolve_physical_blocks(a["table"], li, n_kv)
+        o = cache_ops.fused_paged_chunk_attention(
+            q.reshape(M * R, C, n_h, hd).contiguous(), pool_k, pool_v, phys,
+            a["offs"])
+        x = x + linear(o.reshape(M, R, C, n_h * hd), lp["wo"][:, li])
+        h = rms_norm(x, lp["ln2"][:, li], cfg.rms_eps)
+        x = x + ffn(h, lp, li, cfg)
+    idx = a["last"]                                               # [M,R]
+    x_last = x.gather(2, idx[:, :, None, None].expand(M, R, 1, x.shape[-1]))
+    return lm_logits(x_last[:, :, 0], params["tok"], cfg)[..., :cfg.vocab_size]
+
+
+def _on_model(body, midx: int):
+    """``body`` on model ``midx``'s one-model slice of a stacked tree (a
+    view), returning that model's logits [R, vocab]."""
+    def run(params, pool_k, pool_v, a):
+        return body(_select_model(params, midx), pool_k, pool_v, a)[0]
+    return run
 
 
 def _fused_decode_step(params, toks, lens, pool, tables, *,
@@ -742,31 +858,11 @@ def _fused_decode_step(params, toks, lens, pool, tables, *,
     Returns logits [M, R, vocab].
     """
     M, R = toks.shape
-    W = tables.shape[2]
-    _note_step("fused_decode", cfg, (M, R, W))
-    dev = pool.device
-    lp = params["layers"]
-    n_h, n_kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    pos = lens.astype(np.int64) - 1
-    slots = cache_ops.token_slots(tables.reshape(M * R, W), pos.reshape(-1),
-                                  1, pool.block_tokens, dev)
-    flat_table = _to(dev, tables.reshape(M * R, W))
-    flat_lens = _to(dev, lens.reshape(M * R), torch.int32)
-    pos_t = _to(dev, pos)[:, :, None]                           # [M,R,1]
-    x = embed_tokens(params["tok"]["embed"], _to(dev, toks, torch.int64))
-    for li in range(cfg.n_layers):
-        h = rms_norm(x, lp["ln1"][:, li], cfg.rms_eps)
-        q, k, v = attn_qkv(h[:, :, None, :], lp, li, cfg, pos_t)
-        cache_ops.write_slots(pool.k, pool.v, k.reshape(M * R, 1, n_kv, hd),
-                              v.reshape(M * R, 1, n_kv, hd), slots, li, n_kv)
-        phys = cache_ops.resolve_physical_blocks(flat_table, li, n_kv)
-        o = cache_ops.fused_paged_decode_attention(
-            q.reshape(M * R, n_h, hd).contiguous(), pool.k, pool.v, phys,
-            flat_lens)
-        x = x + linear(o.reshape(M, R, n_h * hd), lp["wo"][:, li])
-        h = rms_norm(x, lp["ln2"][:, li], cfg.rms_eps)
-        x = x + ffn(h, lp, li, cfg)
-    return lm_logits(x, params["tok"], cfg)[..., :cfg.vocab_size]
+    _note_step("fused_decode", cfg, (M, R, tables.shape[2]))
+    return graphs.run_step(
+        "fused_decode", cfg, None, params, pool,
+        _decode_inputs(toks, lens, tables, pool.block_tokens),
+        partial(_decode_body, cfg=cfg), dense_attention(cfg))
 
 
 def _fused_prefill_chunk_step(params, toks, offs, clens, pool, tables, *,
@@ -782,33 +878,11 @@ def _fused_prefill_chunk_step(params, toks, offs, clens, pool, tables, *,
     Returns logits [M, R, vocab] at each row's last true token.
     """
     M, R, C = toks.shape
-    W = tables.shape[2]
-    _note_step("fused_prefill_chunk", cfg, (M, R, C, W))
-    dev = pool.device
-    lp = params["layers"]
-    n_h, n_kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    slots = cache_ops.token_slots(tables.reshape(M * R, W), offs.reshape(-1),
-                                  C, pool.block_tokens, dev)
-    flat_table = _to(dev, tables.reshape(M * R, W))
-    flat_offs = _to(dev, offs.reshape(M * R), torch.int32)
-    positions = _to(dev, offs[..., None].astype(np.int64)
-                    + np.arange(C)[None, None, :])              # [M,R,C]
-    x = embed_tokens(params["tok"]["embed"], _to(dev, toks, torch.int64))
-    for li in range(cfg.n_layers):
-        h = rms_norm(x, lp["ln1"][:, li], cfg.rms_eps)
-        q, k, v = attn_qkv(h, lp, li, cfg, positions)     # [M,R,C,{H,KV},hd]
-        cache_ops.write_slots(pool.k, pool.v, k.reshape(M * R, C, n_kv, hd),
-                              v.reshape(M * R, C, n_kv, hd), slots, li, n_kv)
-        phys = cache_ops.resolve_physical_blocks(flat_table, li, n_kv)
-        o = cache_ops.fused_paged_chunk_attention(
-            q.reshape(M * R, C, n_h, hd).contiguous(), pool.k, pool.v, phys,
-            flat_offs)
-        x = x + linear(o.reshape(M, R, C, n_h * hd), lp["wo"][:, li])
-        h = rms_norm(x, lp["ln2"][:, li], cfg.rms_eps)
-        x = x + ffn(h, lp, li, cfg)
-    idx = _to(dev, np.maximum(clens - 1, 0), torch.int64)      # [M,R]
-    x_last = x.gather(2, idx[:, :, None, None].expand(M, R, 1, x.shape[-1]))
-    return lm_logits(x_last[:, :, 0], params["tok"], cfg)[..., :cfg.vocab_size]
+    _note_step("fused_prefill_chunk", cfg, (M, R, C, tables.shape[2]))
+    return graphs.run_step(
+        "fused_prefill_chunk", cfg, None, params, pool,
+        _chunk_inputs(toks, offs, clens, tables, pool.block_tokens),
+        partial(_chunk_body, cfg=cfg), dense_attention(cfg))
 
 
 def _prefill_step(params, midx, toks, lens, pool, table, *,
@@ -846,22 +920,30 @@ def _prefill_step(params, midx, toks, lens, pool, table, *,
 
 def _prefill_chunk_step(params, midx, toks, offs, clens, pool, table, *,
                         cfg: ModelConfig) -> torch.Tensor:
-    """Serial chunked prefill of one model: the fused sweep on its
+    """Serial chunked prefill of one model: the fused sweep's body on its
     one-model slice.  toks [B, C]; offs, clens [B]; table [B, W]."""
-    logits = _fused_prefill_chunk_step(
-        _select_model(params, midx), toks[None], offs[None], clens[None],
-        pool, table[None], cfg=cfg)
-    return logits[0]
+    B, C = toks.shape
+    _note_step("prefill_chunk", cfg, (B, C, table.shape[1]))
+    return graphs.run_step(
+        "chunk", cfg, midx, params, pool,
+        _chunk_inputs(toks[None], offs[None], clens[None], table[None],
+                      pool.block_tokens),
+        _on_model(partial(_chunk_body, cfg=cfg), midx),
+        dense_attention(cfg))
 
 
 def _decode_step(params, midx, last_tok, lens, pool, table, *,
                  cfg: ModelConfig) -> torch.Tensor:
-    """Serial decode of one model: the fused step on its one-model
-    slice.  last_tok, lens [B] (lens incl. the current token, whose
-    position is lens−1); table [B, W]."""
-    logits = _fused_decode_step(_select_model(params, midx), last_tok[None],
-                                lens[None], pool, table[None], cfg=cfg)
-    return logits[0]
+    """Serial decode of one model: the fused step's body on its
+    one-model slice.  last_tok, lens [B] (lens incl. the current token,
+    whose position is lens−1); table [B, W]."""
+    _note_step("decode", cfg, (last_tok.shape[0], table.shape[1]))
+    return graphs.run_step(
+        "decode", cfg, midx, params, pool,
+        _decode_inputs(last_tok[None], lens[None], table[None],
+                       pool.block_tokens),
+        _on_model(partial(_decode_body, cfg=cfg), midx),
+        dense_attention(cfg))
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,288 @@
+"""Compiled serving steps: one CUDA graph per step kind, geometry and
+shape bucket — the port's counterpart of the JAX package's
+``jitted_step`` (``repro/serving/engine.py``), whose steps each run as
+one ``jax.jit`` program with the KV pool donated.
+
+A step is split in two (``serving/engine.py``): a host part plans the
+step into fixed-shape numpy arrays, packed here into one int64 array
+(one copy to the card a step), and a device part takes device tensors
+only.  On the card the device part is captured once per key and
+replayed:
+
+* key: the step kind, the geometry (``Engine.cfg_key``), the packed
+  inputs' layout (the bucket's shapes), the model index of a serial
+  step, and the storage identity of the weight leaves and of the
+  arena's buffers (``UnifiedKVPool.arena``).  A graph holds raw
+  pointers, so every buffer it reads is in its key.
+* first sight: the body runs once eagerly on a side stream (kernel
+  builds, ctypes binding and ``cudaFuncSetAttribute`` happen there,
+  outside capture; its output is the call's result), then it is
+  captured with ``torch.cuda.graph`` into one memory pool shared by
+  every graph (``GRAPH_CAPTURES`` counts the captures by kind).
+* later calls: the packed inputs go through a pinned buffer into the
+  graph's static input (non-blocking), the graph replays, and the
+  caller gets a clone of the static logits (callers keep logits across
+  steps; the next replay overwrites the static ones).
+* stale graphs: a graph is dropped as soon as a weight leaf or an arena
+  buffer it was captured on dies (``adopt_stacked``,
+  ``materialize_private``, a ``grow`` that reallocates), and when the
+  same step of the same weights is captured on another arena
+  (``rebind_view`` / ``migrate_view``, crash recovery's re-registered
+  view).  A ``shrink`` or a ``grow`` into the slack keeps the buffers,
+  and so the graphs.
+* launch counts: a kernel wrapper counts a launch when Python calls it;
+  a capture's calls launch nothing and are taken back, and each replay
+  adds them again, so ``kernels.ops.launch_counts()`` stays true.
+
+``disable_graphs()`` runs every step eagerly on the card, for
+comparison (the reference's ``jax.disable_jit()``).  Operands on the
+CPU always run eagerly.  A failed capture or replay raises: there is no
+quiet retreat to the eager step.
+"""
+from __future__ import annotations
+
+import contextlib
+import time
+import weakref
+from collections import Counter
+from typing import Callable, Dict, Iterator, List, Tuple
+
+import numpy as np
+import torch
+
+# captures by step kind, and the seconds they took (the eager first
+# run included)
+GRAPH_CAPTURES: Counter = Counter()
+CAPTURE_SECONDS: Counter = Counter()
+
+_DISABLED = [0]
+
+
+@contextlib.contextmanager
+def disable_graphs() -> Iterator[None]:
+    """Run every step eagerly inside the block, on the card too."""
+    _DISABLED[0] += 1
+    try:
+        yield
+    finally:
+        _DISABLED[0] -= 1
+
+
+# ---------------------------------------------------------------------------
+# packed step inputs
+# ---------------------------------------------------------------------------
+def pack(arrays: Dict[str, np.ndarray]) -> Tuple[np.ndarray, tuple]:
+    """One int64 array holding every host input of a step, and the layout
+    ``((name, shape, numpy dtype), ...)`` that ``unpack`` reads."""
+    layout = tuple((k, a.shape, a.dtype.str) for k, a in arrays.items())
+    flat = np.concatenate([np.asarray(a, np.int64).reshape(-1)
+                           for a in arrays.values()])
+    return flat, layout
+
+
+def unpack(buf: torch.Tensor, layout: tuple) -> Dict[str, torch.Tensor]:
+    """The step's inputs as tensors read from ``buf`` (views of it where
+    the type is int64, casts otherwise): inside a capture they read the
+    static input at every replay."""
+    out, o = {}, 0
+    for name, shape, dt in layout:
+        n = int(np.prod(shape, dtype=np.int64))
+        out[name] = buf[o:o + n].reshape(shape).to(_TORCH_TYPES[dt])
+        o += n
+    return out
+
+
+_TORCH_TYPES = {np.dtype(t).str: torch.from_numpy(np.zeros(0, t)).dtype
+                for t in (np.int64, np.int32, np.bool_)}
+
+
+# ---------------------------------------------------------------------------
+# capture
+# ---------------------------------------------------------------------------
+class CudaGraphCapture:
+    """Captures a step as a CUDA graph on the card of its operands.  The
+    graphs share one memory pool while any of them lives; the first
+    capture after the last one died opens a new pool (the allocator
+    frees a pool no graph uses, and refuses to share it again)."""
+
+    device_types = ("cuda",)
+
+    def __init__(self):
+        self.pool = None
+        self.stream = None
+        self.live = 0
+
+    def eager(self, fn: Callable[[], torch.Tensor], device) -> torch.Tensor:
+        """Run ``fn`` once on a side stream (first-use work stays out of
+        the capture); returns its output, usable on the current
+        stream."""
+        with torch.cuda.device(device):
+            if self.stream is None:
+                self.stream = torch.cuda.Stream()
+            cur = torch.cuda.current_stream()
+            self.stream.wait_stream(cur)
+            with torch.cuda.stream(self.stream):
+                out = fn()
+            cur.wait_stream(self.stream)
+            out.record_stream(cur)
+        return out
+
+    def record(self, key, fn: Callable[[], torch.Tensor], device):
+        """Capture ``fn``.  Returns ``(replay, static output)``;
+        ``replay(fn)`` replays the graph (``fn`` is ignored: the graph
+        is the program)."""
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(device):
+            if self.live == 0:
+                self.pool = torch.cuda.graph_pool_handle()
+            with torch.cuda.graph(graph, pool=self.pool):
+                out = fn()
+        self.live += 1
+        weakref.finalize(graph, self._died)
+        return (lambda _fn: graph.replay()), out
+
+    def _died(self) -> None:
+        self.live -= 1
+
+
+class _StepGraph:
+    """One captured step: its static input, the pinned buffer that
+    feeds it, the replay, the static output and the kernel launches one
+    replay makes."""
+
+    def __init__(self, static_in, replay, out, launches):
+        self.static_in = static_in
+        self.replay = replay
+        self.out = out
+        self.launches = launches
+        self.refs: List[weakref.ref] = []
+        self.pinned = self.copied = None
+        if static_in.device.type == "cuda":
+            self.pinned = torch.empty(static_in.shape, dtype=torch.int64,
+                                      pin_memory=True)
+            self.copied = torch.cuda.Event()
+
+    def load(self, packed: np.ndarray) -> None:
+        if self.pinned is None:
+            self.static_in.copy_(torch.from_numpy(packed))
+            return
+        # the pinned buffer may still feed the previous step's copy
+        self.copied.synchronize()
+        self.pinned.numpy()[:] = packed
+        self.static_in.copy_(self.pinned, non_blocking=True)
+        self.copied.record()
+
+    def run(self, packed: np.ndarray, fn) -> torch.Tensor:
+        self.load(packed)
+        self.replay(fn)
+        for k, n in self.launches:
+            k.launches += n
+        return self.out.clone()
+
+
+class GraphRegistry:
+    """The captured steps, by key (see the module's header)."""
+
+    def __init__(self, capture=None):
+        self.capture = capture if capture is not None else CudaGraphCapture()
+        self.graphs: Dict[tuple, _StepGraph] = {}
+        self._by_slot: Dict[tuple, tuple] = {}
+        self.log: List[tuple] = []      # every captured key, in order
+        # drops that fall inside a capture (a weakref callback run by the
+        # collector) wait for its end: no graph is destroyed mid-capture
+        self._capturing = False
+        self._pending: List[tuple] = []
+
+    def enabled(self, device: torch.device) -> bool:
+        return not _DISABLED[0] and device.type in self.capture.device_types
+
+    def clear(self) -> None:
+        self.graphs.clear()
+        self._by_slot.clear()
+        self.log.clear()
+
+    def _drop(self, key) -> None:
+        if self._capturing:
+            self._pending.append(key)
+            return
+        if self.graphs.pop(key, None) is not None:
+            if self._by_slot.get(key[0]) == key:
+                del self._by_slot[key[0]]
+
+    def run(self, kind: str, cfg_key, midx, params, arena, packed, layout,
+            body) -> torch.Tensor:
+        """``body(params, k_arena, v_arena, inputs)`` for this call's
+        ``packed`` inputs: replayed, or captured on first sight."""
+        from repro_torch.serving.engine import tree_leaves
+        leaves = tree_leaves(params)
+        k_buf, v_buf = arena
+        slot = (kind, cfg_key, layout, midx,
+                tuple(t.data_ptr() for t in leaves))
+        key = (slot, (k_buf.data_ptr(), v_buf.data_ptr(), k_buf.shape[0]))
+        g = self.graphs.get(key)
+        if g is not None:
+            return g.run(packed, lambda: body(params, k_buf, v_buf,
+                                              unpack(g.static_in, layout)))
+        return self._capture(kind, key, leaves + [k_buf, v_buf], params,
+                             arena, packed, layout, body)
+
+    def _capture(self, kind, key, held, params, arena, packed, layout,
+                 body) -> torch.Tensor:
+        from repro_torch.kernels import ops
+        t0 = time.perf_counter()
+        old = self._by_slot.get(key[0])
+        if old is not None:
+            self._drop(old)              # the same step on another arena
+        k_buf, v_buf = arena
+        dev = k_buf.device
+        static_in = torch.empty(packed.shape, dtype=torch.int64, device=dev)
+        static_in.copy_(torch.from_numpy(packed))
+
+        def fn():
+            return body(params, k_buf, v_buf, unpack(static_in, layout))
+        result = self.capture.eager(fn, dev)
+        # a capture's kernel calls launch nothing: count them per replay
+        kernels = ops.path_kernels()
+        before = [k.launches for k in kernels]
+        self._capturing = True
+        try:
+            replay, out = self.capture.record(key, fn, dev)
+        finally:
+            self._capturing = False
+            launches = tuple((k, k.launches - n)
+                             for k, n in zip(kernels, before))
+            for k, n in launches:
+                k.launches -= n
+            pending, self._pending = self._pending, []
+            for dead in pending:
+                self._drop(dead)
+        g = _StepGraph(static_in, replay, out,
+                       tuple((k, n) for k, n in launches if n))
+        for t in held:
+            g.refs.append(weakref.ref(t, lambda _r, key=key: self._drop(key)))
+        self.graphs[key] = g
+        self._by_slot[key[0]] = key
+        self.log.append(key)
+        GRAPH_CAPTURES[kind] += 1
+        CAPTURE_SECONDS[kind] += time.perf_counter() - t0
+        return result
+
+
+REGISTRY = GraphRegistry()
+
+
+def run_step(kind: str, cfg_key, midx, params, pool, host: Dict[str, np.ndarray],
+             body, capturable: bool = True) -> torch.Tensor:
+    """Run a step's device part ``body(params, k_arena, v_arena, inputs)``
+    on the host part's arrays ``host``: through the registry where the
+    arena lies on the card, the kind is ``capturable`` and graphs are
+    not disabled, else eagerly.  ``pool`` is a ``UnifiedKVPool`` (its
+    whole buffers, ``arena()``) or any object with ``k`` and ``v``."""
+    arena = pool.arena() if hasattr(pool, "arena") else (pool.k, pool.v)
+    packed, layout = pack(host)
+    dev = arena[0].device
+    if capturable and REGISTRY.enabled(dev):
+        return REGISTRY.run(kind, cfg_key, midx, params, arena, packed,
+                            layout, body)
+    return body(params, *arena, unpack(torch.from_numpy(packed).to(dev),
+                                       layout))

@@ -612,6 +612,15 @@ class UnifiedKVPool:
         self.k = self._k_buf[:self.n_head_blocks]
         self.v = self._v_buf[:self.n_head_blocks]
 
+    def arena(self):
+        """The arena's whole buffers ``(k, v)``, slack rows included: the
+        tensors the steps write and the kernels read through block ids
+        (``k``/``v`` are their first ``n_head_blocks`` rows).  They are
+        replaced only when ``grow`` reallocates, never by a ``shrink``
+        or a ``grow`` into the slack, so a captured step stays valid
+        across those (``serving/graphs.py``)."""
+        return self._k_buf, self._v_buf
+
     @property
     def head_block_bytes(self) -> int:
         return 2 * self.block_tokens * self.head_dim * self.dtype_bytes

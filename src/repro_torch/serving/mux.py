@@ -65,6 +65,9 @@ class MuxStats:
     decode_tokens: int = 0
     ticks: int = 0
 
+    def throughput_reqs(self, horizon: float) -> float:
+        return len(self.finished) / max(horizon, 1e-9)
+
 
 def _stack_members(trees: List[dict]) -> dict:
     """Concatenate the members' ``[1, ...]`` trees on the model axis,
@@ -208,6 +211,10 @@ class FusedGroup:
                 per[eng.cfg.name] = eng.apply_prefill_result(
                     job, nxt[m, :len(job)])
         return per
+
+
+# backwards-compatible name (the group now fuses prefill too)
+FusedDecodeGroup = FusedGroup
 
 
 class MuxScheduler:

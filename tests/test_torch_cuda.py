@@ -21,6 +21,8 @@ tolerance is relative to the plain output's largest magnitude (the same
 tokens, whose outputs are ~sqrt(e / n_tokens) in size, as large as an
 absolute 2e-2.
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -779,3 +781,65 @@ def test_kernels_3_4_launch_bare_without_a_gradient(dev, wants_grad):
     for a, b in ((y, ry), (fs, rfs)):
         assert (a.float() - b.float()).abs().max().item() <= \
             TOL[torch.bfloat16] * b.float().abs().max().item()
+
+
+# the compiled steps (serving/graphs.py): a captured fused decode and
+# fused chunk step, replayed on other tokens, lengths and tables, equal
+# the eager step bit for bit (logits and arena), and every replay adds
+# its kernels' launches to the counts
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_captured_fused_steps_equal_eager(dev, dtype):
+    from repro_torch import configs
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving import engine as E
+    from repro_torch.serving import graphs
+    from repro_torch.serving.kvcache import UnifiedKVPool
+
+    cfg = configs.get_reduced("qwen2-7b")
+    trees = [init_params(cfg, torch.Generator().manual_seed(i), dtype, "cpu")
+             for i in range(2)]
+    params = {g: {k: torch.stack([t[g][k] for t in trees]).to(dev)
+                  for k in trees[0][g]} for g in trees[0]}
+    n, M, R, C, Wd = 512, 2, 4, 16, 8
+    gs = cfg.n_layers * cfg.n_kv_heads
+    pools = {}
+    for mode in ("graph", "eager"):
+        pools[mode] = UnifiedKVPool(n, cfg.hd, dtype, device=dev)
+        g = torch.Generator(device=dev).manual_seed(3)
+        for t in pools[mode].arena():
+            t.copy_(torch.randn(t.shape, generator=g, device=dev).to(dtype))
+    rng = np.random.default_rng(0)
+    graphs.REGISTRY.clear()
+    captures = dict(graphs.GRAPH_CAPTURES)
+    for step in range(4):
+        tables = (rng.permutation(n // gs)[:M * R * Wd] * gs).reshape(
+            M, R, Wd).astype(np.int32)
+        tables[-1, -1] = -1                      # a padded row
+        toks = rng.integers(1, cfg.vocab_size, (M, R, C)).astype(np.int32)
+        offs = (rng.integers(0, Wd - 1, (M, R)) * 16).astype(np.int32)
+        clens = rng.integers(1, C + 1, (M, R)).astype(np.int32)
+        lens = rng.integers(1, 16 * Wd, (M, R)).astype(np.int32)
+        out = {}
+        for mode, pool in pools.items():
+            ctx = graphs.disable_graphs() if mode == "eager" else \
+                contextlib.nullcontext()
+            ops.reset_launch_counts()
+            with ctx:
+                lc = E._fused_prefill_chunk_step(params, toks, offs, clens,
+                                                 pool, tables, cfg=cfg)
+                ld = E._fused_decode_step(params, toks[:, :, 0], lens, pool,
+                                          tables, cfg=cfg)
+            torch.cuda.synchronize()
+            out[mode] = (lc, ld, ops.launch_counts())
+        assert torch.equal(out["graph"][0], out["eager"][0])
+        assert torch.equal(out["graph"][1], out["eager"][1])
+        for a, b in zip(pools["graph"].arena(), pools["eager"].arena()):
+            assert torch.equal(a, b)
+        # the same launches on the card, captured or not
+        assert out["graph"][2] == out["eager"][2]
+        assert out["graph"][2]["repro_paged_decode"] == cfg.n_layers
+        assert out["graph"][2]["repro_paged_prefill"] == cfg.n_layers
+    got = {k: v - captures.get(k, 0)
+           for k, v in graphs.GRAPH_CAPTURES.items()}
+    assert got.get("fused_decode") == 1 == got.get("fused_prefill_chunk")
+    assert len(graphs.REGISTRY.graphs) == 2
