@@ -58,15 +58,25 @@
    group 7), whole-prompt; a cut config is
    ``config.replace(configs.get(arch), n_layers=k)`` served by a unit
    this script assembles (``build_cut_unit``); launches are counted in
-   each phase.  The dense steps of every phase run as CUDA graphs, one
-   per shape bucket (``serving/graphs.py``); the graphs phase
+   each phase.  Every step but the MoE family's runs as a CUDA graph,
+   one per shape bucket (``serving/graphs.py``); the graphs phase
    (``serve_graphs``) serves the fused qwen2-7b pair's trace eagerly
    (``disable_graphs``) and with graphs, then both again with the arena
    grown past its buffer under live sequences: equal reports, tokens
    and launch counts, the first fused decodes' logits within bf16's
    tolerance, each graph on the old arena dropped and recaptured once;
    it prints the captures, their seconds, the graph pool's bytes, peak
-   memory and per-tick wall ms and host µs in each mode;
+   memory and per-tick wall ms and host µs in each mode; the graph
+   steps phase (``serve_graph_steps``) serves the whole-prompt qwen2-7b
+   trace, serve A's, serve B's and one mamba2-2.7b prefilling whole
+   prompts, each twice on one unit, with graphs and eagerly: equal
+   reports, tokens and launch counts, the whole-prompt ``prefill``, and
+   ``prefill_ssm``, ``chunk_ssm`` and ``decode_ssm`` captured and
+   replayed (kernels 1, 3 and 4 launched by replays), their first
+   call's and first replay's logits within bf16's tolerance, no MoE
+   step captured, and a capture that fails raising out of the step; it
+   prints the same measures per run, the replays of each whole-prompt
+   key after each wave and the decode rows rolled back;
 5. plans full-width qwen2-7b ×2 + mamba2-2.7b for one H100 with the
    paper's placement algorithm (``core/placement.place``, H100
    constants), round-trips the plan through its JSON file, serves ~16
@@ -174,6 +184,7 @@ import shutil
 import subprocess
 import sys
 import time
+import warnings
 from collections import Counter
 from pathlib import Path
 
@@ -1663,9 +1674,9 @@ def _timed_steps(unit) -> dict:
     rec = dict(host=0.0, first=[])
 
     def timed(fn, first=False):
-        def call(*args):
+        def call(*args, **kw):
             t = time.perf_counter()
-            out = fn(*args)
+            out = fn(*args, **kw)
             rec["host"] += time.perf_counter() - t
             if first and len(rec["first"]) < FIRST_DECODES:
                 rec["first"].append(out.float().cpu())
@@ -1723,6 +1734,332 @@ def print_graphs(res: dict, card: str) -> None:
           + f"; first {FIRST_DECODES} fused decodes graphs vs eager max rel err "
           f"{res['first_decode_rel_err']:.3g} < {GRAPH_LOGIT_TOL}; "
           f"phase {res['phase_s']:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# the rest of the compiled steps: whole-prompt prefill, SSM and hybrid
+# ---------------------------------------------------------------------------
+# (label, the serve phase's trace and unit, the step kinds it must
+# capture and replay, the kernels its replays must launch); each run
+# serves its trace twice on one unit (the second wave meets the buckets
+# the first captured)
+STEP_RUNS = (
+    ("(i) whole-prompt serve: qwen2-7b", dict(
+        archs=["qwen2-7b"], chunk_tokens=0, n_target=8, seed=1,
+        pool_blocks=16384), ("prefill", "decode"),
+     ("repro_flash_prefill", "repro_paged_decode")),
+    ("(ii) serve A: qwen2-7b + mamba2-2.7b, chunked", dict(
+        archs=["qwen2-7b", "mamba2-2.7b"], chunk_tokens=64, n_target=12,
+        seed=2, alpha=1.0, pool_blocks=196608), ("chunk_ssm", "decode_ssm"),
+     ("repro_ssd_scan",)),
+    ("(iii) serve B: zamba2-1.2b, whole-prompt", dict(
+        archs=["zamba2-1.2b"], chunk_tokens=0, n_target=12, seed=3,
+        pool_blocks=131072), ("prefill_ssm", "decode_ssm"),
+     ("repro_ssd_scan", "repro_flash_prefill", "repro_paged_decode")),
+    ("(iv) mamba2-2.7b, whole-prompt", dict(
+        archs=["mamba2-2.7b"], chunk_tokens=0, n_target=4, seed=13,
+        pool_blocks=131072), ("prefill_ssm", "decode_ssm"),
+     ("repro_ssd_scan",)),
+)
+STEP_WAVES = 2
+# outputs capped at 32 tokens (the serve phases cap at 64): the eager
+# runs are host-bound and a wave lasts as long as its longest output,
+# so the phase's time is cut in output tokens — cutting requests leaves
+# the longest output (serve A's first 8 of 12 requests: 256 ticks of
+# 288) — never in width or requests
+STEP_MAX_NEW = 32
+NEW_KINDS = ("prefill", "prefill_ssm", "chunk_ssm", "decode_ssm")
+
+
+def _step_kind(eng, fn: str) -> str:
+    """The registry's kind of an engine's step function ``fn``."""
+    if fn == "_prefill_fn":
+        return "prefill_ssm" if eng.cfg.ssm else "prefill"
+    base = "decode" if fn == "_decode_fn" else "chunk"
+    return base + ("_ssm" if eng.cfg.ssm else "")
+
+
+def _recorded_steps(unit, graphs, keep) -> dict:
+    """Wrap ``unit``'s engine step functions: the record sums the wall
+    seconds spent in them under ``host``, numbers the calls of each
+    kind and keeps (float32, on the host) the logits of the calls
+    ``keep`` names by kind, or where ``keep`` is None (a run with graphs)
+    of each kind's first call and first replay (its first call that
+    captured nothing); it also counts the decode rows that roll back."""
+    rec = dict(host=0.0, calls=Counter(), logits={}, replayed=set(),
+               rolled=0)
+
+    def timed(fn, kind):
+        def call(*args, **kw):
+            log = len(graphs.REGISTRY.log)
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            rec["host"] += time.perf_counter() - t
+            i = rec["calls"][kind]
+            rec["calls"][kind] += 1
+            if keep is None:
+                first_replay = (len(graphs.REGISTRY.log) == log
+                                and kind not in rec["replayed"])
+                if first_replay:
+                    rec["replayed"].add(kind)
+                want = i == 0 or first_replay
+            else:
+                want = i in keep.get(kind, ())
+            if want:
+                rec["logits"].setdefault(kind, {})[i] = out.float().cpu()
+            return out
+        return call
+
+    def rolled(apply, eng):
+        def call(*args):
+            n = apply(*args)
+            rec["rolled"] += len(eng._rolled_rows)
+            return n
+        return call
+    for eng in unit.engines.values():
+        for fn in ("_prefill_fn", "_decode_fn", "_chunk_fn"):
+            setattr(eng, fn, timed(getattr(eng, fn), _step_kind(eng, fn)))
+        eng.apply_decode_result = rolled(eng.apply_decode_result, eng)
+    return rec
+
+
+def _serve_steps_run(torch, dev, spec, mode, reduced, keep=None) -> dict:
+    """One run of ``serve_graph_steps``: the trace served ``STEP_WAVES``
+    times on one unit, eagerly or with graphs."""
+    from repro_torch.core.workload import synthesize
+    from repro_torch.kernels import ops
+    from repro_torch.serving import driver, graphs
+
+    cuda = dev.type == "cuda"
+    archs = spec["archs"]
+    names = [f"{a}#{i}" for i, a in enumerate(archs)]
+    wl = synthesize(names, alpha=spec.get("alpha", 2.1),
+                    max_rate=spec["n_target"] / 2.0, horizon=1.6,
+                    seed=spec["seed"], mean_prompt=256, mean_output=40,
+                    max_len=512)
+    unit = driver.build_unit_from_specs(
+        [(n, a, wl.rates[n]) for n, a in zip(names, archs)],
+        pool_blocks=4000 if reduced else spec["pool_blocks"], max_slots=4,
+        chunk_tokens=spec["chunk_tokens"], seed=spec["seed"],
+        policy="adbs", fused=True, reduced=reduced,
+        dtype=torch.bfloat16 if cuda else torch.float32, device=dev)
+    rec = _recorded_steps(unit, graphs, keep)
+    mem = _Memory(torch, dev)
+    n_log = len(graphs.REGISTRY.log)
+    ctx = (graphs.disable_graphs() if mode == "eager"
+           else contextlib.nullcontext())
+    ticks, reports, tokens, prefill_replays = [], [], {}, []
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with ctx:
+        for wave in range(STEP_WAVES):
+            reqs = driver.requests_from_workload(
+                wl, unit.engines, seed=spec["seed"],
+                max_new_cap=STEP_MAX_NEW)
+            sess = driver.ServeSession([unit], reqs,
+                                       cost=driver.TickCostModel())
+            while True:
+                n0, caps = unit.stats.ticks, len(graphs.REGISTRY.log)
+                rec["host"] = 0.0
+                t = time.perf_counter()
+                status = sess.step()[0]
+                if unit.stats.ticks > n0:
+                    ticks.append(dict(
+                        wall_ms=1e3 * (time.perf_counter() - t),
+                        host_us=1e6 * rec["host"],
+                        captured=len(graphs.REGISTRY.log) > caps))
+                if status == "done":
+                    break
+            rep = sess.report()
+            agg = rep.aggregate
+            if agg.finished != agg.submitted or agg.submitted == 0:
+                raise AssertionError(f"graph steps ({mode}), wave {wave}: "
+                                     f"served {agg.finished}/{agg.submitted}")
+            reports.append(_report_text(rep))
+            tokens.update({(wave, r.req_id): list(r.output) for r in reqs})
+            prefill_replays.append({
+                str(k[0][2][0][1]): g.replays
+                for k, g in graphs.REGISTRY.graphs.items()
+                if k[0][0] in ("prefill", "prefill_ssm")
+                and k in graphs.REGISTRY.log[n_log:]})
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if unit.pool.allocator.used:
+        raise AssertionError(f"graph steps ({mode}): the pool was not "
+                             f"freed")
+    mine = {k: g for k, g in graphs.REGISTRY.graphs.items()
+            if k in graphs.REGISTRY.log[n_log:]}
+    replays = Counter()
+    replay_launches = Counter()
+    for k, g in mine.items():
+        replays[k[0][0]] += g.replays
+        for kernel, n in g.launches:
+            replay_launches[kernel.symbol] += n * g.replays
+    steady = [t for t in ticks if not t["captured"]]
+    nums = dict(
+        requests=STEP_WAVES * len(reqs),
+        ticks=len(ticks), wall_s=wall,
+        tick_ms_p50=_pct([t["wall_ms"] for t in steady], 0.5),
+        tick_ms_p90=_pct([t["wall_ms"] for t in steady], 0.9),
+        host_us_p50=_pct([t["host_us"] for t in steady], 0.5),
+        host_us_p90=_pct([t["host_us"] for t in steady], 0.9),
+        capture_ticks=len(ticks) - len(steady), peak_gb=mem.fold(),
+        launches=ops.launch_counts(),
+        captured=dict(Counter(k[0][0]
+                              for k in graphs.REGISTRY.log[n_log:])),
+        replays=dict(replays), replay_launches=dict(replay_launches),
+        # replays of each whole-prompt key at the end of each wave
+        # (keyed by the packed tokens' shape: rows, padded length)
+        prefill_key_replays=prefill_replays,
+        rolled_back_rows=rec["rolled"],
+        graph_pool_bytes=_graph_pool_bytes(torch, graphs))
+    out = dict(reports=reports, tokens=tokens, logits=rec["logits"],
+               nums=nums)
+    del unit, sess, rep, mine
+    _free(torch, dev)
+    return out
+
+
+def serve_graph_steps(torch, device="cuda", reduced=False) -> dict:
+    """The rest of the compiled steps at full width (``STEP_RUNS``): the
+    whole-prompt serve (kernel 3: ``prefill``), serve A (kernel 4:
+    ``chunk_ssm``, the SSM ``decode_ssm``), serve B (zamba2-1.2b, kernels
+    4, 3 and 1: ``prefill_ssm``, ``decode_ssm``) and one mamba2-2.7b
+    prefilling whole prompts (``prefill_ssm``), each trace served twice
+    on one unit, with graphs and then eagerly (``disable_graphs``).
+    Checks per run: the reports (wall fields aside), greedy tokens and
+    launch counts equal; each of the run's kinds captured and replayed;
+    the kernels of ``STEP_RUNS`` launched by replays; the logits of
+    each kind's first call and first replay within ``GRAPH_LOGIT_TOL``
+    of the largest; nothing captured eagerly.  Over the whole script so
+    far: no MoE step captured.  Then a capture that fails (the body
+    raises while capturing) must raise out of the step and leave no
+    graph.  Measures per run and mode the ticks' wall ms and the host
+    µs in the step calls (capture ticks aside), peak memory, the graph
+    pool's bytes, captures and replays by kind, the replays of each
+    whole-prompt key after each wave, and the decode rows rolled
+    back."""
+    from repro_torch.serving import graphs
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    _free(torch, dev)
+    runs, problems = {}, []
+    for label, spec, kinds, kernels in STEP_RUNS:
+        g = _serve_steps_run(torch, dev, spec, "graphs", reduced)
+        keep = {k: set(v) for k, v in g["logits"].items()}
+        e = _serve_steps_run(torch, dev, spec, "eager", reduced, keep)
+        gn, en = g["nums"], e["nums"]
+        if g["reports"] != e["reports"]:
+            problems.append(f"{label}: the reports differ")
+        differ = sum(g["tokens"][i] != e["tokens"][i] for i in e["tokens"])
+        if differ or g["tokens"].keys() != e["tokens"].keys():
+            problems.append(f"{label}: {differ} requests with other tokens")
+        if gn["launches"] != en["launches"]:
+            problems.append(f"{label}: launches {gn['launches']} != eager "
+                            f"{en['launches']}")
+        if en["captured"]:
+            problems.append(f"{label}: captured {en['captured']} eagerly")
+        for kind in kinds:
+            if not gn["captured"].get(kind) or not gn["replays"].get(kind):
+                problems.append(f"{label}: {kind} captured "
+                                f"{gn['captured'].get(kind, 0)}, replayed "
+                                f"{gn['replays'].get(kind, 0)}")
+        for symbol in kernels if dev.type == "cuda" else ():
+            if not gn["replay_launches"].get(symbol):
+                problems.append(f"{label}: no replay launched {symbol}")
+        errs = {}
+        for kind, calls in g["logits"].items():
+            errs[kind] = max(
+                (y - e["logits"][kind][i]).abs().max().item()
+                / e["logits"][kind][i].abs().max().item()
+                for i, y in calls.items())
+        if not all(v < GRAPH_LOGIT_TOL for v in errs.values()):
+            problems.append(f"{label}: logits graphs vs eager {errs}")
+        runs[label] = dict(graphs=gn, eager=en, logit_rel_err=errs,
+                           compared_calls={k: sorted(v)
+                                           for k, v in keep.items()})
+    moe = [k[0][0] for k in graphs.REGISTRY.log if k[0][1].moe
+           or k[0][1].family == "moe"]
+    if moe:
+        problems.append(f"MoE steps captured: {moe}")
+    # (the capture stub of the CPU rehearsal records without running)
+    raised = (_failed_capture(torch, dev, graphs) if dev.type == "cuda"
+              else dict(raised=None, graphs_added=0))
+    if dev.type == "cuda" and (not raised["raised"]
+                               or raised["graphs_added"]):
+        problems.append(f"a failed capture: {raised}")
+    if problems:
+        raise AssertionError("graph steps phase: " + "; ".join(problems))
+    launches = Counter()
+    for r in runs.values():
+        for mode in ("eager", "graphs"):
+            launches.update(r[mode]["launches"])
+    return dict(runs=runs, moe_captures=len(moe), failed_capture=raised,
+                total_captures=dict(graphs.GRAPH_CAPTURES),
+                launches=dict(launches),
+                phase_s=time.perf_counter() - t_phase)
+
+
+def _failed_capture(torch, dev, graphs) -> dict:
+    """A step whose body raises while it is being captured (after its
+    eager first run succeeded): the error must leave ``run_step``, and
+    the registry must hold no graph of it."""
+    import numpy as np
+    buf = torch.zeros(4, device=dev)
+
+    class Planted(RuntimeError):
+        pass
+
+    def body(params, bufs, a):
+        if torch.cuda.is_current_stream_capturing():
+            raise Planted("planted failure inside the capture")
+        return bufs[0] + a["x"].to(bufs[0].dtype)
+    n = len(graphs.REGISTRY.graphs)
+    try:
+        with warnings.catch_warnings():
+            # the capture that raised before its first launch is empty
+            warnings.filterwarnings("ignore", "The CUDA Graph is empty")
+            graphs.run_step("planted", None, None, {"w": buf}, (buf,),
+                            {"x": np.arange(4)}, body)
+    except Planted as err:
+        return dict(raised=type(err).__name__,
+                    graphs_added=len(graphs.REGISTRY.graphs) - n)
+    return dict(raised=None, graphs_added=len(graphs.REGISTRY.graphs) - n)
+
+
+def print_graph_steps(res: dict, card: str) -> None:
+    """Print the graph steps phase's results, each number beside the
+    card."""
+    for label, r in res["runs"].items():
+        for mode in ("eager", "graphs"):
+            n = r[mode]
+            print(f"graph steps ({card}): {label}, {mode}: {n['ticks']} "
+                  f"ticks over {STEP_WAVES} waves of the trace, tick "
+                  f"{n['tick_ms_p50']:.2f} ms p50 / {n['tick_ms_p90']:.2f} "
+                  f"p90, host {n['host_us_p50']:.0f} us p50 / "
+                  f"{n['host_us_p90']:.0f} p90 a tick in the step calls, "
+                  f"{n['capture_ticks']} capture ticks, wall "
+                  f"{n['wall_s']:.2f} s, peak {n['peak_gb']:.2f} GB, "
+                  f"captured {n['captured']}, replayed {n['replays']}, "
+                  f"rolled-back rows {n['rolled_back_rows']}")
+        g, errs = r["graphs"], r["logit_rel_err"]
+        pool = g["graph_pool_bytes"]
+        print(f"graph steps ({card}): {label}: launches by replays "
+              f"{g['replay_launches']}; whole-prompt key replays after "
+              f"each wave {g['prefill_key_replays']}; graph pool "
+              + ("not named by the allocator's snapshot" if pool is None
+                 else f"{pool / 1e6:.1f} MB")
+              + f"; logits graphs vs eager max rel err "
+              f"{ {k: float(f'{v:.3g}') for k, v in errs.items()} } < "
+              f"{GRAPH_LOGIT_TOL} at calls {r['compared_calls']}")
+    print(f"graph steps ({card}): MoE steps captured in the whole script "
+          f"{res['moe_captures']}; a failed capture raised "
+          f"{res['failed_capture']['raised']} and added "
+          f"{res['failed_capture']['graphs_added']} graphs; captures by "
+          f"kind so far {res['total_captures']}; phase "
+          f"{res['phase_s']:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -4354,6 +4691,8 @@ def main() -> int:
           "raises otherwise); every request finished; pools freed")
     compiled = serve_graphs(torch)
     print_graphs(compiled, card)
+    graph_steps = serve_graph_steps(torch)
+    print_graph_steps(graph_steps, card)
 
     placed = serve_placement(torch)
     print_placement(placed)
@@ -4395,7 +4734,8 @@ def main() -> int:
     lowering = check_lowering(torch)
     print_lowering(lowering, card)
 
-    runs = list(served.values()) + [compiled, placed, w8, stream, chaos,
+    runs = list(served.values()) + [compiled, graph_steps, placed, w8,
+                                    stream, chaos,
                                     prefix, recfg,
                                     reduced_train, full_train, steps_served,
                                     lowering]

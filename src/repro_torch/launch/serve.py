@@ -59,7 +59,8 @@ from repro_torch.serving.driver import (TickCostModel, build_unit_from_specs,
                                         requests_from_workload, serve_workload,
                                         units_from_placement)
 from repro_torch.serving.engine import TRACE_COUNTS, unique_tree_bytes
-from repro_torch.serving.graphs import CAPTURE_SECONDS, GRAPH_CAPTURES
+from repro_torch.serving.graphs import (CAPTURE_SECONDS, GRAPH_CAPTURES,
+                                        GRAPH_REPLAYS)
 from repro_torch.serving.faults import FaultPlan
 from repro_torch.serving.frontend import ServingFrontend, serve_and_collect
 from repro_torch.serving.metrics import MetricsServer, ServingMetrics
@@ -499,7 +500,8 @@ def main(argv=None) -> int:
     print(f"[serve] shape buckets by step: {dict(TRACE_COUNTS)}")
     if device.type == "cuda":
         print(f"[serve] CUDA graphs captured by step: {dict(GRAPH_CAPTURES)} "
-              f"in {sum(CAPTURE_SECONDS.values()):.1f} s")
+              f"in {sum(CAPTURE_SECONDS.values()):.1f} s, replayed "
+              f"{dict(GRAPH_REPLAYS)}")
         print(f"[serve] kernel launches: {ops.launch_counts()}")
     if args.report:
         with open(args.report, "w") as f:

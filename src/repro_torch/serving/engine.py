@@ -21,15 +21,15 @@ rows and block-multiple prompt lengths — exactly as the JAX package
 pads them, so the two packages see the same batches; ``TRACE_COUNTS``
 counts the distinct shape buckets each step ran at.
 
-Compiled steps: on the card the dense attention family's decode and
-chunked-prefill steps (fused and serial) run as one CUDA graph per
-shape bucket (``serving/graphs.py``, the JAX package's
-``jitted_step``); the other steps run eagerly.  On CUDA tensors the
-attention and the SSD scan go through the Hopper kernels
+Compiled steps: on the card every step of every family but MoE runs
+as one CUDA graph per shape bucket (``serving/graphs.py``, the JAX
+package's ``jitted_step``); the MoE steps run eagerly.  On CUDA tensors
+the attention and the SSD scan go through the Hopper kernels
 (``serving/cache_ops``, ``models/mamba2``), on CPU tensors through
 their plain versions.  KV writes update the arena in place.  SSM state
 (constant size) lives in per-slot arrays: ``ssm_state`` [L, slots, H,
-P, N] float32 and ``conv_tail`` [L, slots, K-1, conv_dim].
+P, N] float32 and ``conv_tail`` [L, slots, K-1, conv_dim]; a step
+gathers its rows, runs, and writes the new state back into them.
 """
 from __future__ import annotations
 
@@ -271,6 +271,10 @@ class Engine:
             self.conv_tail = torch.zeros(
                 (cfg.n_layers, max_slots, sc.conv_kernel - 1, conv_dim),
                 dtype=params["tok"]["embed"].dtype, device=self.pool.device)
+            # a decode's rows of the state before the step (rows 0..B-1),
+            # which a rollback restores; written inside the step
+            self._prev = (torch.empty_like(self.ssm_state),
+                          torch.empty_like(self.conv_tail))
         # zero-copy weights: an M=1 stacked view of the engine's tree
         self.params = tree_map(lambda a: a.unsqueeze(0), params)
         self.model_index = 0
@@ -422,15 +426,14 @@ class Engine:
         toks, lens, table = _pad_rows(
             Bp, (toks, 0), (lens, 0),
             (self.view.block_table(seq_ids, self.max_blocks), -1))
-        out = self._prefill_fn(self.params, self.model_index, toks, lens,
-                               self.pool, table)
         if self.cfg.ssm:
-            logits, new_ssm, new_tail = out
-            sl = torch.tensor(slot_ids, device=self.pool.device)
-            self.ssm_state[:, sl] = new_ssm[:, :B]
-            self.conv_tail[:, sl] = new_tail[:, :B].to(self.conv_tail.dtype)
+            # the rows' new state goes into their slots inside the step
+            logits = self._prefill_fn(
+                self.params, self.model_index, toks, lens, self.pool, table,
+                state=(self.ssm_state, self.conv_tail), slots=slot_ids)
         else:
-            logits = out
+            logits = self._prefill_fn(self.params, self.model_index, toks,
+                                      lens, self.pool, table)
         nxt = greedy_tokens(logits[:B])
         for i, r in enumerate(admitted):
             if r.max_new_tokens <= 0:
@@ -576,18 +579,13 @@ class Engine:
 
     def _run_chunk_ssm(self) -> int:
         """Chunk advance for pure-SSM engines (state carry, no pool):
-        exact rows, fresh sequences start from zero state."""
+        exact rows, fresh sequences start from zero state; the step reads
+        and writes the rows' state in the engine's buffers."""
         job = self.export_prefill_job()
-        sl = torch.tensor(job.slots, device=self.pool.device)
-        st = self.ssm_state[:, sl]                  # gathered copies
-        tail = self.conv_tail[:, sl]
-        fresh = torch.from_numpy(job.offs == 0).to(self.pool.device)
-        st[:, fresh] = 0
-        tail[:, fresh] = 0
-        logits, new_st, new_tail = self._chunk_fn(
-            self.params, self.model_index, job.toks, job.clens, st, tail)
-        self.ssm_state[:, sl] = new_st
-        self.conv_tail[:, sl] = new_tail.to(self.conv_tail.dtype)
+        logits = self._chunk_fn(
+            self.params, self.model_index, job.toks, job.clens,
+            self.ssm_state, self.conv_tail, slots=job.slots,
+            fresh=job.offs == 0)
         return self.apply_prefill_result(job, greedy_tokens(logits))
 
     # ------------------------------------------------------------------
@@ -675,26 +673,25 @@ class Engine:
         return self.apply_decode_result(job, greedy_tokens(logits[:B]))
 
     def _decode_ssm(self, job: DecodeJob) -> int:
-        """Decode step of an SSM/hybrid engine: exact rows (the per-slot
-        state scatter must not see padded duplicates).  The step's rows
-        of the state are gathered (a copy) before the step and restored
-        for the rows that roll back: the SSM carry is not idempotent,
-        so a retry must start from the pre-step state."""
+        """Decode step of an SSM/hybrid engine: exact rows (a bucket is a
+        row count).  The step copies its rows of the state into
+        ``_prev`` (rows 0..B-1) before it writes the new state into the
+        slots; the rows that roll back are restored from there before the
+        next step overwrites it: the SSM carry is not idempotent, so a
+        retry must start from the pre-step state."""
         lens = self.view.seq_lens(job.seq_ids)
         table = self.view.block_table(job.seq_ids, self.max_blocks)
-        sl = torch.tensor(job.slots, device=self.pool.device)
-        prev_ssm = self.ssm_state[:, sl]
-        prev_tail = self.conv_tail[:, sl]
-        logits, new_ssm, new_tail = self._decode_fn(
+        logits = self._decode_fn(
             self.params, self.model_index, job.last_tok, lens, self.pool,
-            table, prev_ssm, prev_tail)
-        self.ssm_state[:, sl] = new_ssm
-        self.conv_tail[:, sl] = new_tail.to(self.conv_tail.dtype)
+            table, self.ssm_state, self.conv_tail, slots=job.slots,
+            prev=self._prev)
         toks = self.apply_decode_result(job, greedy_tokens(logits))
         if self._rolled_rows:
-            ri = torch.tensor(self._rolled_rows, device=self.pool.device)
-            self.ssm_state[:, sl[ri]] = prev_ssm[:, ri]
-            self.conv_tail[:, sl[ri]] = prev_tail[:, ri]
+            dev = self.pool.device
+            ri = torch.tensor(self._rolled_rows, device=dev)
+            sl = torch.tensor(job.slots, device=dev)[ri]
+            self.ssm_state[:, sl] = self._prev[0][:, ri]
+            self.conv_tail[:, sl] = self._prev[1][:, ri]
         return toks
 
     def has_decode_work(self) -> bool:
@@ -725,20 +722,22 @@ class Engine:
 # ---------------------------------------------------------------------------
 # step functions
 #
-# The dense attention steps (fused decode / chunk, and their serial
-# one-model forms) are split in two.  The host part (``_decode_inputs``,
-# ``_chunk_inputs``) turns the numpy token / length / offset / table
-# arrays of one bucket into fixed-shape arrays, the KV write plan
-# included (``cache_ops.plan_slots``: one entry per new token, so its
-# length is the bucket's).  The device part (``_decode_body``,
-# ``_chunk_body``) takes device tensors only — no host data, no
-# data-dependent shape — and runs the layers over a param tree with a
-# leading model axis M: matmuls batched over M, KV writes and attention
-# over all M×R rows at once (each row's table resolves to its own
-# model's blocks).  ``graphs.run_step`` runs the device part as a CUDA
-# graph of its bucket on the card (``serving/graphs.py``), eagerly on
-# the CPU and under ``graphs.disable_graphs()``.  The other steps run
-# eagerly.
+# Every step is split in two.  The host part (``_decode_inputs``,
+# ``_chunk_inputs``, ``_prefill_inputs``, ``_ssm_inputs``) turns the
+# numpy token / length / offset / table arrays of one bucket into
+# fixed-shape arrays: the KV write plan (``cache_ops.plan_slots``: one
+# entry per new token, so its length is the bucket's) and the slots of
+# the SSM state rows included.  The device part (the ``_*_body``
+# functions) takes device tensors only — no host data, no
+# data-dependent shape — over ``bufs``, the buffers it reads and writes
+# in place: the arena (``UnifiedKVPool.arena``, where the step reads the
+# pool) and an SSM engine's state buffers.  The dense bodies run the
+# layers over a param tree with a leading model axis M: matmuls batched
+# over M, KV writes and attention over all M×R rows at once (each row's
+# table resolves to its own model's blocks).  ``graphs.run_step`` runs
+# the device part as a CUDA graph of its bucket on the card
+# (``serving/graphs.py``) for every family but MoE (``graph_family``),
+# eagerly on the CPU and under ``graphs.disable_graphs()``.
 # ---------------------------------------------------------------------------
 def _to(dev, a, dtype=None) -> torch.Tensor:
     t = torch.from_numpy(np.ascontiguousarray(a))
@@ -747,10 +746,22 @@ def _to(dev, a, dtype=None) -> torch.Tensor:
 
 def dense_attention(cfg: ModelConfig) -> bool:
     """The dense attention family (dense, vlm and audio without experts
-    or SSM): the engines that fuse (``Engine.fusion_signature``) and
-    whose steps run as CUDA graphs."""
+    or SSM): the engines that fuse (``Engine.fusion_signature``)."""
     return cfg.family in ("dense", "vlm", "audio") and not cfg.ssm \
         and not cfg.moe
+
+
+def graph_family(cfg: ModelConfig) -> bool:
+    """Whether the steps of ``cfg`` run as CUDA graphs on the card: every
+    family but MoE, whose dropless FFN reads its per-expert counts on
+    the host once a layer (a capture refuses a host sync)."""
+    return cfg.family != "moe" and not cfg.moe
+
+
+def _arena(pool) -> tuple:
+    """A pool's whole K/V buffers (``UnifiedKVPool.arena``), or ``(k,
+    v)`` of any object that has them."""
+    return pool.arena() if hasattr(pool, "arena") else (pool.k, pool.v)
 
 
 def _decode_inputs(toks, lens, tables, block_tokens: int) -> dict:
@@ -781,15 +792,38 @@ def _chunk_inputs(toks, offs, clens, tables, block_tokens: int) -> dict:
                                        block_tokens))
 
 
+def _prefill_inputs(toks, lens, table, block_tokens: int) -> dict:
+    """Host part of a whole-prompt prefill with attention: toks [B, S],
+    lens [B], table [B, W]; every row's prompt starts at position 0."""
+    B, S = toks.shape
+    return dict(toks=toks.astype(np.int64),
+                positions=np.broadcast_to(np.arange(S, dtype=np.int64),
+                                          (B, S)),
+                last=np.maximum(lens - 1, 0).astype(np.int64),
+                **cache_ops.plan_slots(table, np.zeros(B, np.int64), S,
+                                       block_tokens))
+
+
+def _state_rows(slots, rows: int) -> dict:
+    """Which state slot each of a step's ``rows`` rows reads and writes:
+    ``rows`` [rows], the slot, and ``take`` [rows], the row whose new
+    state goes there.  A padded row (past ``len(slots)``) writes row 0's
+    state onto row 0's slot: the same value twice, so the write is
+    deterministic and changes nothing."""
+    take = np.arange(rows, dtype=np.int64)
+    take[len(slots):] = 0
+    return dict(rows=np.asarray(slots, np.int64)[take], take=take)
+
+
 def _slots(a) -> cache_ops.TokenSlots:
     return cache_ops.TokenSlots(a["src"], a["base"], a["off"], a["live"])
 
 
-def _decode_body(params, pool_k, pool_v, a, *, cfg: ModelConfig
-                 ) -> torch.Tensor:
-    """Device part of a decode step over the arena ``pool_k/pool_v``
-    and ``_decode_inputs``' tensors ``a``.  Returns logits [M, R,
+def _decode_body(params, bufs, a, *, cfg: ModelConfig) -> torch.Tensor:
+    """Device part of a decode step over the arena ``bufs`` and
+    ``_decode_inputs``' tensors ``a``.  Returns logits [M, R,
     vocab]."""
+    pool_k, pool_v = bufs
     M, R = a["toks"].shape
     lp = params["layers"]
     n_h, n_kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -811,11 +845,11 @@ def _decode_body(params, pool_k, pool_v, a, *, cfg: ModelConfig
     return lm_logits(x, params["tok"], cfg)[..., :cfg.vocab_size]
 
 
-def _chunk_body(params, pool_k, pool_v, a, *, cfg: ModelConfig
-                ) -> torch.Tensor:
-    """Device part of a chunked-prefill step over the arena and
+def _chunk_body(params, bufs, a, *, cfg: ModelConfig) -> torch.Tensor:
+    """Device part of a chunked-prefill step over the arena ``bufs`` and
     ``_chunk_inputs``' tensors ``a``.  Returns logits [M, R, vocab] at
     each row's last true token."""
+    pool_k, pool_v = bufs
     M, R, C = a["toks"].shape
     lp = params["layers"]
     n_h, n_kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -838,11 +872,37 @@ def _chunk_body(params, pool_k, pool_v, a, *, cfg: ModelConfig
     return lm_logits(x_last[:, :, 0], params["tok"], cfg)[..., :cfg.vocab_size]
 
 
+def _prefill_body(params, bufs, a, *, cfg: ModelConfig) -> torch.Tensor:
+    """Device part of a whole-prompt prefill of one model (a ``[1, ...]``
+    stacked tree) over the arena ``bufs`` and ``_prefill_inputs``'
+    tensors ``a``: dense causal attention over the prompt (the
+    flash-prefill kernel on CUDA), KV written into the arena.  Returns
+    logits [1, B, vocab] at each row's last prompt token."""
+    pool_k, pool_v = bufs
+    B, S = a["toks"].shape
+    lp = params["layers"]
+    n_kv = cfg.n_kv_heads
+    slots = _slots(a)
+    positions = a["positions"][None]                            # [1,B,S]
+    x = embed_tokens(params["tok"]["embed"], a["toks"][None])
+    for li in range(cfg.n_layers):
+        h = rms_norm(x, lp["ln1"][:, li], cfg.rms_eps)
+        q, k, v = attn_qkv(h, lp, li, cfg, positions)      # [1,B,S,{H,KV},hd]
+        o = cache_ops.flash_prefill(q[0].contiguous(), k[0].contiguous(),
+                                    v[0].contiguous())
+        cache_ops.write_slots(pool_k, pool_v, k[0], v[0], slots, li, n_kv)
+        x = x + linear(o.reshape(1, B, S, -1), lp["wo"][:, li])
+        h = rms_norm(x, lp["ln2"][:, li], cfg.rms_eps)
+        x = x + ffn(h, lp, li, cfg)
+    x_last = x[0, torch.arange(B, device=x.device), a["last"]]   # [B, d]
+    return lm_logits(x_last[None], params["tok"], cfg)[..., :cfg.vocab_size]
+
+
 def _on_model(body, midx: int):
     """``body`` on model ``midx``'s one-model slice of a stacked tree (a
     view), returning that model's logits [R, vocab]."""
-    def run(params, pool_k, pool_v, a):
-        return body(_select_model(params, midx), pool_k, pool_v, a)[0]
+    def run(params, bufs, a):
+        return body(_select_model(params, midx), bufs, a)[0]
     return run
 
 
@@ -860,9 +920,9 @@ def _fused_decode_step(params, toks, lens, pool, tables, *,
     M, R = toks.shape
     _note_step("fused_decode", cfg, (M, R, tables.shape[2]))
     return graphs.run_step(
-        "fused_decode", cfg, None, params, pool,
+        "fused_decode", cfg, None, params, _arena(pool),
         _decode_inputs(toks, lens, tables, pool.block_tokens),
-        partial(_decode_body, cfg=cfg), dense_attention(cfg))
+        partial(_decode_body, cfg=cfg), graph_family(cfg))
 
 
 def _fused_prefill_chunk_step(params, toks, offs, clens, pool, tables, *,
@@ -880,42 +940,23 @@ def _fused_prefill_chunk_step(params, toks, offs, clens, pool, tables, *,
     M, R, C = toks.shape
     _note_step("fused_prefill_chunk", cfg, (M, R, C, tables.shape[2]))
     return graphs.run_step(
-        "fused_prefill_chunk", cfg, None, params, pool,
+        "fused_prefill_chunk", cfg, None, params, _arena(pool),
         _chunk_inputs(toks, offs, clens, tables, pool.block_tokens),
-        partial(_chunk_body, cfg=cfg), dense_attention(cfg))
+        partial(_chunk_body, cfg=cfg), graph_family(cfg))
 
 
 def _prefill_step(params, midx, toks, lens, pool, table, *,
                   cfg: ModelConfig) -> torch.Tensor:
-    """Whole-prompt prefill of one model: dense causal attention over
-    the prompt (the flash-prefill kernel on CUDA), KV written into the
-    pool, logits at each row's last prompt token.
-
-    toks: [B, S] (S a block multiple); lens: [B]; table: [B, W]
-    Returns logits [B, vocab].
-    """
+    """Whole-prompt prefill of one model: ``_prefill_body`` on its
+    one-model slice.  toks: [B, S] (S a block multiple); lens: [B];
+    table: [B, W].  Returns logits [B, vocab]."""
     B, S = toks.shape
     _note_step("prefill", cfg, (B, S, table.shape[1]))
-    dev = pool.device
-    p = _select_model(params, midx)
-    lp = p["layers"]
-    n_kv, hd = cfg.n_kv_heads, cfg.hd
-    slots = cache_ops.token_slots(table, np.zeros(B, np.int64), S,
-                                  pool.block_tokens, dev)
-    positions = torch.arange(S, device=dev).expand(1, B, S)
-    x = embed_tokens(p["tok"]["embed"], _to(dev, toks, torch.int64)[None])
-    for li in range(cfg.n_layers):
-        h = rms_norm(x, lp["ln1"][:, li], cfg.rms_eps)
-        q, k, v = attn_qkv(h, lp, li, cfg, positions)      # [1,B,S,{H,KV},hd]
-        o = cache_ops.flash_prefill(q[0].contiguous(), k[0].contiguous(),
-                                    v[0].contiguous())
-        cache_ops.write_slots(pool.k, pool.v, k[0], v[0], slots, li, n_kv)
-        x = x + linear(o.reshape(1, B, S, -1), lp["wo"][:, li])
-        h = rms_norm(x, lp["ln2"][:, li], cfg.rms_eps)
-        x = x + ffn(h, lp, li, cfg)
-    idx = _to(dev, np.maximum(lens - 1, 0), torch.int64)
-    x_last = x[0, torch.arange(B, device=dev), idx]              # [B, d]
-    return lm_logits(x_last[None], p["tok"], cfg)[0, :, :cfg.vocab_size]
+    return graphs.run_step(
+        "prefill", cfg, midx, params, _arena(pool),
+        _prefill_inputs(toks, lens, table, pool.block_tokens),
+        _on_model(partial(_prefill_body, cfg=cfg), midx),
+        graph_family(cfg))
 
 
 def _prefill_chunk_step(params, midx, toks, offs, clens, pool, table, *,
@@ -925,11 +966,11 @@ def _prefill_chunk_step(params, midx, toks, offs, clens, pool, table, *,
     B, C = toks.shape
     _note_step("prefill_chunk", cfg, (B, C, table.shape[1]))
     return graphs.run_step(
-        "chunk", cfg, midx, params, pool,
+        "chunk", cfg, midx, params, _arena(pool),
         _chunk_inputs(toks[None], offs[None], clens[None], table[None],
                       pool.block_tokens),
         _on_model(partial(_chunk_body, cfg=cfg), midx),
-        dense_attention(cfg))
+        graph_family(cfg))
 
 
 def _decode_step(params, midx, last_tok, lens, pool, table, *,
@@ -939,25 +980,95 @@ def _decode_step(params, midx, last_tok, lens, pool, table, *,
     whose position is lens−1); table [B, W]."""
     _note_step("decode", cfg, (last_tok.shape[0], table.shape[1]))
     return graphs.run_step(
-        "decode", cfg, midx, params, pool,
+        "decode", cfg, midx, params, _arena(pool),
         _decode_inputs(last_tok[None], lens[None], table[None],
                        pool.block_tokens),
         _on_model(partial(_decode_body, cfg=cfg), midx),
-        dense_attention(cfg))
+        graph_family(cfg))
 
 
 # ---------------------------------------------------------------------------
-# SSM / hybrid steps: one model's [L, ...] tree, per-slot state in and
-# out (the inputs are never written: the engine restores rolled-back
-# rows from them)
+# SSM / hybrid steps: one model's [L, ...] tree.  Each takes the state
+# in one of two forms: an engine's buffers ``[L, slots, ...]`` with the
+# step's slots (the new state is written into them inside the step,
+# which returns logits only: the engine's path, captured on the card),
+# or the rows' own caches ``[L, B, ...]`` (never written; the new state
+# comes back in fresh buffers beside the logits; eager).
 # ---------------------------------------------------------------------------
 def _one_model(params, midx: int):
     """One model's unstacked tree (views of the stacked leaves)."""
     return tree_map(lambda a: a[midx], params)
 
 
+def _on_one(body, midx: int):
+    """``body`` on model ``midx``'s unstacked tree (views)."""
+    def run(params, bufs, a):
+        return body(_one_model(params, midx), bufs, a)
+    return run
+
+
+def _put_rows(buf, new, a) -> None:
+    """Write the rows ``new`` [rows, ...] of one layer's state into their
+    slots of ``buf`` [slots, ...] (``_state_rows``)."""
+    buf.index_copy_(0, a["rows"], new.index_select(0, a["take"]).to(buf.dtype))
+
+
+def _ssm_inputs(toks, valid, **extra) -> dict:
+    """Host part of an SSM prefill or chunk: toks [B, S]; ``valid`` [B]
+    the true length of each row (padded positions get dt = 0)."""
+    S = toks.shape[1]
+    return dict(toks=toks.astype(np.int64),
+                mask=np.arange(S)[None, :] < valid[:, None],
+                last=np.maximum(valid - 1, 0).astype(np.int64), **extra)
+
+
+def _fresh_state(cfg: ModelConfig, rows: int, dtype, dev) -> tuple:
+    """Empty ``(ssm_state, conv_tail)`` buffers of ``rows`` rows."""
+    sc = cfg.ssm
+    return (torch.empty((cfg.n_layers, rows, cfg.n_ssm_heads, sc.head_dim,
+                         sc.d_state), dtype=torch.float32, device=dev),
+            torch.empty((cfg.n_layers, rows, sc.conv_kernel - 1,
+                         cfg.d_inner + 2 * sc.n_groups * sc.d_state),
+                        dtype=dtype, device=dev))
+
+
+def _prefill_ssm_body(p, bufs, a, *, cfg: ModelConfig) -> torch.Tensor:
+    """Device part of a whole-prompt SSM / hybrid prefill over ``bufs``
+    (the arena for hybrid, then ``ssm_state`` and ``conv_tail``) and
+    ``_ssm_inputs``' tensors ``a``.  Returns logits [B, vocab]."""
+    ssm_state, conv_tail = bufs[-2:]
+    B, S = a["toks"].shape
+    lp = p["layers"]
+    x = embed_tokens(p["tok"]["embed"], a["toks"])
+    if cfg.family == "hybrid":
+        pool_k, pool_v = bufs[:2]
+        slots = _slots(a)
+        sa = p["shared_attn"]
+    attn_li = 0
+    for li in range(cfg.n_layers):
+        h = rms_norm(x, lp["ln1"][li], cfg.rms_eps)
+        out, st, tail = M2.mamba2_mixer(h, lp, li, cfg, return_cache=True,
+                                        length_mask=a["mask"])
+        _put_rows(ssm_state[li], st, a)
+        _put_rows(conv_tail[li], tail, a)
+        x = x + out
+        if cfg.family == "hybrid" and (li + 1) % cfg.attn_every == 0:
+            h = rms_norm(x, sa["ln1"][0], cfg.rms_eps)
+            q, k, v = attn_qkv(h, sa, 0, cfg,
+                               a["positions"])            # [B,S,{H,KV},hd]
+            o = cache_ops.flash_prefill(q.contiguous(), k.contiguous(),
+                                        v.contiguous())
+            cache_ops.write_slots(pool_k, pool_v, k, v, slots, attn_li,
+                                  cfg.n_kv_heads)
+            attn_li += 1
+            x = x + linear(o.reshape(B, S, -1), sa["wo"][0])
+            x = x + mlp(rms_norm(x, sa["ln2"][0], cfg.rms_eps), sa, 0)
+    x_last = x[torch.arange(B, device=x.device), a["last"]]       # [B, d]
+    return lm_logits(x_last, p["tok"], cfg)[:, :cfg.vocab_size]
+
+
 def _prefill_ssm_step(params, midx, toks, lens, pool, table, *,
-                      cfg: ModelConfig):
+                      cfg: ModelConfig, state=None, slots=None):
     """Whole-prompt prefill of an SSM or hybrid model: the mixer over
     the prompt (the SSD kernel on CUDA) with padded positions masked,
     and for hybrid the shared attention block after every
@@ -966,124 +1077,156 @@ def _prefill_ssm_step(params, midx, toks, lens, pool, table, *,
     package's engine, the hybrid path ignores ``sliding_window``.
 
     toks: [B, S] (S a block multiple); lens: [B]; table: [B, W]
-    Returns (logits [B, vocab], ssm_state [L, B, H, P, N] f32,
+    ``state`` (an engine's ``(ssm_state, conv_tail)``) and ``slots``
+    (its slots of the first len(slots) rows; the rest are padding):
+    the new state is written there and logits [B, vocab] returned.
+    Without them returns (logits, ssm_state [L, B, H, P, N] f32,
     conv_tail [L, B, K-1, conv_dim]).
     """
     B, S = toks.shape
     _note_step("prefill", cfg, (B, S, table.shape[1]))
-    dev = pool.device
-    p = _one_model(params, midx)
+    hybrid = cfg.family == "hybrid"
+    own = state is None
+    if own:
+        state = _fresh_state(cfg, B, params["tok"]["embed"].dtype,
+                             pool.device)
+        slots = range(B)
+    host = _ssm_inputs(toks, lens, **_state_rows(slots, B))
+    if hybrid:
+        host.update(_prefill_inputs(toks, lens, table, pool.block_tokens))
+    bufs = (_arena(pool) if hybrid else ()) + tuple(state)
+    logits = graphs.run_step("prefill_ssm", cfg, midx, params, bufs, host,
+                             _on_one(partial(_prefill_ssm_body, cfg=cfg),
+                                     midx),
+                             graph_family(cfg) and not own)
+    return (logits, *state) if own else logits
+
+
+def _chunk_ssm_body(p, bufs, a, *, cfg: ModelConfig) -> torch.Tensor:
+    """Device part of a pure-SSM chunk over ``bufs`` = ``(ssm_state,
+    conv_tail)``: each layer gathers the rows' carried state from their
+    slots (zero where the row is ``fresh``), runs the mixer and writes
+    the new state back.  Returns logits [B, vocab]."""
+    ssm_state, conv_tail = bufs
+    B = a["toks"].shape[0]
     lp = p["layers"]
-    x = embed_tokens(p["tok"]["embed"], _to(dev, toks, torch.int64))
-    lens_t = _to(dev, lens, torch.int64)
-    mask = torch.arange(S, device=dev)[None, :] < lens_t[:, None]
-    sc = cfg.ssm
-    new_ssm = torch.empty((cfg.n_layers, B, cfg.n_ssm_heads, sc.head_dim,
-                           sc.d_state), dtype=torch.float32, device=dev)
-    new_tail = torch.empty((cfg.n_layers, B, sc.conv_kernel - 1,
-                            cfg.d_inner + 2 * sc.n_groups * sc.d_state),
-                           dtype=x.dtype, device=dev)
-    if cfg.family == "hybrid":
-        slots = cache_ops.token_slots(table, np.zeros(B, np.int64), S,
-                                      pool.block_tokens, dev)
-        positions = torch.arange(S, device=dev).expand(B, S)
-        sa = p["shared_attn"]
-    attn_li = 0
+    fresh = a["fresh"]
+    x = embed_tokens(p["tok"]["embed"], a["toks"])
     for li in range(cfg.n_layers):
+        st = ssm_state[li].index_select(0, a["rows"])
+        tail = conv_tail[li].index_select(0, a["rows"])
+        st = torch.where(fresh[:, None, None, None], 0.0, st)
+        tail = torch.where(fresh[:, None, None], 0.0, tail)
         h = rms_norm(x, lp["ln1"][li], cfg.rms_eps)
-        out, new_ssm[li], new_tail[li] = M2.mamba2_mixer(
-            h, lp, li, cfg, return_cache=True, length_mask=mask)
+        out, st, tail = M2.mamba2_mixer(
+            h, lp, li, cfg, conv_tail=tail, ssm_state=st,
+            return_cache=True, length_mask=a["mask"])
+        _put_rows(ssm_state[li], st, a)
+        _put_rows(conv_tail[li], tail, a)
         x = x + out
-        if cfg.family == "hybrid" and (li + 1) % cfg.attn_every == 0:
-            h = rms_norm(x, sa["ln1"][0], cfg.rms_eps)
-            q, k, v = attn_qkv(h, sa, 0, cfg, positions)   # [B,S,{H,KV},hd]
-            o = cache_ops.flash_prefill(q.contiguous(), k.contiguous(),
-                                        v.contiguous())
-            cache_ops.write_slots(pool.k, pool.v, k, v, slots, attn_li,
-                                  cfg.n_kv_heads)
-            attn_li += 1
-            x = x + linear(o.reshape(B, S, -1), sa["wo"][0])
-            x = x + mlp(rms_norm(x, sa["ln2"][0], cfg.rms_eps), sa, 0)
-    idx = _to(dev, np.maximum(lens - 1, 0), torch.int64)
-    x_last = x[torch.arange(B, device=dev), idx]                 # [B, d]
-    logits = lm_logits(x_last, p["tok"], cfg)[:, :cfg.vocab_size]
-    return logits, new_ssm, new_tail
+    x_last = x[torch.arange(B, device=x.device), a["last"]]
+    return lm_logits(x_last, p["tok"], cfg)[:, :cfg.vocab_size]
 
 
 def _prefill_chunk_ssm_step(params, midx, toks, clens, ssm_state, conv_tail,
-                            *, cfg: ModelConfig):
+                            *, cfg: ModelConfig, slots=None, fresh=None):
     """Chunked prefill of a pure-SSM model: the mixer's conv-tail +
     state carry IS the chunk boundary.  ``clens`` masks padded chunk
     positions (dt=0 ⇒ state frozen past the true chunk length).
 
-    toks: [B, C]; clens: [B]; ssm_state / conv_tail: the rows' carried
-    caches.  Returns (logits [B, vocab], new ssm_state, new conv_tail).
-    """
+    toks: [B, C]; clens: [B].  With ``slots`` [B], ``ssm_state`` /
+    ``conv_tail`` are an engine's buffers: the rows' state is read from
+    those slots (zero where ``fresh`` [B] is set), the new state written
+    back, and logits [B, vocab] returned.  Without, they are the rows'
+    carried caches, and the result is (logits, new ssm_state, new
+    conv_tail)."""
     B, C = toks.shape
     _note_step("prefill_chunk_ssm", cfg, (B, C))
-    dev = ssm_state.device
-    p = _one_model(params, midx)
-    lp = p["layers"]
-    x = embed_tokens(p["tok"]["embed"], _to(dev, toks, torch.int64))
-    clens_t = _to(dev, clens, torch.int64)
-    mask = torch.arange(C, device=dev)[None, :] < clens_t[:, None]
-    new_ssm, new_tail = torch.empty_like(ssm_state), torch.empty_like(
-        conv_tail)
-    for li in range(cfg.n_layers):
-        h = rms_norm(x, lp["ln1"][li], cfg.rms_eps)
-        out, new_ssm[li], new_tail[li] = M2.mamba2_mixer(
-            h, lp, li, cfg, conv_tail=conv_tail[li], ssm_state=ssm_state[li],
-            return_cache=True, length_mask=mask)
-        x = x + out
-    x_last = x[torch.arange(B, device=dev), (clens_t - 1).clamp(min=0)]
-    logits = lm_logits(x_last, p["tok"], cfg)[:, :cfg.vocab_size]
-    return logits, new_ssm, new_tail
+    own = slots is None
+    if own:
+        ssm_state, conv_tail = ssm_state.clone(), conv_tail.clone()
+        slots, fresh = range(B), np.zeros(B, bool)
+    host = _ssm_inputs(toks, clens, fresh=np.asarray(fresh, bool),
+                       **_state_rows(slots, B))
+    logits = graphs.run_step("chunk_ssm", cfg, midx, params,
+                             (ssm_state, conv_tail), host,
+                             _on_one(partial(_chunk_ssm_body, cfg=cfg), midx),
+                             graph_family(cfg) and not own)
+    return (logits, ssm_state, conv_tail) if own else logits
 
 
-def _decode_ssm_step(params, midx, last_tok, lens, pool, table, ssm_state,
-                     conv_tail, *, cfg: ModelConfig):
-    """One decode step of an SSM or hybrid model: ``mamba2_decode_step``
-    per layer and, for hybrid, the shared attention block over the pool
-    (the paged-decode kernel on CUDA) after every ``attn_every``
-    layers.  last_tok, lens [B] (lens incl. the current token, whose
-    position is lens−1); table [B, W]; ssm_state / conv_tail the rows'
-    caches.  Returns (logits [B, vocab], new ssm_state, new conv_tail).
-    """
-    B = last_tok.shape[0]
-    _note_step("decode", cfg, (B, table.shape[1]))
-    dev = ssm_state.device
-    p = _one_model(params, midx)
+def _decode_ssm_body(p, bufs, a, *, cfg: ModelConfig) -> torch.Tensor:
+    """Device part of an SSM / hybrid decode over ``bufs``: the arena
+    for hybrid, then ``ssm_state``, ``conv_tail`` and the engine's
+    ``prev`` pair.  Each layer copies its rows' state into rows 0..B-1
+    of ``prev`` (what a rollback restores), steps from there and writes
+    the new state into the slots.  Returns logits [B, vocab]."""
+    ssm_state, conv_tail, prev_ssm, prev_tail = bufs[-4:]
+    B = a["toks"].shape[0]
     lp = p["layers"]
-    x = embed_tokens(p["tok"]["embed"], _to(dev, last_tok, torch.int64))
-    new_ssm, new_tail = torch.empty_like(ssm_state), torch.empty_like(
-        conv_tail)
+    x = embed_tokens(p["tok"]["embed"], a["toks"])
     if cfg.family == "hybrid":
-        pos = lens.astype(np.int64) - 1
-        slots = cache_ops.token_slots(table, pos, 1, pool.block_tokens, dev)
-        table_t = _to(dev, table)
-        lens_t = _to(dev, lens, torch.int32)
-        pos_t = _to(dev, pos)[:, None]                              # [B, 1]
+        pool_k, pool_v = bufs[:2]
+        slots = _slots(a)
+        pos_t = a["pos"][:, None]                                   # [B, 1]
         sa = p["shared_attn"]
     n_h, n_kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     attn_li = 0
     for li in range(cfg.n_layers):
+        st, tail = prev_ssm[li, :B], prev_tail[li, :B]
+        torch.index_select(ssm_state[li], 0, a["rows"], out=st)
+        torch.index_select(conv_tail[li], 0, a["rows"], out=tail)
         h = rms_norm(x, lp["ln1"][li], cfg.rms_eps)
-        out, new_tail[li], new_ssm[li] = M2.mamba2_decode_step(
-            h, lp, li, cfg, conv_tail[li], ssm_state[li])
+        out, tail, st = M2.mamba2_decode_step(h, lp, li, cfg, tail, st)
+        _put_rows(ssm_state[li], st, a)
+        _put_rows(conv_tail[li], tail, a)
         x = x + out
         if cfg.family == "hybrid" and (li + 1) % cfg.attn_every == 0:
             h = rms_norm(x, sa["ln1"][0], cfg.rms_eps)
             q, k, v = attn_qkv(h[:, None, :], sa, 0, cfg, pos_t)
-            cache_ops.write_slots(pool.k, pool.v, k, v, slots, attn_li, n_kv)
-            phys = cache_ops.resolve_physical_blocks(table_t, attn_li, n_kv)
+            cache_ops.write_slots(pool_k, pool_v, k, v, slots, attn_li, n_kv)
+            phys = cache_ops.resolve_physical_blocks(a["table"], attn_li,
+                                                     n_kv)
             o = cache_ops.fused_paged_decode_attention(
-                q.reshape(B, n_h, hd).contiguous(), pool.k, pool.v, phys,
-                lens_t)
+                q.reshape(B, n_h, hd).contiguous(), pool_k, pool_v, phys,
+                a["lens"])
             attn_li += 1
             x = x + linear(o.reshape(B, n_h * hd), sa["wo"][0])
             x = x + mlp(rms_norm(x, sa["ln2"][0], cfg.rms_eps), sa, 0)
-    logits = lm_logits(x, p["tok"], cfg)[:, :cfg.vocab_size]
-    return logits, new_ssm, new_tail
+    return lm_logits(x, p["tok"], cfg)[:, :cfg.vocab_size]
+
+
+def _decode_ssm_step(params, midx, last_tok, lens, pool, table, ssm_state,
+                     conv_tail, *, cfg: ModelConfig, slots=None, prev=None):
+    """One decode step of an SSM or hybrid model: ``mamba2_decode_step``
+    per layer and, for hybrid, the shared attention block over the pool
+    (the paged-decode kernel on CUDA) after every ``attn_every``
+    layers.  last_tok, lens [B] (lens incl. the current token, whose
+    position is lens−1); table [B, W].  With ``slots`` [B] and ``prev``
+    (an engine's pair of pre-step buffers), ``ssm_state`` / ``conv_tail``
+    are the engine's buffers: the step reads and writes the slots' rows
+    and returns logits [B, vocab].  Without, they are the rows' caches,
+    and the result is (logits, new ssm_state, new conv_tail)."""
+    B = last_tok.shape[0]
+    _note_step("decode", cfg, (B, table.shape[1]))
+    own = slots is None
+    if own:
+        prev = (torch.empty_like(ssm_state), torch.empty_like(conv_tail))
+        ssm_state, conv_tail = ssm_state.clone(), conv_tail.clone()
+        slots = range(B)
+    host = dict(toks=last_tok.astype(np.int64), **_state_rows(slots, B))
+    hybrid = cfg.family == "hybrid"
+    if hybrid:
+        plan = _decode_inputs(last_tok[None], lens[None], table[None],
+                              pool.block_tokens)
+        host.update(plan, toks=host["toks"], pos=plan["pos"][0])
+    bufs = (_arena(pool) if hybrid else ()) + (ssm_state, conv_tail) \
+        + tuple(prev)
+    logits = graphs.run_step("decode_ssm", cfg, midx, params, bufs, host,
+                             _on_one(partial(_decode_ssm_body, cfg=cfg),
+                                     midx),
+                             graph_family(cfg) and not own)
+    return (logits, ssm_state, conv_tail) if own else logits
 
 
 _STEP_TABLE = {

@@ -3,33 +3,52 @@ shape bucket — the port's counterpart of the JAX package's
 ``jitted_step`` (``repro/serving/engine.py``), whose steps each run as
 one ``jax.jit`` program with the KV pool donated.
 
+Every family's steps run this way but the MoE family's: its dropless
+FFN reads the per-expert counts on the host once a layer, and a capture
+refuses a host sync (``engine.graph_family``).  The kinds: ``prefill``
+(whole prompts of the dense family), ``decode`` / ``chunk`` and their
+fused forms, and the SSM and hybrid ``prefill_ssm`` / ``chunk_ssm`` /
+``decode_ssm``.
+
 A step is split in two (``serving/engine.py``): a host part plans the
 step into fixed-shape numpy arrays, packed here into one int64 array
 (one copy to the card a step), and a device part takes device tensors
-only.  On the card the device part is captured once per key and
-replayed:
+only: ``body(params, bufs, inputs)``, where ``bufs`` are the buffers
+the step reads and writes in place — the arena's (``UnifiedKVPool.arena``)
+where it reads the pool, then an SSM engine's ``ssm_state`` /
+``conv_tail`` (and, for its decode, the rows' pre-step copies that a
+rollback reads).  On the card the device part is captured once per key
+and replayed:
 
 * key: the step kind, the geometry (``Engine.cfg_key``), the packed
   inputs' layout (the bucket's shapes), the model index of a serial
-  step, and the storage identity of the weight leaves and of the
-  arena's buffers (``UnifiedKVPool.arena``).  A graph holds raw
-  pointers, so every buffer it reads is in its key.
+  step, the storage identity of the weight leaves, and that of
+  ``bufs``.  A graph holds raw pointers, so every buffer it reads is in
+  its key — and only those: a pure-SSM step keys on no arena, so an
+  arena grow keeps it.
 * first sight: the body runs once eagerly on a side stream (kernel
   builds, ctypes binding and ``cudaFuncSetAttribute`` happen there,
   outside capture; its output is the call's result), then it is
   captured with ``torch.cuda.graph`` into one memory pool shared by
-  every graph (``GRAPH_CAPTURES`` counts the captures by kind).
+  every graph (``GRAPH_CAPTURES`` counts the captures by kind).  A
+  whole-prompt key (rows and padded prompt length) is captured on its
+  first sight too, as every other.  On varied prompts most such keys
+  are met once in a pass over a trace and replayed when the traffic
+  returns to them; a capture on the second sight would skip the keys
+  met only once, at one replay fewer for every key met again.
 * later calls: the packed inputs go through a pinned buffer into the
   graph's static input (non-blocking), the graph replays, and the
   caller gets a clone of the static logits (callers keep logits across
-  steps; the next replay overwrites the static ones).
-* stale graphs: a graph is dropped as soon as a weight leaf or an arena
-  buffer it was captured on dies (``adopt_stacked``,
-  ``materialize_private``, a ``grow`` that reallocates), and when the
-  same step of the same weights is captured on another arena
-  (``rebind_view`` / ``migrate_view``, crash recovery's re-registered
-  view).  A ``shrink`` or a ``grow`` into the slack keeps the buffers,
-  and so the graphs.
+  steps; the next replay overwrites the static ones).  A step's graph
+  outputs its logits only: SSM state goes into the engine's buffers
+  inside the graph, so nothing of it is cloned out.
+* stale graphs: a graph is dropped as soon as a weight leaf or a buffer
+  of its key dies (``adopt_stacked``, ``materialize_private``, a
+  ``grow`` that reallocates, the engine that crash recovery replaces),
+  and when the same step of the same weights is captured on other
+  buffers (``rebind_view`` / ``migrate_view``, crash recovery's
+  re-registered view).  A ``shrink`` or a ``grow`` into the slack keeps
+  the buffers, and so the graphs.
 * launch counts: a kernel wrapper counts a launch when Python calls it;
   a capture's calls launch nothing and are taken back, and each replay
   adds them again, so ``kernels.ops.launch_counts()`` stays true.
@@ -50,10 +69,11 @@ from typing import Callable, Dict, Iterator, List, Tuple
 import numpy as np
 import torch
 
-# captures by step kind, and the seconds they took (the eager first
-# run included)
+# captures by step kind, the seconds they took (the eager first run
+# included), and replays by step kind
 GRAPH_CAPTURES: Counter = Counter()
 CAPTURE_SECONDS: Counter = Counter()
+GRAPH_REPLAYS: Counter = Counter()
 
 _DISABLED = [0]
 
@@ -147,14 +167,16 @@ class CudaGraphCapture:
 
 class _StepGraph:
     """One captured step: its static input, the pinned buffer that
-    feeds it, the replay, the static output and the kernel launches one
-    replay makes."""
+    feeds it, the replay, the static output, the kernel launches one
+    replay makes and the replays so far."""
 
-    def __init__(self, static_in, replay, out, launches):
+    def __init__(self, kind, static_in, replay, out, launches):
+        self.kind = kind
         self.static_in = static_in
         self.replay = replay
         self.out = out
         self.launches = launches
+        self.replays = 0
         self.refs: List[weakref.ref] = []
         self.pinned = self.copied = None
         if static_in.device.type == "cuda":
@@ -177,6 +199,8 @@ class _StepGraph:
         self.replay(fn)
         for k, n in self.launches:
             k.launches += n
+        self.replays += 1
+        GRAPH_REPLAYS[self.kind] += 1
         return self.out.clone()
 
 
@@ -209,37 +233,36 @@ class GraphRegistry:
             if self._by_slot.get(key[0]) == key:
                 del self._by_slot[key[0]]
 
-    def run(self, kind: str, cfg_key, midx, params, arena, packed, layout,
+    def run(self, kind: str, cfg_key, midx, params, bufs, packed, layout,
             body) -> torch.Tensor:
-        """``body(params, k_arena, v_arena, inputs)`` for this call's
-        ``packed`` inputs: replayed, or captured on first sight."""
+        """``body(params, bufs, inputs)`` for this call's ``packed``
+        inputs: replayed, or captured on first sight."""
         from repro_torch.serving.engine import tree_leaves
         leaves = tree_leaves(params)
-        k_buf, v_buf = arena
         slot = (kind, cfg_key, layout, midx,
                 tuple(t.data_ptr() for t in leaves))
-        key = (slot, (k_buf.data_ptr(), v_buf.data_ptr(), k_buf.shape[0]))
+        key = (slot, tuple(t.data_ptr() for t in bufs)
+               + tuple(t.shape[0] for t in bufs))
         g = self.graphs.get(key)
         if g is not None:
-            return g.run(packed, lambda: body(params, k_buf, v_buf,
+            return g.run(packed, lambda: body(params, bufs,
                                               unpack(g.static_in, layout)))
-        return self._capture(kind, key, leaves + [k_buf, v_buf], params,
-                             arena, packed, layout, body)
+        return self._capture(kind, key, leaves + list(bufs), params, bufs,
+                             packed, layout, body)
 
-    def _capture(self, kind, key, held, params, arena, packed, layout,
+    def _capture(self, kind, key, held, params, bufs, packed, layout,
                  body) -> torch.Tensor:
         from repro_torch.kernels import ops
         t0 = time.perf_counter()
         old = self._by_slot.get(key[0])
         if old is not None:
-            self._drop(old)              # the same step on another arena
-        k_buf, v_buf = arena
-        dev = k_buf.device
+            self._drop(old)              # the same step on other buffers
+        dev = bufs[0].device
         static_in = torch.empty(packed.shape, dtype=torch.int64, device=dev)
         static_in.copy_(torch.from_numpy(packed))
 
         def fn():
-            return body(params, k_buf, v_buf, unpack(static_in, layout))
+            return body(params, bufs, unpack(static_in, layout))
         result = self.capture.eager(fn, dev)
         # a capture's kernel calls launch nothing: count them per replay
         kernels = ops.path_kernels()
@@ -256,7 +279,7 @@ class GraphRegistry:
             pending, self._pending = self._pending, []
             for dead in pending:
                 self._drop(dead)
-        g = _StepGraph(static_in, replay, out,
+        g = _StepGraph(kind, static_in, replay, out,
                        tuple((k, n) for k, n in launches if n))
         for t in held:
             g.refs.append(weakref.ref(t, lambda _r, key=key: self._drop(key)))
@@ -271,18 +294,18 @@ class GraphRegistry:
 REGISTRY = GraphRegistry()
 
 
-def run_step(kind: str, cfg_key, midx, params, pool, host: Dict[str, np.ndarray],
-             body, capturable: bool = True) -> torch.Tensor:
-    """Run a step's device part ``body(params, k_arena, v_arena, inputs)``
-    on the host part's arrays ``host``: through the registry where the
-    arena lies on the card, the kind is ``capturable`` and graphs are
-    not disabled, else eagerly.  ``pool`` is a ``UnifiedKVPool`` (its
-    whole buffers, ``arena()``) or any object with ``k`` and ``v``."""
-    arena = pool.arena() if hasattr(pool, "arena") else (pool.k, pool.v)
+def run_step(kind: str, cfg_key, midx, params, bufs: tuple,
+             host: Dict[str, np.ndarray], body,
+             capturable: bool = True) -> torch.Tensor:
+    """Run a step's device part ``body(params, bufs, inputs)`` on the
+    host part's arrays ``host``: through the registry where ``bufs`` (the
+    buffers the step reads besides its weights, see the header) lie on
+    the card, the kind is ``capturable`` and graphs are not disabled,
+    else eagerly."""
     packed, layout = pack(host)
-    dev = arena[0].device
+    dev = bufs[0].device
     if capturable and REGISTRY.enabled(dev):
-        return REGISTRY.run(kind, cfg_key, midx, params, arena, packed,
+        return REGISTRY.run(kind, cfg_key, midx, params, bufs, packed,
                             layout, body)
-    return body(params, *arena, unpack(torch.from_numpy(packed).to(dev),
-                                       layout))
+    return body(params, bufs, unpack(torch.from_numpy(packed).to(dev),
+                                     layout))

@@ -296,19 +296,23 @@ def test_plan_has_the_bucket_length():
 class RecordingCapture:
     """The capture on CPU operands: records each captured key; a replay
     runs the body on the graph's static input into its static output,
-    as the graph would."""
+    as the graph would.  Like a CUDA graph capture, recording runs
+    nothing (a step that writes state in place must not run twice): the
+    static output is shaped on the eager run's result."""
 
     device_types = ("cpu",)
 
     def __init__(self):
         self.keys = []
+        self._last = None
 
     def eager(self, fn, device):
-        return fn()
+        self._last = fn()
+        return self._last
 
     def record(self, key, fn, device):
         self.keys.append(key)
-        out = fn()
+        out, self._last = torch.empty_like(self._last), None
         return (lambda body: out.copy_(body())), out
 
 
@@ -567,12 +571,19 @@ def test_warmup_drain_captures_before_the_clock(stub):
 
 def test_graphs_off_on_cpu_and_not_for_other_families():
     """CPU operands never reach the registry, nor do the steps of the
-    families that stay eager (MoE, SSM, hybrid)."""
+    family that stays eager (MoE); every other family's steps are
+    captured (``graph_family``), the dense attention family alone
+    fuses."""
     graphs.REGISTRY.clear()
     mux = _unit(_trees(2))
     _wave(mux, 2, 3, seed=7)
     mux.run(max_ticks=1_000)
     assert not graphs.REGISTRY.graphs
+    for arch in (ARCH, "musicgen-medium", "phi-3-vision-4.2b",
+                 "mamba2-2.7b", "zamba2-1.2b"):
+        assert TE.graph_family(configs.get_reduced(arch))
+    for arch in ("granite-moe-3b-a800m", "qwen3-moe-235b-a22b"):
+        assert not TE.graph_family(configs.get_reduced(arch))
     assert TE.dense_attention(configs.get_reduced(ARCH))
     for arch in ("granite-moe-3b-a800m", "mamba2-2.7b", "zamba2-1.2b"):
         assert not TE.dense_attention(configs.get_reduced(arch))
