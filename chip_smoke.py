@@ -3,11 +3,12 @@
 
   python3 chip_smoke.py
 
-1. builds the five Hopper kernels (three attention kernels, the Mamba2
-   SSD scan and the int8 decode attention of the W8/KV8 path) from
+1. builds the six Hopper kernels (three attention kernels, the Mamba2
+   SSD scan, the int8 decode attention of the W8/KV8 path and the
+   grouped-expert SwiGLU of the dropless MoE FFN) from
    ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel),
    and counts the tensor-core instructions (from ``cuobjdump -sass``) of
-   each prefill (``HGMMA``), decode and SSD (``HMMA``) kernel
+   each prefill (``HGMMA``), decode, SSD and MoE (``HMMA``) kernel
    instantiation: every bf16 one must have some, the f32 ones
    (CUDA-core bodies) none;
 2. holds each kernel against its plain PyTorch version at the serving
@@ -24,7 +25,13 @@
    decode through both of its addressings (paged pool and dense cache
    layer); the mamba2-2.7b chunk step with 4, 2 and 1 slots, a
    zamba2-1.2b whole-prompt bucket of 2 rows and of 1, and a reduced
-   ragged f32 case for the SSD scan — and times the
+   ragged f32 case for the SSD scan; granite-moe-3b-a800m's and
+   qwen3-moe-235b-a22b's experts at a 4-row decode, a 64-token chunk
+   and the serving phases' largest buckets (granite-moe 4 × 64 chunk,
+   qwen3-moe 4 × 512 whole prompts; bf16), the reduced experts at the same token counts (f32), and
+   every slot on one expert and a single token at both dtypes for the
+   grouped-expert SwiGLU (kernel 6, beside ``torch._grouped_mm`` as its
+   yardstick) — and times the
    kernel, the plain version, one PyTorch library call over the same
    work where one exists (scaled_dot_product_attention on gathered,
    dequantized K/V, a yardstick only; none computes SSD), the card's
@@ -58,8 +65,8 @@
    group 7), whole-prompt; a cut config is
    ``config.replace(configs.get(arch), n_layers=k)`` served by a unit
    this script assembles (``build_cut_unit``); launches are counted in
-   each phase.  Every step but the MoE family's runs as a CUDA graph,
-   one per shape bucket (``serving/graphs.py``); the graphs phase
+   each phase.  Every step of every family runs as a CUDA graph, one
+   per shape bucket (``serving/graphs.py``); the graphs phase
    (``serve_graphs``) serves the fused qwen2-7b pair's trace eagerly
    (``disable_graphs``) and with graphs, then both again with the arena
    grown past its buffer under live sequences: equal reports, tokens
@@ -68,15 +75,19 @@
    it prints the captures, their seconds, the graph pool's bytes, peak
    memory and per-tick wall ms and host µs in each mode; the graph
    steps phase (``serve_graph_steps``) serves the whole-prompt qwen2-7b
-   trace, serve A's, serve B's and one mamba2-2.7b prefilling whole
-   prompts, each twice on one unit, with graphs and eagerly: equal
-   reports, tokens and launch counts, the whole-prompt ``prefill``, and
-   ``prefill_ssm``, ``chunk_ssm`` and ``decode_ssm`` captured and
-   replayed (kernels 1, 3 and 4 launched by replays), their first
-   call's and first replay's logits within bf16's tolerance, no MoE
-   step captured, and a capture that fails raising out of the step; it
-   prints the same measures per run, the replays of each whole-prompt
-   key after each wave and the decode rows rolled back;
+   trace, serve A's, serve B's, one mamba2-2.7b prefilling whole
+   prompts, MoE A's (granite-moe cut to 8 of 32 layers) and qwen3-moe
+   (4 of 94 layers) prefilling whole prompts, each twice on one unit,
+   with graphs and eagerly: equal reports, tokens and launch counts,
+   the whole-prompt ``prefill``, ``prefill_ssm``, ``chunk_ssm`` and
+   ``decode_ssm`` and the MoE engines' ``chunk``, ``decode`` and
+   ``prefill`` captured and replayed (kernels 1, 2, 3, 4 and 6 launched
+   by replays), their first call's and first replay's logits within
+   bf16's tolerance, each MoE kind's first sight run under
+   ``torch.cuda.set_sync_debug_mode("error")``, and a capture that
+   fails raising out of the step; it prints the same measures per run,
+   the replays of each whole-prompt key after each wave and the decode
+   rows rolled back;
 5. plans full-width qwen2-7b ×2 + mamba2-2.7b for one H100 with the
    paper's placement algorithm (``core/placement.place``, H100
    constants), round-trips the plan through its JSON file, serves ~16
@@ -431,10 +442,11 @@ def tensor_core_sass() -> dict:
     """Tensor-core instructions per kernel instantiation: HGMMA (wgmma)
     in the two prefill libraries (head dims 64, 96, 128), HMMA
     (mma.sync) in the two decode libraries (head dims 64, 96, 128, one
-    or two 8-head halves of the m16 tile) and the SSD scan's.  Raises
-    unless every bf16 instantiation (``tc_attention_kernel``,
-    ``splitkv_tc_kernel``, ``ssd_scan_tc_kernel``) has some and every
-    float32 one (the CUDA-core bodies) has none."""
+    or two 8-head halves of the m16 tile), the SSD scan's and kernel 6's
+    (gate/up and down).  Raises unless every bf16 instantiation
+    (``tc_attention_kernel``, ``splitkv_tc_kernel``,
+    ``ssd_scan_tc_kernel``, ``moe_grouped_kernel<__nv_bfloat16, ...>``)
+    has some and every float32 one (the CUDA-core bodies) has none."""
     counts = {}
     for src in ("flash_prefill.cu", "paged_prefill.cu"):
         counts.update(_sass_counts(src, "HGMMA"))
@@ -460,9 +472,17 @@ def tensor_core_sass() -> dict:
         raise AssertionError(f"bf16 SSD kernels without HMMA: {ssd_tc}")
     if len(ssd_f32) != 1 or max(ssd_f32.values()) != 0:
         raise AssertionError(f"float32 SSD kernel with HMMA: {ssd_f32}")
+    moe = {k: v for k, v in _sass_counts("moe_grouped.cu", "HMMA").items()
+           if "moe_grouped_kernel" in k}
+    moe_tc = {k: v for k, v in moe.items() if "bfloat16" in k}
+    moe_f32 = {k: v for k, v in moe.items() if "bfloat16" not in k}
+    if len(moe_tc) != 2 or min(moe_tc.values()) == 0:
+        raise AssertionError(f"bf16 MoE kernels without HMMA: {moe_tc}")
+    if len(moe_f32) != 2 or max(moe_f32.values()) != 0:
+        raise AssertionError(f"float32 MoE kernels with HMMA: {moe_f32}")
     return {"HGMMA": {"bf16": tc, "float32": f32},
-            "HMMA": {"bf16": {**dec_tc, **ssd_tc},
-                     "float32": {**dec_f32, **ssd_f32}}}
+            "HMMA": {"bf16": {**dec_tc, **ssd_tc, **moe_tc},
+                     "float32": {**dec_f32, **ssd_f32, **moe_f32}}}
 
 
 # ---------------------------------------------------------------------------
@@ -918,6 +938,150 @@ def check_ssd(torch, shape: dict) -> dict:
     return res
 
 
+# Kernel 6's shapes (the grouped-expert SwiGLU of the dropless MoE FFN),
+# each named by its label, with its dtype by name: granite-moe-3b-a800m
+# (32 experts, top 8, d 1536, f_e 512) and qwen3-moe-235b-a22b (128, top 8,
+# 4096, 1536) at a decode (4 rows, 32 slots) and a 64-token chunk (512
+# slots), bf16, and at the largest buckets the serving phases give them:
+# granite-moe's 4 rows of 64-token chunks (2,048 slots, the MoE A serve
+# phase) and qwen3-moe's 4 whole prompts of 512 (16,384 slots, graph
+# steps run (vi)); the reduced configs' experts (4, top 2, 256, 128) at
+# the 4- and 64-token counts and 128 experts top 8 at that width,
+# float32; and two edge routings at each dtype: every slot on one
+# expert, one token.  The first is the kernels line's shape.
+GRANITE_MOE = dict(E=32, k=8, d=1536, f=512)
+QWEN3_MOE = dict(E=128, k=8, d=4096, f=1536)
+REDUCED_MOE = dict(E=4, k=2, d=256, f=128)
+MOE_SHAPES = [
+    dict(label="granite-moe decode bf16", dtype="bfloat16", T=4,
+         **GRANITE_MOE),
+    dict(label="granite-moe chunk bf16", dtype="bfloat16", T=64,
+         **GRANITE_MOE),
+    dict(label="qwen3-moe decode bf16", dtype="bfloat16", T=4, **QWEN3_MOE),
+    dict(label="qwen3-moe chunk bf16", dtype="bfloat16", T=64, **QWEN3_MOE),
+    dict(label="granite-moe 4 x 64 chunk bf16", dtype="bfloat16", T=256,
+         **GRANITE_MOE),
+    dict(label="qwen3-moe 4 x 512 whole-prompt prefill bf16",
+         dtype="bfloat16", T=2048, **QWEN3_MOE),
+    dict(label="reduced decode f32", dtype="float32", T=4, **REDUCED_MOE),
+    dict(label="reduced chunk f32", dtype="float32", T=64, **REDUCED_MOE),
+    dict(label="128 experts top 8 at reduced width, chunk f32",
+         dtype="float32", T=64, E=128, k=8, d=256, f=128),
+    dict(label="granite-moe bf16, every slot on one expert",
+         dtype="bfloat16", T=64, one_expert=True, **GRANITE_MOE),
+    dict(label="granite-moe bf16, one token", dtype="bfloat16", T=1,
+         **GRANITE_MOE),
+    dict(label="reduced f32, every slot on one expert", dtype="float32",
+         T=64, one_expert=True, **REDUCED_MOE),
+    dict(label="reduced f32, one token", dtype="float32", T=1,
+         **REDUCED_MOE),
+]
+# kernel 6 against its plain version: max |Δ| over the plain output's
+# largest magnitude
+MOE_TOL_REL = {"bfloat16": 2e-2, "float32": 2e-5}
+
+
+def _grouped_mm_fn(torch, x, order, offsets, wg, wu, wd, k):
+    """The library yardstick for kernel 6: the same function through
+    ``torch._grouped_mm`` (gather, the gate and up grouped products on
+    the same offsets, SwiGLU, the down product, scatter), weights laid
+    out as it wants them (column-major B); never on the port's path.
+    None where this torch has no ``_grouped_mm``."""
+    if not hasattr(torch, "_grouped_mm"):
+        return None
+    F = torch.nn.functional
+    cm = [w.transpose(-2, -1).contiguous().transpose(-2, -1)
+          for w in (wg, wu, wd)]
+    ends = offsets[1:]
+    o = order.long()
+
+    def run():
+        xs = x[o // k]
+        g = torch._grouped_mm(xs, cm[0], offs=ends)
+        u = torch._grouped_mm(xs, cm[1], offs=ends)
+        ys = torch._grouped_mm(F.silu(g) * u, cm[2], offs=ends)
+        y = torch.empty_like(ys)
+        y[o] = ys
+        return y
+    return run
+
+
+def check_moe(torch, shape: dict) -> dict:
+    """Hold kernel 6 against its plain version at one shape; returns its
+    numbers: max |Δ| (against the plain version in the kernel's dtype,
+    and against it in float32 on the same inputs), the kernel's time,
+    the plain version's, the bound (the distinct experts hit × 3·d·f_e
+    weights, x read and y written once, over 3.35 TB/s, against 6·n·d·f_e
+    flops over the dtype's peak), the ``torch._grouped_mm`` yardstick's
+    time (bf16 only), the launches of one call, and for bf16 the
+    wrapper's host time and one call's wall time."""
+    from repro_torch.kernels import moe_grouped as mg
+    dt_ = shape["dtype"]
+    dname = str(dt_).replace("torch.", "")
+    es = torch.empty((), dtype=dt_).element_size()
+    T, E, k, d, f = (shape[n] for n in ("T", "E", "k", "d", "f"))
+    gen = torch.Generator(device="cuda").manual_seed(6)
+
+    def randn(*s, scale=1.0):
+        return (torch.randn(s, generator=gen, device="cuda") * scale).to(dt_)
+    x = randn(T, d)
+    wg, wu = randn(E, d, f, scale=d ** -0.5), randn(E, d, f, scale=d ** -0.5)
+    wd = randn(E, f, d, scale=f ** -0.5)
+    if shape.get("one_expert"):
+        idx = torch.full((T, k), E - 1, dtype=torch.int64, device="cuda")
+    else:
+        idx = torch.randn(T, E, generator=gen, device="cuda").topk(k).indices
+    order, offsets = mg.sort_slots(idx, E)
+    n0 = mg.MOE_KERNEL.launches
+    y = mg.grouped_swiglu(x, order, offsets, wg, wu, wd, k)
+    launches = mg.MOE_KERNEL.launches - n0
+    ref = mg.grouped_swiglu_plain(x, order, offsets, wg, wu, wd, k)
+    ref32 = mg.grouped_swiglu_plain(x.float(), order, offsets, wg.float(),
+                                    wu.float(), wd.float(), k)
+    err = (y.float() - ref.float()).abs().max().item()
+    err32 = (y.float() - ref32).abs().max().item()
+    tol = MOE_TOL_REL[dname] * ref.float().abs().max().item()
+    n = T * k
+    hit = int(torch.unique(idx).numel())
+    n_bytes = (hit * 3 * d * f + T * d + n * d) * es + 4 * (n + E + 1)
+    flops = 6 * n * d * f
+    bnd, why = bound_ms(n_bytes, flops, dname)
+    kern = lambda: mg.grouped_swiglu(x, order, offsets, wg, wu, wd, k)
+    lib = (_grouped_mm_fn(torch, x, order, offsets, wg, wu, wd, k)
+           if dt_ == torch.bfloat16 else None)
+    lib_ms, lib_note = None, ("no torch._grouped_mm for float32"
+                              if dt_ != torch.bfloat16 else
+                              "this torch has no torch._grouped_mm")
+    if lib is not None:
+        try:        # a yardstick only: a refusal is reported, not a fault
+            lib_ms, lib_note = time_ms(torch, lib), "torch._grouped_mm"
+        except RuntimeError as e:
+            lib_note = f"torch._grouped_mm refused: {str(e)[:160]}"
+    res = dict(max_abs_err=err, tolerance=tol, tolerance_rel=MOE_TOL_REL[
+                   dname], max_abs_err_vs_f32_plain=err32,
+               ms=time_ms(torch, kern),
+               plain_ms=time_ms(torch, lambda: mg.grouped_swiglu_plain(
+                   x, order, offsets, wg, wu, wd, k)),
+               library_ms=lib_ms, library=lib_note, bound_ms=bnd,
+               bound_by=why, bytes=n_bytes, flops=flops, tokens=T,
+               slots=n, experts_hit=hit,
+               grid_m_tiles=mg.m_tiles(n, E), launches_per_call=launches)
+    res["tflops"] = flops / res["ms"] / 1e9
+    if dt_ == torch.bfloat16:
+        res.update(host_us=host_us(torch, kern), call_us=call_us(torch, kern))
+    if launches != 1 or mg.source_m_tiles(n, E) != mg.m_tiles(n, E):
+        raise AssertionError(f"grouped_swiglu at {shape['label']}: "
+                             f"{launches} launches of one call, M tiles "
+                             f"{mg.source_m_tiles(n, E)} (source) vs "
+                             f"{mg.m_tiles(n, E)} (host)")
+    if not err <= tol:
+        raise AssertionError(f"grouped_swiglu disagrees with its plain "
+                             f"version at {shape['label']}: |Δ| {err} > "
+                             f"{tol} ({MOE_TOL_REL[dname]} of the plain "
+                             f"output's largest magnitude)")
+    torch.cuda.synchronize()
+    return res
+
 # ---------------------------------------------------------------------------
 # serving phases
 # ---------------------------------------------------------------------------
@@ -1371,8 +1535,9 @@ def _serve_phase(torch, archs, chunk_tokens: int, n_target: int, seed: int,
     ``engine.greedy_tokens``, which raises otherwise).  ``depth`` (arch
     → layers) cuts configs in depth; such a unit is assembled by
     ``build_cut_unit``.  A MoE model's dropless FFN is counted per
-    layer: every layer must have run it.  Returns the run's numbers and
-    launch counts."""
+    layer where Python calls it (a step's first sight and its capture;
+    a replay calls nothing): every layer must have run it.  Returns the
+    run's numbers and launch counts."""
     from collections import Counter
 
     from repro_torch import configs
@@ -1468,8 +1633,8 @@ def _serve_phase(torch, archs, chunk_tokens: int, n_target: int, seed: int,
                held_before_gb=held_gb,
                phase_peak_gb=torch.cuda.max_memory_allocated() / 1e9 - held_gb,
                ssm_prefill_lens=ssm_prefill_lens,
-               # one host synchronisation per MoE FFN call (its
-               # per-expert counts)
+               # MoE FFN calls made by Python: at a step's first sight
+               # and its capture (replays call nothing)
                moe_ffn_calls=sum(moe_calls.values()),
                moe_ffn_layers=moe_layers,
                serial_engines=sorted(unit._serial_names),
@@ -1760,6 +1925,21 @@ STEP_RUNS = (
         archs=["mamba2-2.7b"], chunk_tokens=0, n_target=4, seed=13,
         pool_blocks=131072), ("prefill_ssm", "decode_ssm"),
      ("repro_ssd_scan",)),
+    # the MoE family (kernel 6), its kinds checked on the MoE engine's
+    # keys: MoE A's pair and trace, granite-moe cut to 8 of 32 layers so
+    # that the eager twin stays short (width never cut; the MoE A serve
+    # phase runs it at full depth), and qwen3-moe at 4 of 94 layers
+    # prefilling whole prompts
+    ("(v) MoE A: granite-moe-3b-a800m (8 of 32 layers) + musicgen-medium, "
+     "chunked", dict(
+         archs=["granite-moe-3b-a800m", "musicgen-medium"], chunk_tokens=64,
+         n_target=16, seed=4, alpha=1.0, pool_blocks=524288,
+         depth={"granite-moe-3b-a800m": 8}), ("chunk", "decode"),
+     ("repro_moe_grouped", "repro_paged_prefill", "repro_paged_decode")),
+    ("(vi) MoE B: qwen3-moe-235b-a22b (4 of 94 layers), whole-prompt", dict(
+        archs=["qwen3-moe-235b-a22b"], chunk_tokens=0, n_target=8, seed=5,
+        pool_blocks=65536, depth={"qwen3-moe-235b-a22b": 4}),
+     ("prefill", "decode"), ("repro_moe_grouped", "repro_flash_prefill")),
 )
 STEP_WAVES = 2
 # outputs capped at 32 tokens (the serve phases cap at 64): the eager
@@ -1769,6 +1949,9 @@ STEP_WAVES = 2
 # 288) — never in width or requests
 STEP_MAX_NEW = 32
 NEW_KINDS = ("prefill", "prefill_ssm", "chunk_ssm", "decode_ssm")
+# the step kinds an MoE engine runs: each captured and replayed, and its
+# first sight run under the sync check, in the MoE runs of STEP_RUNS
+MOE_KINDS = ("chunk", "decode", "prefill")
 
 
 def _step_kind(eng, fn: str) -> str:
@@ -1779,13 +1962,55 @@ def _step_kind(eng, fn: str) -> str:
     return base + ("_ssm" if eng.cfg.ssm else "")
 
 
+def _is_moe(cfg) -> bool:
+    """Whether a step's geometry key (None for a planted step) is MoE."""
+    return cfg is not None and cfg.moe is not None
+
+
+@contextlib.contextmanager
+def _moe_sync_checked(torch, graphs, checked: set):
+    """Inside the block, a MoE step whose key the registry meets for the
+    first time runs its body's eager first run (before the capture)
+    under ``torch.cuda.set_sync_debug_mode("error")``: a host sync in
+    the body raises out of the step.  ``checked`` collects the kinds so
+    run, each once."""
+    run_step = graphs.run_step
+
+    def run(kind, cfg_key, midx, params, bufs, host, body, capturable=True):
+        if not _is_moe(cfg_key) or kind in checked:
+            return run_step(kind, cfg_key, midx, params, bufs, host, body,
+                            capturable)
+
+        def synced(p, b, a):
+            if torch.cuda.is_current_stream_capturing():
+                return body(p, b, a)
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return body(p, b, a)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+        n = len(graphs.REGISTRY.log)
+        out = run_step(kind, cfg_key, midx, params, bufs, host, synced,
+                       capturable)
+        if len(graphs.REGISTRY.log) > n:
+            checked.add(kind)
+        return out
+    graphs.run_step = run
+    try:
+        yield
+    finally:
+        graphs.run_step = run_step
+
+
 def _recorded_steps(unit, graphs, keep) -> dict:
     """Wrap ``unit``'s engine step functions: the record sums the wall
     seconds spent in them under ``host``, numbers the calls of each
     kind and keeps (float32, on the host) the logits of the calls
     ``keep`` names by kind, or where ``keep`` is None (a run with graphs)
     of each kind's first call and first replay (its first call that
-    captured nothing); it also counts the decode rows that roll back."""
+    captured nothing); a MoE engine's kinds are labelled apart (``decode
+    [MoE]``).  It also counts the decode rows that roll back."""
     rec = dict(host=0.0, calls=Counter(), logits={}, replayed=set(),
                rolled=0)
 
@@ -1817,15 +2042,22 @@ def _recorded_steps(unit, graphs, keep) -> dict:
             return n
         return call
     for eng in unit.engines.values():
+        tag = " [MoE]" if _is_moe(eng.cfg) else ""
         for fn in ("_prefill_fn", "_decode_fn", "_chunk_fn"):
-            setattr(eng, fn, timed(getattr(eng, fn), _step_kind(eng, fn)))
+            setattr(eng, fn, timed(getattr(eng, fn),
+                                   _step_kind(eng, fn) + tag))
         eng.apply_decode_result = rolled(eng.apply_decode_result, eng)
     return rec
 
 
 def _serve_steps_run(torch, dev, spec, mode, reduced, keep=None) -> dict:
     """One run of ``serve_graph_steps``: the trace served ``STEP_WAVES``
-    times on one unit, eagerly or with graphs."""
+    times on one unit, eagerly or with graphs.  A spec's ``depth`` cuts
+    configs in depth at full width (``build_cut_unit``).  With graphs on
+    the card, each MoE kind's first sight runs under the sync check
+    (``_moe_sync_checked``)."""
+    from repro_torch import configs
+    from repro_torch.config import replace
     from repro_torch.core.workload import synthesize
     from repro_torch.kernels import ops
     from repro_torch.serving import driver, graphs
@@ -1837,17 +2069,29 @@ def _serve_steps_run(torch, dev, spec, mode, reduced, keep=None) -> dict:
                     max_rate=spec["n_target"] / 2.0, horizon=1.6,
                     seed=spec["seed"], mean_prompt=256, mean_output=40,
                     max_len=512)
-    unit = driver.build_unit_from_specs(
-        [(n, a, wl.rates[n]) for n, a in zip(names, archs)],
-        pool_blocks=4000 if reduced else spec["pool_blocks"], max_slots=4,
-        chunk_tokens=spec["chunk_tokens"], seed=spec["seed"],
-        policy="adbs", fused=True, reduced=reduced,
-        dtype=torch.bfloat16 if cuda else torch.float32, device=dev)
+    depth = {} if reduced else spec.get("depth", {})
+    if depth:
+        unit = build_cut_unit(torch, [
+            (n, replace(configs.get(a), name=n,
+                        n_layers=depth.get(a, configs.get(a).n_layers)),
+             wl.rates[n]) for n, a in zip(names, archs)],
+            spec["pool_blocks"], spec["chunk_tokens"], spec["seed"], dev)
+    else:
+        unit = driver.build_unit_from_specs(
+            [(n, a, wl.rates[n]) for n, a in zip(names, archs)],
+            pool_blocks=4000 if reduced else spec["pool_blocks"],
+            max_slots=4, chunk_tokens=spec["chunk_tokens"],
+            seed=spec["seed"], policy="adbs", fused=True, reduced=reduced,
+            dtype=torch.bfloat16 if cuda else torch.float32, device=dev)
     rec = _recorded_steps(unit, graphs, keep)
     mem = _Memory(torch, dev)
     n_log = len(graphs.REGISTRY.log)
-    ctx = (graphs.disable_graphs() if mode == "eager"
-           else contextlib.nullcontext())
+    sync_checked = set()
+    ctx = contextlib.ExitStack()
+    if mode == "eager":
+        ctx.enter_context(graphs.disable_graphs())
+    elif cuda:
+        ctx.enter_context(_moe_sync_checked(torch, graphs, sync_checked))
     ticks, reports, tokens, prefill_replays = [], [], {}, []
     ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1890,10 +2134,12 @@ def _serve_steps_run(torch, dev, spec, mode, reduced, keep=None) -> dict:
                              f"freed")
     mine = {k: g for k, g in graphs.REGISTRY.graphs.items()
             if k in graphs.REGISTRY.log[n_log:]}
-    replays = Counter()
+    replays, moe_replays = Counter(), Counter()
     replay_launches = Counter()
     for k, g in mine.items():
         replays[k[0][0]] += g.replays
+        if _is_moe(k[0][1]):
+            moe_replays[k[0][0]] += g.replays
         for kernel, n in g.launches:
             replay_launches[kernel.symbol] += n * g.replays
     steady = [t for t in ticks if not t["captured"]]
@@ -1909,6 +2155,10 @@ def _serve_steps_run(torch, dev, spec, mode, reduced, keep=None) -> dict:
         captured=dict(Counter(k[0][0]
                               for k in graphs.REGISTRY.log[n_log:])),
         replays=dict(replays), replay_launches=dict(replay_launches),
+        moe_captured=dict(Counter(k[0][0]
+                                  for k in graphs.REGISTRY.log[n_log:]
+                                  if _is_moe(k[0][1]))),
+        moe_replays=dict(moe_replays), sync_checked=sorted(sync_checked),
         # replays of each whole-prompt key at the end of each wave
         # (keyed by the packed tokens' shape: rows, padded length)
         prefill_key_replays=prefill_replays,
@@ -1925,27 +2175,33 @@ def serve_graph_steps(torch, device="cuda", reduced=False) -> dict:
     """The rest of the compiled steps at full width (``STEP_RUNS``): the
     whole-prompt serve (kernel 3: ``prefill``), serve A (kernel 4:
     ``chunk_ssm``, the SSM ``decode_ssm``), serve B (zamba2-1.2b, kernels
-    4, 3 and 1: ``prefill_ssm``, ``decode_ssm``) and one mamba2-2.7b
-    prefilling whole prompts (``prefill_ssm``), each trace served twice
-    on one unit, with graphs and then eagerly (``disable_graphs``).
-    Checks per run: the reports (wall fields aside), greedy tokens and
-    launch counts equal; each of the run's kinds captured and replayed;
+    4, 3 and 1: ``prefill_ssm``, ``decode_ssm``), one mamba2-2.7b
+    prefilling whole prompts (``prefill_ssm``), MoE A's pair chunked
+    (granite-moe cut in depth beside musicgen-medium; kernel 6 in the
+    MoE ``chunk`` and ``decode``) and qwen3-moe cut in depth prefilling
+    whole prompts (the MoE ``prefill``, ``decode``), each trace served
+    twice on one unit, with graphs and then eagerly
+    (``disable_graphs``).  Checks per run: the reports (wall fields
+    aside), greedy tokens and launch counts equal; each of the run's
+    kinds captured and replayed (the MoE engine's own, in the MoE runs);
     the kernels of ``STEP_RUNS`` launched by replays; the logits of
     each kind's first call and first replay within ``GRAPH_LOGIT_TOL``
-    of the largest; nothing captured eagerly.  Over the whole script so
-    far: no MoE step captured.  Then a capture that fails (the body
-    raises while capturing) must raise out of the step and leave no
-    graph.  Measures per run and mode the ticks' wall ms and the host
-    µs in the step calls (capture ticks aside), peak memory, the graph
-    pool's bytes, captures and replays by kind, the replays of each
-    whole-prompt key after each wave, and the decode rows rolled
-    back."""
+    of the largest; nothing captured eagerly.  On the card every MoE
+    kind's first sight runs its body under the sync check.  Over the
+    whole script so far: MoE steps captured.  Then a capture that fails
+    (the body raises while capturing) must raise out of the step and
+    leave no graph.  Measures per run and mode the ticks' wall ms and
+    the host µs in the step calls (capture ticks aside), peak memory,
+    the graph pool's bytes, captures and replays by kind (and the MoE
+    engine's), the replays of each whole-prompt key after each wave,
+    and the decode rows rolled back."""
+    from repro_torch import configs
     from repro_torch.serving import graphs
 
     t_phase = time.perf_counter()
     dev = torch.device(device)
     _free(torch, dev)
-    runs, problems = {}, []
+    runs, problems, sync_checked = {}, [], set()
     for label, spec, kinds, kernels in STEP_RUNS:
         g = _serve_steps_run(torch, dev, spec, "graphs", reduced)
         keep = {k: set(v) for k, v in g["logits"].items()}
@@ -1961,11 +2217,15 @@ def serve_graph_steps(torch, device="cuda", reduced=False) -> dict:
                             f"{en['launches']}")
         if en["captured"]:
             problems.append(f"{label}: captured {en['captured']} eagerly")
+        moe_run = any(_is_moe(configs.get(a)) for a in spec["archs"])
+        caught, replayed = ((gn["moe_captured"], gn["moe_replays"])
+                            if moe_run else (gn["captured"], gn["replays"]))
         for kind in kinds:
-            if not gn["captured"].get(kind) or not gn["replays"].get(kind):
+            if not caught.get(kind) or not replayed.get(kind):
                 problems.append(f"{label}: {kind} captured "
-                                f"{gn['captured'].get(kind, 0)}, replayed "
-                                f"{gn['replays'].get(kind, 0)}")
+                                f"{caught.get(kind, 0)}, replayed "
+                                f"{replayed.get(kind, 0)}")
+        sync_checked |= set(gn["sync_checked"])
         for symbol in kernels if dev.type == "cuda" else ():
             if not gn["replay_launches"].get(symbol):
                 problems.append(f"{label}: no replay launched {symbol}")
@@ -1980,10 +2240,12 @@ def serve_graph_steps(torch, device="cuda", reduced=False) -> dict:
         runs[label] = dict(graphs=gn, eager=en, logit_rel_err=errs,
                            compared_calls={k: sorted(v)
                                            for k, v in keep.items()})
-    moe = [k[0][0] for k in graphs.REGISTRY.log if k[0][1].moe
-           or k[0][1].family == "moe"]
-    if moe:
-        problems.append(f"MoE steps captured: {moe}")
+    moe = [k[0][0] for k in graphs.REGISTRY.log if _is_moe(k[0][1])]
+    if not moe:
+        problems.append("no MoE step captured")
+    if dev.type == "cuda" and not set(MOE_KINDS) <= sync_checked:
+        problems.append(f"MoE kinds run under the sync check: "
+                        f"{sorted(sync_checked)}, not {MOE_KINDS}")
     # (the capture stub of the CPU rehearsal records without running)
     raised = (_failed_capture(torch, dev, graphs) if dev.type == "cuda"
               else dict(raised=None, graphs_added=0))
@@ -1996,7 +2258,9 @@ def serve_graph_steps(torch, device="cuda", reduced=False) -> dict:
     for r in runs.values():
         for mode in ("eager", "graphs"):
             launches.update(r[mode]["launches"])
-    return dict(runs=runs, moe_captures=len(moe), failed_capture=raised,
+    return dict(runs=runs, moe_captures=len(moe),
+                moe_captured=dict(Counter(moe)),
+                moe_sync_checked=sorted(sync_checked), failed_capture=raised,
                 total_captures=dict(graphs.GRAPH_CAPTURES),
                 launches=dict(launches),
                 phase_s=time.perf_counter() - t_phase)
@@ -2042,8 +2306,11 @@ def print_graph_steps(res: dict, card: str) -> None:
                   f"{n['host_us_p90']:.0f} p90 a tick in the step calls, "
                   f"{n['capture_ticks']} capture ticks, wall "
                   f"{n['wall_s']:.2f} s, peak {n['peak_gb']:.2f} GB, "
-                  f"captured {n['captured']}, replayed {n['replays']}, "
-                  f"rolled-back rows {n['rolled_back_rows']}")
+                  f"captured {n['captured']}, replayed {n['replays']}"
+                  + (f" (MoE engine: captured {n['moe_captured']}, "
+                     f"replayed {n['moe_replays']})" if n["moe_captured"]
+                     else "")
+                  + f", rolled-back rows {n['rolled_back_rows']}")
         g, errs = r["graphs"], r["logit_rel_err"]
         pool = g["graph_pool_bytes"]
         print(f"graph steps ({card}): {label}: launches by replays "
@@ -2055,7 +2322,9 @@ def print_graph_steps(res: dict, card: str) -> None:
               f"{ {k: float(f'{v:.3g}') for k, v in errs.items()} } < "
               f"{GRAPH_LOGIT_TOL} at calls {r['compared_calls']}")
     print(f"graph steps ({card}): MoE steps captured in the whole script "
-          f"{res['moe_captures']}; a failed capture raised "
+          f"{res['moe_captures']} {res['moe_captured']}; MoE bodies run "
+          f"under set_sync_debug_mode('error') at their first sight: "
+          f"{res['moe_sync_checked']}; a failed capture raised "
           f"{res['failed_capture']['raised']} and added "
           f"{res['failed_capture']['graphs_added']} graphs; captures by "
           f"kind so far {res['total_captures']}; phase "
@@ -4608,6 +4877,10 @@ def main() -> int:
            for s in SSD_SHAPES}
     for label, r in ssd.items():
         print(f"check [{label}] ssd_scan: " + json.dumps(r))
+    moe_checks = {s["label"]: check_moe(torch, {
+        **s, "dtype": getattr(torch, s["dtype"])}) for s in MOE_SHAPES}
+    for label, r in moe_checks.items():
+        print(f"check [{label}] grouped_swiglu: " + json.dumps(r))
     int8 = {s["label"]: check_int8(torch, np, s)
             for s in [full, small] + wide}
     for label, res in int8.items():
@@ -4646,13 +4919,15 @@ def main() -> int:
             archs=["granite-moe-3b-a800m", "musicgen-medium"],
             chunk_tokens=64, n_target=16, seed=4, alpha=1.0,
             pool_blocks=524288,
-            must_launch=("repro_paged_decode", "repro_paged_prefill"))),
+            must_launch=("repro_paged_decode", "repro_paged_prefill",
+                         "repro_moe_grouped"))),
         # qwen3-moe at full width, 4 of 94 layers: 128 experts of 4096 x
         # 1536 a layer, group 16 at head_dim 128
         ("MoE B: qwen3-moe-235b-a22b (4 of 94 layers), chunked", dict(
             archs=["qwen3-moe-235b-a22b"], chunk_tokens=64, n_target=8,
             seed=5, pool_blocks=65536, depth={"qwen3-moe-235b-a22b": 4},
-            must_launch=("repro_paged_decode", "repro_paged_prefill"))),
+            must_launch=("repro_paged_decode", "repro_paged_prefill",
+                         "repro_moe_grouped"))),
         # head_dim 96: two phi-3-vision-4.2b fused (chunked), then one
         # with whole-prompt prefill
         ("hd 96: phi-3-vision-4.2b x2, fused chunked", dict(
@@ -4764,6 +5039,16 @@ def main() -> int:
                 "shapes": main_shape["label"],
                 "other_shapes": [{"shapes": o["label"],
                                   **measured[o["label"]]} for o in others]})
+            continue
+        if k.symbol == "repro_moe_grouped":
+            main_shape, *others = MOE_SHAPES
+            rows.append({
+                "name": "grouped_swiglu", **base,
+                **moe_checks[main_shape["label"]],
+                "kernel_ms": moe_checks[main_shape["label"]]["ms"],
+                "shapes": main_shape["label"],
+                "other_shapes": [{"shapes": o["label"],
+                                  **moe_checks[o["label"]]} for o in others]})
             continue
         if k.symbol == "repro_decode_int8":
             # the main path's shape (one dense cache layer of the W8/KV8

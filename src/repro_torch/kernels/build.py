@@ -28,7 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 SOURCES = ("paged_decode.cu", "paged_prefill.cu", "flash_prefill.cu",
-           "ssd_scan.cu", "paged_decode_int8.cu")
+           "ssd_scan.cu", "paged_decode_int8.cu", "moe_grouped.cu")
 
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_longlong,
            "f": ctypes.c_float}

@@ -44,11 +44,12 @@ def _is_dtensor(t) -> bool:
 def path_kernels() -> Tuple:
     """The CUDA kernels of the serving path, each with its launch
     count."""
-    from repro_torch.kernels import (flash_prefill, paged_attention,
-                                     paged_attention_int8, ssd_scan)
+    from repro_torch.kernels import (flash_prefill, moe_grouped,
+                                     paged_attention, paged_attention_int8,
+                                     ssd_scan)
     return (paged_attention.DECODE_KERNEL, flash_prefill.PAGED_KERNEL,
             flash_prefill.FLASH_KERNEL, ssd_scan.SSD_KERNEL,
-            paged_attention_int8.DECODE_INT8_KERNEL)
+            paged_attention_int8.DECODE_INT8_KERNEL, moe_grouped.MOE_KERNEL)
 
 
 def reset_launch_counts() -> None:

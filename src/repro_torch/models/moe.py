@@ -9,19 +9,19 @@ stacked ``[L, E, d, f_e]`` (``w_down`` ``[L, E, f_e, d]``), the router
   depend on the batch.  The reference gathers each token's expert
   weights (``[T, k, d, f_e]``, "fine for the CPU engine"); at full width
   that is gigabytes a chunk.  Here the T·k (token, slot) pairs are
-  grouped by expert (a stable argsort of the expert index) and each
-  active expert runs ``[n_e, d] @ [d, f_e]`` products with
-  ``torch.matmul``, reading its weights once; the slot outputs go back
-  to token order and are summed over the k slots with the gates, as the
-  reference sums them.  Transient memory is O(T·k·(d + f_e)).  Reading
-  the per-expert counts is one host synchronisation per call (per MoE
-  layer of a step).
+  sorted by expert on the device (``kernels/moe_grouped.sort_slots``)
+  and go through the grouped-expert SwiGLU (``grouped_swiglu``: kernel
+  6 on CUDA, each active expert's weights read once; the grouped loop
+  of ``torch.matmul`` products on the CPU); the slot outputs, in slot
+  order, are summed over the k slots with the gates, as the reference
+  sums them.  Transient memory is O(T·k·(d + f_e)).  On CUDA tensors
+  nothing is read on the host, so the serving steps capture as CUDA
+  graphs.
 * ``moe_ffn``: static per-expert capacity (Switch/GShard): tokens past
   an expert's capacity are dropped.  The reference's distributed path;
-  here the prefill step's default, as there.
-
-The expert products are plain matrix products (XLA's in the reference,
-not a Pallas kernel), so they stay ``torch.matmul``.
+  here the prefill step's default, as there.  Its expert products are
+  plain batched matrix products (XLA's in the reference), so they stay
+  ``torch.matmul``.
 
 ``ffn`` is the one place that picks a layer's FFN (the dense MLP or a
 MoE FFN) for the engine and the serve steps.
@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig, MoEConfig
+from repro_torch.kernels import moe_grouped as MG
 from repro_torch.models.layers import (constrain, current_mesh, gathered,
                                        grad_placements, mlp, placements)
 
@@ -85,14 +86,8 @@ def route(x: torch.Tensor, router_w: torch.Tensor, mc: MoEConfig
 
 
 def _swiglu(x, wg, wu, wd):
-    """SwiGLU of tokens ``x`` through one expert (``[n, d]``) or every
-    expert (``[E, n, d]`` against ``[E, d, f]``): operands meet in the
-    wider float type, as ``jnp.einsum`` promotes them."""
-    dt = torch.promote_types(x.dtype, wg.dtype)
-    x = x.to(dt)
-    wg, wu, wd = gathered(wg), gathered(wu), gathered(wd)
-    h = F.silu(x @ wg.to(dt)) * (x @ wu.to(dt))
-    return h @ wd.to(dt)
+    """``moe_grouped.swiglu`` on the weights gathered from a mesh."""
+    return MG.swiglu(x, gathered(wg), gathered(wu), gathered(wd))
 
 
 def moe_ffn_dropless(x: torch.Tensor, p: Dict, li, cfg: ModelConfig
@@ -105,19 +100,13 @@ def moe_ffn_dropless(x: torch.Tensor, p: Dict, li, cfg: ModelConfig
     T, k = b * s, mc.top_k
     xt = x.reshape(T, d)
     gates, idx, aux = route(xt, p["router"][li], mc)      # [T, k]
-    wg, wu, wd = p["w_gate"][li], p["w_up"][li], p["w_down"][li]
-    flat_e = idx.reshape(-1)                              # [T*k]
-    order = torch.argsort(flat_e, stable=True)            # slots by expert
-    counts = torch.bincount(flat_e, minlength=mc.n_experts).tolist()
-    xs = xt[order // k]                                   # [T*k, d]
-    outs, start = [], 0
-    for e, n in enumerate(counts):
-        if n:
-            outs.append(_swiglu(xs[start:start + n], wg[e], wu[e], wd[e]))
-            start += n
-    y_sorted = torch.cat(outs)
-    y = torch.empty_like(y_sorted)
-    y[order] = y_sorted                                   # slot order
+    wg = gathered(p["w_gate"][li])
+    dt = torch.promote_types(xt.dtype, wg.dtype)          # as jnp.einsum
+    wg, wu, wd = (w.to(dt) for w in (wg, gathered(p["w_up"][li]),
+                                     gathered(p["w_down"][li])))
+    order, offsets = MG.sort_slots(idx, mc.n_experts)
+    y = MG.grouped_swiglu(xt.to(dt).contiguous(), order, offsets, wg, wu,
+                          wd, k)                          # [T*k, d]
     out = (y.reshape(T, k, d) * gates[..., None].to(y.dtype)).sum(dim=1)
     return out.reshape(b, s, d), aux
 

@@ -21,12 +21,12 @@ rows and block-multiple prompt lengths — exactly as the JAX package
 pads them, so the two packages see the same batches; ``TRACE_COUNTS``
 counts the distinct shape buckets each step ran at.
 
-Compiled steps: on the card every step of every family but MoE runs
-as one CUDA graph per shape bucket (``serving/graphs.py``, the JAX
-package's ``jitted_step``); the MoE steps run eagerly.  On CUDA tensors
-the attention and the SSD scan go through the Hopper kernels
-(``serving/cache_ops``, ``models/mamba2``), on CPU tensors through
-their plain versions.  KV writes update the arena in place.  SSM state
+Compiled steps: on the card every step of every family runs as one
+CUDA graph per shape bucket (``serving/graphs.py``, the JAX package's
+``jitted_step``).  On CUDA tensors the attention, the SSD scan and the
+MoE experts go through the Hopper kernels (``serving/cache_ops``,
+``models/mamba2``, ``models/moe``), on CPU tensors through their plain
+versions.  KV writes update the arena in place.  SSM state
 (constant size) lives in per-slot arrays: ``ssm_state`` [L, slots, H,
 P, N] float32 and ``conv_tail`` [L, slots, K-1, conv_dim]; a step
 gathers its rows, runs, and writes the new state back into them.
@@ -736,8 +736,8 @@ class Engine:
 # over M, KV writes and attention over all M×R rows at once (each row's
 # table resolves to its own model's blocks).  ``graphs.run_step`` runs
 # the device part as a CUDA graph of its bucket on the card
-# (``serving/graphs.py``) for every family but MoE (``graph_family``),
-# eagerly on the CPU and under ``graphs.disable_graphs()``.
+# (``serving/graphs.py``) for every family, eagerly on the CPU and under
+# ``graphs.disable_graphs()``.
 # ---------------------------------------------------------------------------
 def _to(dev, a, dtype=None) -> torch.Tensor:
     t = torch.from_numpy(np.ascontiguousarray(a))
@@ -749,13 +749,6 @@ def dense_attention(cfg: ModelConfig) -> bool:
     or SSM): the engines that fuse (``Engine.fusion_signature``)."""
     return cfg.family in ("dense", "vlm", "audio") and not cfg.ssm \
         and not cfg.moe
-
-
-def graph_family(cfg: ModelConfig) -> bool:
-    """Whether the steps of ``cfg`` run as CUDA graphs on the card: every
-    family but MoE, whose dropless FFN reads its per-expert counts on
-    the host once a layer (a capture refuses a host sync)."""
-    return cfg.family != "moe" and not cfg.moe
 
 
 def _arena(pool) -> tuple:
@@ -922,7 +915,7 @@ def _fused_decode_step(params, toks, lens, pool, tables, *,
     return graphs.run_step(
         "fused_decode", cfg, None, params, _arena(pool),
         _decode_inputs(toks, lens, tables, pool.block_tokens),
-        partial(_decode_body, cfg=cfg), graph_family(cfg))
+        partial(_decode_body, cfg=cfg))
 
 
 def _fused_prefill_chunk_step(params, toks, offs, clens, pool, tables, *,
@@ -942,7 +935,7 @@ def _fused_prefill_chunk_step(params, toks, offs, clens, pool, tables, *,
     return graphs.run_step(
         "fused_prefill_chunk", cfg, None, params, _arena(pool),
         _chunk_inputs(toks, offs, clens, tables, pool.block_tokens),
-        partial(_chunk_body, cfg=cfg), graph_family(cfg))
+        partial(_chunk_body, cfg=cfg))
 
 
 def _prefill_step(params, midx, toks, lens, pool, table, *,
@@ -955,8 +948,7 @@ def _prefill_step(params, midx, toks, lens, pool, table, *,
     return graphs.run_step(
         "prefill", cfg, midx, params, _arena(pool),
         _prefill_inputs(toks, lens, table, pool.block_tokens),
-        _on_model(partial(_prefill_body, cfg=cfg), midx),
-        graph_family(cfg))
+        _on_model(partial(_prefill_body, cfg=cfg), midx))
 
 
 def _prefill_chunk_step(params, midx, toks, offs, clens, pool, table, *,
@@ -969,8 +961,7 @@ def _prefill_chunk_step(params, midx, toks, offs, clens, pool, table, *,
         "chunk", cfg, midx, params, _arena(pool),
         _chunk_inputs(toks[None], offs[None], clens[None], table[None],
                       pool.block_tokens),
-        _on_model(partial(_chunk_body, cfg=cfg), midx),
-        graph_family(cfg))
+        _on_model(partial(_chunk_body, cfg=cfg), midx))
 
 
 def _decode_step(params, midx, last_tok, lens, pool, table, *,
@@ -983,8 +974,7 @@ def _decode_step(params, midx, last_tok, lens, pool, table, *,
         "decode", cfg, midx, params, _arena(pool),
         _decode_inputs(last_tok[None], lens[None], table[None],
                        pool.block_tokens),
-        _on_model(partial(_decode_body, cfg=cfg), midx),
-        graph_family(cfg))
+        _on_model(partial(_decode_body, cfg=cfg), midx))
 
 
 # ---------------------------------------------------------------------------
@@ -1098,7 +1088,7 @@ def _prefill_ssm_step(params, midx, toks, lens, pool, table, *,
     logits = graphs.run_step("prefill_ssm", cfg, midx, params, bufs, host,
                              _on_one(partial(_prefill_ssm_body, cfg=cfg),
                                      midx),
-                             graph_family(cfg) and not own)
+                             not own)
     return (logits, *state) if own else logits
 
 
@@ -1151,7 +1141,7 @@ def _prefill_chunk_ssm_step(params, midx, toks, clens, ssm_state, conv_tail,
     logits = graphs.run_step("chunk_ssm", cfg, midx, params,
                              (ssm_state, conv_tail), host,
                              _on_one(partial(_chunk_ssm_body, cfg=cfg), midx),
-                             graph_family(cfg) and not own)
+                             not own)
     return (logits, ssm_state, conv_tail) if own else logits
 
 
@@ -1225,7 +1215,7 @@ def _decode_ssm_step(params, midx, last_tok, lens, pool, table, ssm_state,
     logits = graphs.run_step("decode_ssm", cfg, midx, params, bufs, host,
                              _on_one(partial(_decode_ssm_body, cfg=cfg),
                                      midx),
-                             graph_family(cfg) and not own)
+                             not own)
     return (logits, ssm_state, conv_tail) if own else logits
 
 

@@ -3,12 +3,12 @@ shape bucket — the port's counterpart of the JAX package's
 ``jitted_step`` (``repro/serving/engine.py``), whose steps each run as
 one ``jax.jit`` program with the KV pool donated.
 
-Every family's steps run this way but the MoE family's: its dropless
-FFN reads the per-expert counts on the host once a layer, and a capture
-refuses a host sync (``engine.graph_family``).  The kinds: ``prefill``
-(whole prompts of the dense family), ``decode`` / ``chunk`` and their
-fused forms, and the SSM and hybrid ``prefill_ssm`` / ``chunk_ssm`` /
-``decode_ssm``.
+Every family's steps run this way, the MoE family's too: its dropless FFN sorts the slots by expert on the card
+and runs kernel 6 over a grid fixed by shapes, so no host sync (which a
+capture refuses) is left in a step.  The kinds: ``prefill`` (whole
+prompts of the dense and MoE families), ``decode`` / ``chunk`` and
+their fused forms, and the SSM and hybrid ``prefill_ssm`` /
+``chunk_ssm`` / ``decode_ssm``.
 
 A step is split in two (``serving/engine.py``): a host part plans the
 step into fixed-shape numpy arrays, packed here into one int64 array

@@ -14,6 +14,9 @@ farther from the f32 result than the kernels' schedule is
 plain version have differed by more than 2e-2 on the card.  So the
 bf16 prefill kernels are held to their plain version run in float32 on
 the same bf16 inputs.
+The grouped-expert SwiGLU (kernel 6) is held to its plain version in
+the kernel's dtype, relative to the plain output's largest magnitude:
+2e-5 in float32, 2e-2 in bfloat16.
 The SSD scan's output sums up to a chunk's worth of terms, and the int8
 decode kernel's output scales with the cache's scales, so their
 tolerance is relative to the plain output's largest magnitude (the same
@@ -30,6 +33,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels import decode_splits as dsp
 from repro_torch.kernels import flash_prefill as fp
+from repro_torch.kernels import moe_grouped as mg
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import paged_attention_int8 as pi8
@@ -843,3 +847,215 @@ def test_captured_fused_steps_equal_eager(dev, dtype):
            for k, v in graphs.GRAPH_CAPTURES.items()}
     assert got.get("fused_decode") == 1 == got.get("fused_prefill_chunk")
     assert len(graphs.REGISTRY.graphs) == 2
+
+
+# ---------------------------------------------------------------------------
+# kernel 6: the grouped-expert SwiGLU of the dropless MoE FFN
+# ---------------------------------------------------------------------------
+MOE_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+GRANITE = (32, 8, 1536, 512)          # experts, top-k, d, f_e
+QWEN3 = (128, 8, 4096, 1536)
+REDUCED = (4, 2, 256, 128)
+
+
+def _moe_inputs(dev, dtype, T, E, k, d, f, route="topk", seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*s, scale=1.0):
+        return (torch.randn(s, generator=g, device=dev) * scale).to(dtype)
+    x = randn(T, d)
+    ws = (randn(E, d, f, scale=d ** -0.5), randn(E, d, f, scale=d ** -0.5),
+          randn(E, f, d, scale=f ** -0.5))
+    if route == "one":                      # every slot on the last expert
+        idx = torch.full((T, k), E - 1, dtype=torch.int64, device=dev)
+    else:
+        idx = torch.randn(T, E, generator=g, device=dev).topk(k).indices
+    return x, ws, idx
+
+
+def _moe_close(y, ref, dtype):
+    scale = ref.float().abs().max().item()
+    err = (y.float() - ref.float()).abs().max().item()
+    assert torch.isfinite(y.float()).all() and err <= MOE_TOL[dtype] * scale, \
+        (err, scale)
+
+
+# full-width granite-moe and qwen3-moe at a 4-row decode (32 slots), a
+# 64-token chunk (512 slots) and the serving phases' largest buckets (4 ×
+# 64 chunk rows, 4 × 512 whole prompts) in bf16, the reduced experts in
+# float32, and the edge routings: every slot on one expert, a single token
+@pytest.mark.parametrize("dtype,T,shape,route", [
+    (torch.bfloat16, 4, GRANITE, "topk"),
+    (torch.bfloat16, 64, GRANITE, "topk"),
+    (torch.bfloat16, 4, QWEN3, "topk"),
+    (torch.bfloat16, 64, QWEN3, "topk"),
+    (torch.bfloat16, 256, GRANITE, "topk"),
+    (torch.bfloat16, 2048, QWEN3, "topk"),
+    (torch.float32, 4, REDUCED, "topk"),
+    (torch.float32, 64, REDUCED, "topk"),
+    (torch.float32, 64, (128, 8, 256, 128), "topk"),
+    (torch.bfloat16, 64, GRANITE, "one"),
+    (torch.bfloat16, 1, GRANITE, "topk"),
+    (torch.float32, 64, REDUCED, "one"),
+    (torch.float32, 1, REDUCED, "topk"),
+    (torch.float32, 7, (8, 3, 72, 40), "topk"),     # d, f not of 64
+])
+def test_moe_grouped_kernel_matches_plain(dev, dtype, T, shape, route):
+    E, k, d, f = shape
+    x, (wg, wu, wd), idx = _moe_inputs(dev, dtype, T, E, k, d, f, route)
+    order, offsets = mg.sort_slots(idx, E)
+    n0 = mg.MOE_KERNEL.launches
+    y = mg.grouped_swiglu(x, order, offsets, wg, wu, wd, k)
+    assert mg.MOE_KERNEL.launches == n0 + 1
+    ref = mg.grouped_swiglu_plain(x, order, offsets, wg, wu, wd, k)
+    torch.cuda.synchronize()
+    assert y.shape == (T * k, d) and y.dtype == dtype
+    _moe_close(y, ref, dtype)
+    assert mg.source_m_tiles(T * k, E) == mg.m_tiles(T * k, E)
+
+
+def test_moe_grouped_kernel_refuses_bad_operands(dev):
+    E, k, d, f = REDUCED
+    x, (wg, wu, wd), idx = _moe_inputs(dev, torch.bfloat16, 8, E, k, d, f)
+    order, offsets = mg.sort_slots(idx, E)
+    n0 = mg.MOE_KERNEL.launches
+    bad = [
+        dict(x=x.half(), w_gate=wg.half(), w_up=wu.half(),
+             w_down=wd.half()),                         # another dtype
+        dict(x=x.float()),                              # mixed dtypes
+        dict(order=order.long()),                       # int64 routing
+        dict(w_gate=wg.transpose(1, 2).contiguous().transpose(1, 2)),
+        dict(x=torch.empty(x.numel() + 1, dtype=x.dtype,
+                           device=dev)[1:].view(x.shape)),   # misaligned
+        dict(w_up=wu[:, :, :120].contiguous(),
+             w_gate=wg[:, :, :120].contiguous(),
+             w_down=wd[:, :120].contiguous()),          # f % 8 == 0: fine
+    ]
+    args = dict(x=x, order=order, offsets=offsets, w_gate=wg, w_up=wu,
+                w_down=wd)
+    for i, change in enumerate(bad):
+        kw = {**args, **change}
+        if i == len(bad) - 1:
+            mg.grouped_swiglu(**kw, top_k=k)            # runs
+            continue
+        with pytest.raises(ValueError):
+            mg.grouped_swiglu(**kw, top_k=k)
+    # more experts than the lookup scans, d not a multiple of 8
+    x2, ws2, idx2 = _moe_inputs(dev, torch.float32, 4, 129, 2, 64, 64)
+    with pytest.raises(ValueError, match="experts"):
+        mg.grouped_swiglu(x2, *mg.sort_slots(idx2, 129), *ws2, 2)
+    x3, ws3, idx3 = _moe_inputs(dev, torch.float32, 4, 4, 2, 60, 64)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        mg.grouped_swiglu(x3, *mg.sort_slots(idx3, 4), *ws3, 2)
+    assert mg.MOE_KERNEL.launches == n0 + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_grouped_kernel_gradients_match_plain(dev, dtype):
+    E, k, d, f = REDUCED
+    x, ws, idx = _moe_inputs(dev, dtype, 24, E, k, d, f, seed=5)
+    order, offsets = mg.sort_slots(idx, E)
+    ins = [t.clone().requires_grad_() for t in (x, *ws)]
+    n0 = mg.MOE_KERNEL.launches
+    y = mg.grouped_swiglu(ins[0], order, offsets, *ins[1:], k)
+    assert type(y.grad_fn).__name__ == "_GroupedSwiGLUBackward"
+    assert mg.MOE_KERNEL.launches == n0 + 1
+    gy = torch.randn(y.shape, generator=torch.Generator(
+        device=dev).manual_seed(9), device=dev).to(dtype)
+    got = torch.autograd.grad(y, ins, gy)
+    assert mg.MOE_KERNEL.launches == n0 + 1      # the backward is plain
+    ref_ins = [t.clone().requires_grad_() for t in (x, *ws)]
+    ref = torch.autograd.grad(mg.grouped_swiglu_plain(
+        ref_ins[0], order, offsets, *ref_ins[1:], k), ref_ins, gy)
+    torch.cuda.synchronize()
+    _grads_close(got, ref, TOL[dtype])
+    with torch.no_grad():
+        assert mg.grouped_swiglu(ins[0], order, offsets, *ins[1:],
+                                 k).grad_fn is None
+
+
+# the MoE steps as CUDA graphs: reduced granite-moe's chunk and decode
+# steps, captured through the registry and replayed on other tokens,
+# lengths and tables, equal the eager steps bit for bit (logits, arena,
+# launches); and their bodies make no host read (a sync raises under
+# the sync-debug mode "error")
+def test_captured_moe_steps_equal_eager(dev):
+    from functools import partial
+
+    from repro_torch import configs
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving import engine as E
+    from repro_torch.serving import graphs
+    from repro_torch.serving.kvcache import UnifiedKVPool
+
+    dtype = torch.bfloat16
+    cfg = configs.get_reduced("granite-moe-3b-a800m")
+    tree = init_params(cfg, torch.Generator().manual_seed(0), dtype, "cpu")
+    params = {g: {k: v[None].to(dev) for k, v in tree[g].items()}
+              for g in tree}
+    n, R, C, Wd = 512, 4, 16, 8
+    gs = cfg.n_layers * cfg.n_kv_heads
+    pools = {}
+    for mode in ("graph", "eager"):
+        pools[mode] = UnifiedKVPool(n, cfg.hd, dtype, device=dev)
+        g = torch.Generator(device=dev).manual_seed(3)
+        for t in pools[mode].arena():
+            t.copy_(torch.randn(t.shape, generator=g, device=dev).to(dtype))
+    rng = np.random.default_rng(0)
+    graphs.REGISTRY.clear()
+    captures = dict(graphs.GRAPH_CAPTURES)
+    for step in range(4):
+        table = (rng.permutation(n // gs)[:R * Wd] * gs).reshape(
+            R, Wd).astype(np.int32)
+        table[-1] = -1                               # a padded row
+        toks = rng.integers(1, cfg.vocab_size, (R, C)).astype(np.int32)
+        offs = (rng.integers(0, Wd - 1, R) * 16).astype(np.int32)
+        clens = rng.integers(1, C + 1, R).astype(np.int32)
+        lens = rng.integers(1, 16 * Wd, R).astype(np.int32)
+        out = {}
+        for mode, pool in pools.items():
+            ctx = graphs.disable_graphs() if mode == "eager" else \
+                contextlib.nullcontext()
+            ops.reset_launch_counts()
+            with ctx:
+                lc = E._prefill_chunk_step(params, 0, toks, offs, clens,
+                                           pool, table, cfg=cfg)
+                ld = E._decode_step(params, 0, toks[:, 0], lens, pool,
+                                    table, cfg=cfg)
+            torch.cuda.synchronize()
+            out[mode] = (lc, ld, ops.launch_counts())
+        assert torch.equal(out["graph"][0], out["eager"][0])
+        assert torch.equal(out["graph"][1], out["eager"][1])
+        for a, b in zip(pools["graph"].arena(), pools["eager"].arena()):
+            assert torch.equal(a, b)
+        assert out["graph"][2] == out["eager"][2]
+        assert out["graph"][2]["repro_moe_grouped"] == 2 * cfg.n_layers
+    got = {k: v - captures.get(k, 0)
+           for k, v in graphs.GRAPH_CAPTURES.items()}
+    assert got.get("chunk") == 1 == got.get("decode")
+    # the device bodies under the sync check, then captured and replayed
+    pool = pools["graph"]
+    hosts = {
+        "chunk": (E._chunk_inputs(toks[None], offs[None], clens[None],
+                                  table[None], pool.block_tokens),
+                  E._chunk_body),
+        "decode": (E._decode_inputs(toks[None, :, 0], lens[None],
+                                    table[None], pool.block_tokens),
+                   E._decode_body)}
+    for kind, (host, fn) in hosts.items():
+        packed, layout = graphs.pack(host)
+        a = graphs.unpack(torch.from_numpy(packed).to(dev), layout)
+        body = E._on_model(partial(fn, cfg=cfg), 0)
+        torch.cuda.synchronize()
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eager = body(params, pool.arena(), a)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            static = body(params, pool.arena(), a)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(static, eager), kind

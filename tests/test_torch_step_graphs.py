@@ -570,22 +570,18 @@ def test_warmup_drain_captures_before_the_clock(stub):
 
 
 def test_graphs_off_on_cpu_and_not_for_other_families():
-    """CPU operands never reach the registry, nor do the steps of the
-    family that stays eager (MoE); every other family's steps are
-    captured (``graph_family``), the dense attention family alone
-    fuses."""
+    """CPU operands never reach the registry; every family's steps are
+    captured on the card (MoE's too, ``tests/test_torch_step_graphs_moe.py``),
+    and the dense attention family alone fuses."""
     graphs.REGISTRY.clear()
     mux = _unit(_trees(2))
     _wave(mux, 2, 3, seed=7)
     mux.run(max_ticks=1_000)
     assert not graphs.REGISTRY.graphs
-    for arch in (ARCH, "musicgen-medium", "phi-3-vision-4.2b",
+    for arch in (ARCH, "musicgen-medium", "phi-3-vision-4.2b"):
+        assert TE.dense_attention(configs.get_reduced(arch))
+    for arch in ("granite-moe-3b-a800m", "qwen3-moe-235b-a22b",
                  "mamba2-2.7b", "zamba2-1.2b"):
-        assert TE.graph_family(configs.get_reduced(arch))
-    for arch in ("granite-moe-3b-a800m", "qwen3-moe-235b-a22b"):
-        assert not TE.graph_family(configs.get_reduced(arch))
-    assert TE.dense_attention(configs.get_reduced(ARCH))
-    for arch in ("granite-moe-3b-a800m", "mamba2-2.7b", "zamba2-1.2b"):
         assert not TE.dense_attention(configs.get_reduced(arch))
 
 

@@ -744,7 +744,7 @@ def test_graph_steps_phase_rehearses_on_cpu(stub):
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     import chip_smoke
     res = chip_smoke.serve_graph_steps(torch, device="cpu", reduced=True)
-    assert res["moe_captures"] == 0
+    assert res["moe_captures"] > 0
     seen = set()
     for label, spec, kinds, _ in chip_smoke.STEP_RUNS:
         r = res["runs"][label]
