@@ -2,7 +2,7 @@
 """Kernel times of two or more trees of this repository on one GPU, in
 turns, at the kernel table's shapes (PERF.md §6).
 
-  python3 chip_compare.py <tree>[:<tag>] <tree>[:<tag>] ...
+  python3 chip_compare.py [--moe] <tree>[:<tag>] <tree>[:<tag>] ...
 
 Each argument is the root of a checkout (``.`` for this one; an older
 commit unpacked with ``git archive`` under a git-ignored directory).
@@ -11,9 +11,11 @@ Trees run in the order given, each in a fresh process, so a call like
 change, parent on one card.  Each process builds that tree's kernels and
 runs that tree's own ``chip_smoke.check_kernels`` at full-width
 qwen2-7b and zamba2-1.2b's shared attention, ``check_int8`` at
-full-width qwen2-7b and ``check_ssd`` at the SSD scan's shapes, the
-shapes ``FULL``, ``ZAMBA`` and ``SSD_SHAPES`` of this checkout's
-``chip_smoke.py`` (the same shapes for every tree); the kernel times
+full-width qwen2-7b, ``check_ssd`` at the SSD scan's shapes and
+``check_moe`` at kernel 6's bf16 shapes, the shapes ``FULL``, ``ZAMBA``,
+``SSD_SHAPES`` and ``MOE_SHAPES`` of this checkout's ``chip_smoke.py``
+(the same shapes for every tree); with ``--moe`` first, ``check_moe``
+alone.  The kernel times
 (``time_ms``: median of 25 calls, L2 evicted before each), the plain and
 library times, the bound and, where the tree measures them, the
 wrapper's host time per call (``host_us``) and one call's wall time with
@@ -29,10 +31,10 @@ import subprocess
 import sys
 from pathlib import Path
 
-from chip_smoke import FULL, SSD_SHAPES, ZAMBA
+from chip_smoke import FULL, MOE_SHAPES, SSD_SHAPES, ZAMBA
 
 FIELDS = ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err",
-          "host_us", "call_us")
+          "host_us", "call_us", "profiler", "plan")
 TABLES = ("ms", "host_us", "call_us")
 
 _CHILD = r'''
@@ -50,23 +52,31 @@ torch.backends.cuda.matmul.allow_tf32 = False
 from repro_torch.kernels import build
 build.build_all()
 fields = json.loads(sys.argv[2])
-full, zamba, *ssd = ({**s, "dtype": getattr(torch, s["dtype"])}
-                     for s in json.loads(sys.argv[3]))
+shapes = [{**s, "dtype": getattr(torch, s["dtype"])}
+          for s in json.loads(sys.argv[3])]
+moe = [s for s in shapes if "E" in s]
 out = {}
-for shape in (full, zamba):
-    for k, r in cs.check_kernels(torch, np, shape).items():
-        out[f"{shape['label']}: {k}"] = {f: r.get(f) for f in fields}
-for k, r in cs.check_int8(torch, np, full).items():
-    out[f"{full['label']}: int8 {k}"] = {f: r.get(f) for f in fields}
-for shape in ssd:
-    r = cs.check_ssd(torch, shape)
-    out[f"{shape['label']}: ssd_scan"] = {f: r.get(f) for f in fields}
+if len(moe) < len(shapes):
+    full, zamba, *ssd = [s for s in shapes if "E" not in s]
+    for shape in (full, zamba):
+        for k, r in cs.check_kernels(torch, np, shape).items():
+            out[f"{shape['label']}: {k}"] = {f: r.get(f) for f in fields}
+    for k, r in cs.check_int8(torch, np, full).items():
+        out[f"{full['label']}: int8 {k}"] = {f: r.get(f) for f in fields}
+    for shape in ssd:
+        r = cs.check_ssd(torch, shape)
+        out[f"{shape['label']}: ssd_scan"] = {f: r.get(f) for f in fields}
+for shape in moe:
+    r = cs.check_moe(torch, shape)
+    out[f"{shape['label']}: grouped_swiglu"] = {f: r.get(f) for f in fields}
 print("RESULT " + json.dumps(out), flush=True)
 '''
 
 
-def run_tree(root: str) -> dict:
-    shapes = json.dumps([FULL, ZAMBA, *SSD_SHAPES])
+def run_tree(root: str, moe_only: bool) -> dict:
+    moe = [s for s in MOE_SHAPES if s["dtype"] == "bfloat16"]
+    shapes = json.dumps(moe if moe_only else
+                        [FULL, ZAMBA, *SSD_SHAPES, *moe])
     proc = subprocess.run([sys.executable, "-c", _CHILD, root,
                            json.dumps(FIELDS), shapes], capture_output=True,
                           text=True, timeout=1200)
@@ -78,6 +88,8 @@ def run_tree(root: str) -> dict:
 
 
 def main(argv) -> int:
+    moe_only = bool(argv) and argv[0] == "--moe"
+    argv = argv[1:] if moe_only else argv
     if not argv:
         print(__doc__, file=sys.stderr)
         return 2
@@ -90,7 +102,7 @@ def main(argv) -> int:
             return 2
     results = []
     for root, tag in trees:
-        res = run_tree(root)
+        res = run_tree(root, moe_only)
         print(f"tree {tag} ({root}): " + json.dumps(res), flush=True)
         results.append((tag, res))
     for field in TABLES:

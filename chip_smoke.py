@@ -363,12 +363,14 @@ def call_us(torch, fn, iters: int = 25) -> float:
     return times[len(times) // 2] * 1e6
 
 
-def profiler_ms(torch, fn, match: str = "splitkv_", iters: int = 20):
+def profiler_ms(torch, fn, match: str = "splitkv_", iters: int = 20,
+                per_call: int = 0):
     """Device time of ``fn``'s kernels whose names contain ``match``,
     from ``torch.profiler``'s CUDA activity over ``iters`` calls, each
     with L2 cold as in ``time_ms``: ``ms``, the mean span of a call
     (its first kernel's start to its last kernel's end: the merge
-    kernel's launch overlaps the split kernel), and each kernel's mean
+    kernel's launch overlaps the split kernel; with ``per_call``, each
+    run of that many kernels is one call), and each kernel's mean
     duration.  ``ms`` is None when the trace holds no device time."""
     import tempfile
     from torch.profiler import ProfilerActivity, profile
@@ -394,10 +396,11 @@ def profiler_ms(torch, fn, match: str = "splitkv_", iters: int = 20):
                    == "kernel" and match in e.get("name", "")),
                   key=lambda e: e["ts"])
     spans, per = [], {}
-    for e in kern:                     # a call opens with its split kernel
+    for i, e in enumerate(kern):       # a call opens with its split kernel
         name = re.sub(r"^void repro::|\(.*$", "", e["name"])
         per.setdefault(name, []).append(e["dur"])
-        if "combine" not in name or not spans:
+        opens = (i % per_call == 0 if per_call else "combine" not in name)
+        if opens or not spans:
             spans.append([e["ts"], e["ts"] + e["dur"]])
         else:
             spans[-1][1] = max(spans[-1][1], e["ts"] + e["dur"])
@@ -440,12 +443,12 @@ def _sass_counts(src: str, opcode: str) -> dict:
 
 def tensor_core_sass() -> dict:
     """Tensor-core instructions per kernel instantiation: HGMMA (wgmma)
-    in the two prefill libraries (head dims 64, 96, 128), HMMA
+    in the two prefill libraries (head dims 64, 96, 128) and kernel 6's
+    (gate/up and down at 64 / 128 rows and 64 / 128 columns), HMMA
     (mma.sync) in the two decode libraries (head dims 64, 96, 128, one
-    or two 8-head halves of the m16 tile), the SSD scan's and kernel 6's
-    (gate/up and down).  Raises unless every bf16 instantiation
-    (``tc_attention_kernel``, ``splitkv_tc_kernel``,
-    ``ssd_scan_tc_kernel``, ``moe_grouped_kernel<__nv_bfloat16, ...>``)
+    or two 8-head halves of the m16 tile) and the SSD scan's.  Raises
+    unless every bf16 instantiation (``tc_attention_kernel``,
+    ``splitkv_tc_kernel``, ``ssd_scan_tc_kernel``, ``moe_wgmma_kernel``)
     has some and every float32 one (the CUDA-core bodies) has none."""
     counts = {}
     for src in ("flash_prefill.cu", "paged_prefill.cu"):
@@ -472,16 +475,18 @@ def tensor_core_sass() -> dict:
         raise AssertionError(f"bf16 SSD kernels without HMMA: {ssd_tc}")
     if len(ssd_f32) != 1 or max(ssd_f32.values()) != 0:
         raise AssertionError(f"float32 SSD kernel with HMMA: {ssd_f32}")
-    moe = {k: v for k, v in _sass_counts("moe_grouped.cu", "HMMA").items()
-           if "moe_grouped_kernel" in k}
-    moe_tc = {k: v for k, v in moe.items() if "bfloat16" in k}
-    moe_f32 = {k: v for k, v in moe.items() if "bfloat16" not in k}
-    if len(moe_tc) != 2 or min(moe_tc.values()) == 0:
-        raise AssertionError(f"bf16 MoE kernels without HMMA: {moe_tc}")
+    moe_tc = {k: v for k, v in _sass_counts("moe_grouped.cu", "HGMMA").items()
+              if "moe_wgmma_kernel" in k}
+    moe_f32 = {k: v for k, v in _sass_counts("moe_grouped.cu",
+                                             "H[G]?MMA").items()
+               if "moe_f32_kernel" in k}
+    if len(moe_tc) != 8 or min(moe_tc.values()) == 0:
+        raise AssertionError(f"bf16 MoE kernels without HGMMA: {moe_tc}")
     if len(moe_f32) != 2 or max(moe_f32.values()) != 0:
-        raise AssertionError(f"float32 MoE kernels with HMMA: {moe_f32}")
-    return {"HGMMA": {"bf16": tc, "float32": f32},
-            "HMMA": {"bf16": {**dec_tc, **ssd_tc, **moe_tc},
+        raise AssertionError(f"float32 MoE kernels with HMMA or HGMMA: "
+                             f"{moe_f32}")
+    return {"HGMMA": {"bf16": {**tc, **moe_tc}, "float32": f32},
+            "HMMA": {"bf16": {**dec_tc, **ssd_tc},
                      "float32": {**dec_f32, **ssd_f32, **moe_f32}}}
 
 
@@ -944,11 +949,14 @@ def check_ssd(torch, shape: dict) -> dict:
 # 4096, 1536) at a decode (4 rows, 32 slots) and a 64-token chunk (512
 # slots), bf16, and at the largest buckets the serving phases give them:
 # granite-moe's 4 rows of 64-token chunks (2,048 slots, the MoE A serve
-# phase) and qwen3-moe's 4 whole prompts of 512 (16,384 slots, graph
-# steps run (vi)); the reduced configs' experts (4, top 2, 256, 128) at
-# the 4- and 64-token counts and 128 experts top 8 at that width,
-# float32; and two edge routings at each dtype: every slot on one
-# expert, one token.  The first is the kernels line's shape.
+# phase) and qwen3-moe's 4 whole prompts of 512 (16,384 slots) and 1
+# (4,096 slots, the largest key graph steps run (vi) serves); d and f
+# that are not multiples of 64 (the tiles' zero-filled edges), bf16; the
+# reduced configs' experts (4, top 2, 256, 128) at the 4- and 64-token
+# counts and 128 experts top 8 at that width, float32; and two edge
+# routings at each dtype: every slot on one expert, one token (and
+# qwen3-moe's one-token decode, its most frequent served slot count).
+# The first is the kernels line's shape.
 GRANITE_MOE = dict(E=32, k=8, d=1536, f=512)
 QWEN3_MOE = dict(E=128, k=8, d=4096, f=1536)
 REDUCED_MOE = dict(E=4, k=2, d=256, f=128)
@@ -963,6 +971,10 @@ MOE_SHAPES = [
          **GRANITE_MOE),
     dict(label="qwen3-moe 4 x 512 whole-prompt prefill bf16",
          dtype="bfloat16", T=2048, **QWEN3_MOE),
+    dict(label="qwen3-moe 1 x 512 whole-prompt prefill bf16",
+         dtype="bfloat16", T=512, **QWEN3_MOE),
+    dict(label="bf16, d 72 and f 40 (ragged tile edges)", dtype="bfloat16",
+         T=7, E=8, k=3, d=72, f=40),
     dict(label="reduced decode f32", dtype="float32", T=4, **REDUCED_MOE),
     dict(label="reduced chunk f32", dtype="float32", T=64, **REDUCED_MOE),
     dict(label="128 experts top 8 at reduced width, chunk f32",
@@ -971,6 +983,8 @@ MOE_SHAPES = [
          dtype="bfloat16", T=64, one_expert=True, **GRANITE_MOE),
     dict(label="granite-moe bf16, one token", dtype="bfloat16", T=1,
          **GRANITE_MOE),
+    dict(label="qwen3-moe bf16, one token", dtype="bfloat16", T=1,
+         **QWEN3_MOE),
     dict(label="reduced f32, every slot on one expert", dtype="float32",
          T=64, one_expert=True, **REDUCED_MOE),
     dict(label="reduced f32, one token", dtype="float32", T=1,
@@ -1013,8 +1027,9 @@ def check_moe(torch, shape: dict) -> dict:
     the plain version's, the bound (the distinct experts hit × 3·d·f_e
     weights, x read and y written once, over 3.35 TB/s, against 6·n·d·f_e
     flops over the dtype's peak), the ``torch._grouped_mm`` yardstick's
-    time (bf16 only), the launches of one call, and for bf16 the
-    wrapper's host time and one call's wall time."""
+    time (bf16 only), the launches of one call, the tile plan (held
+    equal to the built source's), and for bf16 the wrapper's host time
+    and one call's wall time."""
     from repro_torch.kernels import moe_grouped as mg
     dt_ = shape["dtype"]
     dname = str(dt_).replace("torch.", "")
@@ -1042,6 +1057,7 @@ def check_moe(torch, shape: dict) -> dict:
     err32 = (y.float() - ref32).abs().max().item()
     tol = MOE_TOL_REL[dname] * ref.float().abs().max().item()
     n = T * k
+    plan = mg.plan(n, E, d, f, dt_)
     hit = int(torch.unique(idx).numel())
     n_bytes = (hit * 3 * d * f + T * d + n * d) * es + 4 * (n + E + 1)
     flops = 6 * n * d * f
@@ -1065,15 +1081,23 @@ def check_moe(torch, shape: dict) -> dict:
                library_ms=lib_ms, library=lib_note, bound_ms=bnd,
                bound_by=why, bytes=n_bytes, flops=flops, tokens=T,
                slots=n, experts_hit=hit,
-               grid_m_tiles=mg.m_tiles(n, E), launches_per_call=launches)
+               plan=dict(zip(("bm", "bn_gate_up", "bn_down"), plan)),
+               grid_m_tiles=mg.m_tiles(n, E, plan[0]),
+               launches_per_call=launches)
     res["tflops"] = flops / res["ms"] / 1e9
     if dt_ == torch.bfloat16:
-        res.update(host_us=host_us(torch, kern), call_us=call_us(torch, kern))
-    if launches != 1 or mg.source_m_tiles(n, E) != mg.m_tiles(n, E):
+        # the profiler's span of a call: the gate/up and the down
+        # launch's device time each, and the gap between them
+        res.update(host_us=host_us(torch, kern), call_us=call_us(torch, kern),
+                   profiler=profiler_ms(torch, kern, match="moe_",
+                                        per_call=2))
+    src = (mg.source_plan(n, E, d, f, dt_),
+           mg.source_m_tiles(n, E, plan[0]))
+    if launches != 1 or src != (plan, mg.m_tiles(n, E, plan[0])):
         raise AssertionError(f"grouped_swiglu at {shape['label']}: "
-                             f"{launches} launches of one call, M tiles "
-                             f"{mg.source_m_tiles(n, E)} (source) vs "
-                             f"{mg.m_tiles(n, E)} (host)")
+                             f"{launches} launches of one call, plan and M "
+                             f"tiles {src} (source) vs {plan}, "
+                             f"{mg.m_tiles(n, E, plan[0])} (host)")
     if not err <= tol:
         raise AssertionError(f"grouped_swiglu disagrees with its plain "
                              f"version at {shape['label']}: |Δ| {err} > "
@@ -1545,7 +1569,7 @@ def _serve_phase(torch, archs, chunk_tokens: int, n_target: int, seed: int,
     from repro_torch.core.workload import synthesize
     from repro_torch.kernels import ops
     from repro_torch.models import moe
-    from repro_torch.serving import driver, engine
+    from repro_torch.serving import driver, engine, graphs
 
     names = [f"{a}#{i}" for i, a in enumerate(archs)]
     # ~n_target requests: power-law rates (α) over a 1.6 s window
@@ -1577,16 +1601,22 @@ def _serve_phase(torch, archs, chunk_tokens: int, n_target: int, seed: int,
         moe_calls[(cfg, li)] += 1      # cfg: the step's geometry key
         return moe_ffn(x, p, li, cfg)
     moe.moe_ffn_dropless = counted_moe
+    moe_slots = Counter()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     try:
-        rep = driver.serve_workload([unit], wl, seed=seed, max_new_cap=64,
-                                    cost=driver.TickCostModel())
-        torch.cuda.synchronize()
+        with _moe_slot_launches(graphs, moe_slots):
+            rep = driver.serve_workload([unit], wl, seed=seed,
+                                        max_new_cap=64,
+                                        cost=driver.TickCostModel())
+            torch.cuda.synchronize()
     finally:
         moe.moe_ffn_dropless = moe_ffn
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
+    if sum(moe_slots.values()) != launches["repro_moe_grouped"]:
+        raise AssertionError(f"kernel 6's launches by slot count "
+                             f"{dict(moe_slots)} do not sum to its count")
     moe_layers = {}
     for name, eng in unit.engines.items():
         if eng.cfg.family == "moe":
@@ -1637,6 +1667,7 @@ def _serve_phase(torch, archs, chunk_tokens: int, n_target: int, seed: int,
                # and its capture (replays call nothing)
                moe_ffn_calls=sum(moe_calls.values()),
                moe_ffn_layers=moe_layers,
+               moe_launches_by_slots=dict(sorted(moe_slots.items())),
                serial_engines=sorted(unit._serial_names),
                launches=launches, summary=rep.summary())
     return res
@@ -2003,6 +2034,52 @@ def _moe_sync_checked(torch, graphs, checked: set):
         graphs.run_step = run_step
 
 
+@contextlib.contextmanager
+def _moe_slot_launches(graphs, counts: Counter):
+    """Inside the block, kernel 6's launches by layer shape and slot
+    count (``E<e> d<d> f<f> n<T·k>``) go into ``counts``: an eager
+    launch as the wrapper makes it, a replayed graph's as its capture
+    recorded them (a capture's calls launch nothing).  Their sum equals
+    the kernel's launch count over the block."""
+    from repro_torch.kernels import moe_grouped as mg
+    launch, capture = mg._launch, graphs.REGISTRY.capture
+    record, own = capture.record, vars(capture).get("record")
+    under_way = []      # the slot keys of the capture under way
+
+    def counted_launch(x, order, offsets, w_gate, *rest):
+        E, d, f = w_gate.shape
+        key = f"E{E} d{d} f{f} n{order.shape[0]}"
+        if under_way:
+            under_way[-1].append(key)
+        else:
+            counts[key] += 1
+        return launch(x, order, offsets, w_gate, *rest)
+
+    def counted_record(key, fn, dev):
+        mine = []
+        under_way.append(mine)
+        try:
+            replay, out = record(key, fn, dev)
+        finally:
+            under_way.pop()
+
+        def counted_replay(f):
+            r = replay(f)
+            counts.update(mine)
+            return r
+        return counted_replay, out
+    mg._launch = counted_launch
+    capture.record = counted_record
+    try:
+        yield
+    finally:
+        mg._launch = launch
+        if own is None:
+            del capture.record
+        else:
+            capture.record = own
+
+
 def _recorded_steps(unit, graphs, keep) -> dict:
     """Wrap ``unit``'s engine step functions: the record sums the wall
     seconds spent in them under ``host``, numbers the calls of each
@@ -2093,6 +2170,8 @@ def _serve_steps_run(torch, dev, spec, mode, reduced, keep=None) -> dict:
     elif cuda:
         ctx.enter_context(_moe_sync_checked(torch, graphs, sync_checked))
     ticks, reports, tokens, prefill_replays = [], [], {}, []
+    moe_slots = Counter()
+    ctx.enter_context(_moe_slot_launches(graphs, moe_slots))
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     with ctx:
@@ -2132,6 +2211,10 @@ def _serve_steps_run(torch, dev, spec, mode, reduced, keep=None) -> dict:
     if unit.pool.allocator.used:
         raise AssertionError(f"graph steps ({mode}): the pool was not "
                              f"freed")
+    if sum(moe_slots.values()) != ops.launch_counts()["repro_moe_grouped"]:
+        raise AssertionError(f"graph steps ({mode}): kernel 6's launches "
+                             f"by slot count {dict(moe_slots)} do not sum "
+                             f"to its count")
     mine = {k: g for k, g in graphs.REGISTRY.graphs.items()
             if k in graphs.REGISTRY.log[n_log:]}
     replays, moe_replays = Counter(), Counter()
@@ -2152,6 +2235,7 @@ def _serve_steps_run(torch, dev, spec, mode, reduced, keep=None) -> dict:
         host_us_p90=_pct([t["host_us"] for t in steady], 0.9),
         capture_ticks=len(ticks) - len(steady), peak_gb=mem.fold(),
         launches=ops.launch_counts(),
+        moe_launches_by_slots=dict(sorted(moe_slots.items())),
         captured=dict(Counter(k[0][0]
                               for k in graphs.REGISTRY.log[n_log:])),
         replays=dict(replays), replay_launches=dict(replay_launches),
@@ -2215,6 +2299,10 @@ def serve_graph_steps(torch, device="cuda", reduced=False) -> dict:
         if gn["launches"] != en["launches"]:
             problems.append(f"{label}: launches {gn['launches']} != eager "
                             f"{en['launches']}")
+        if gn["moe_launches_by_slots"] != en["moe_launches_by_slots"]:
+            problems.append(f"{label}: kernel 6's launches by slot count "
+                            f"{gn['moe_launches_by_slots']} != eager "
+                            f"{en['moe_launches_by_slots']}")
         if en["captured"]:
             problems.append(f"{label}: captured {en['captured']} eagerly")
         moe_run = any(_is_moe(configs.get(a)) for a in spec["archs"])
@@ -2313,6 +2401,10 @@ def print_graph_steps(res: dict, card: str) -> None:
                   + f", rolled-back rows {n['rolled_back_rows']}")
         g, errs = r["graphs"], r["logit_rel_err"]
         pool = g["graph_pool_bytes"]
+        if g["moe_launches_by_slots"]:
+            print(f"graph steps ({card}): {label}: kernel 6 launches by "
+                  f"layer shape and slot count (both modes) "
+                  f"{json.dumps(g['moe_launches_by_slots'])}")
         print(f"graph steps ({card}): {label}: launches by replays "
               f"{g['replay_launches']}; whole-prompt key replays after "
               f"each wave {g['prefill_key_replays']}; graph pool "
@@ -5016,6 +5108,18 @@ def main() -> int:
                                     lowering]
     launches = {k.symbol: sum(r["launches"][k.symbol] for r in runs)
                 for k in ops.path_kernels()}
+    # kernel 6's launches by layer shape and slot count: the MoE serve
+    # phases and graph steps runs (v) and (vi), both modes
+    moe_by_slots = Counter()
+    for r in served.values():
+        moe_by_slots.update(r["moe_launches_by_slots"])
+    for r in graph_steps["runs"].values():
+        for mode in ("eager", "graphs"):
+            moe_by_slots.update(r[mode]["moe_launches_by_slots"])
+    moe_by_slots = dict(sorted(moe_by_slots.items()))
+    print(f"kernel 6 launches by layer shape and slot count ({card}; MoE "
+          f"serve phases and graph steps (v), (vi)): "
+          + json.dumps(moe_by_slots))
     attn_names = {"repro_paged_decode": ("fused_paged_decode_attention",
                                          "decode"),
                   "repro_paged_prefill": ("fused_paged_flash_prefill",
@@ -5044,6 +5148,7 @@ def main() -> int:
             main_shape, *others = MOE_SHAPES
             rows.append({
                 "name": "grouped_swiglu", **base,
+                "launches_by_slots": moe_by_slots,
                 **moe_checks[main_shape["label"]],
                 "kernel_ms": moe_checks[main_shape["label"]]["ms"],
                 "shapes": main_shape["label"],

@@ -14,10 +14,11 @@ expert e's sorted rows ``[offsets[e], offsets[e+1])``), and
 
 the slot outputs in slot order ``[T·k, d]`` (the gate-weighted sum over
 the k slots is the caller's).  Nothing reads the routing on the host on
-CUDA tensors: the kernel's grid is fixed by shapes (``m_tiles`` × the
-64-column N tiles) and each CTA finds its (expert, M tile) in
-``offsets`` (see the source), so a serving step that runs it captures as
-a CUDA graph.
+CUDA tensors: the kernel's grid is fixed by shapes (``m_tiles`` × the N
+tiles of the tile plan, ``plan``) and each CTA finds its (expert, M
+tile) in ``offsets`` (see the source), so a serving step that runs it
+captures as a CUDA graph.  In bf16 the tiles are 64 or 128 rows on
+``wgmma`` with the weights by TMA; in float32, 16 rows on CUDA cores.
 
 CPU tensors run ``grouped_swiglu_plain`` (the grouped loop the engine
 ran before the kernel: it reads the offsets on the host); CUDA tensors
@@ -41,27 +42,63 @@ MOE_KERNEL = CudaKernel(
     "repro_moe_grouped", "moe_grouped.cu", "ppppppppiiiiii",
     replaces="none (the reference's XLA einsums, "
              "src/repro/models/moe.py:73-75)")
-BM = 16                 # rows of an M tile (the kernel's MG_BM)
-BN = 64                 # columns of an N tile (MG_BN)
 MAX_EXPERTS = 128       # experts the CTA's lookup scans (MG_MAX_E)
+CTA_TARGET = 2 * 132    # two waves of the H100's SMs (WG_CTA_TARGET)
+F32_PLAN = (16, 64, 64)  # float32: 16-row M tiles, 64-column N tiles
 
 
-def m_tiles(n_slots: int, n_experts: int) -> int:
-    """The kernel grid's M tiles for ``n_slots`` slots over
-    ``n_experts`` experts: the most any routing can take, Σₑ ⌈nₑ / BM⌉ ≤
-    (n + min(E, n)·(BM − 1)) / BM (at most min(E, n) experts are
-    non-empty)."""
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def plan(n_slots: int, n_experts: int, d: int, f: int,
+         dtype: torch.dtype) -> Tuple[int, int, int]:
+    """The kernel's tile plan for ``n_slots`` slots over ``n_experts``
+    experts of width ``d`` and ``f``: (BM, the gate/up launch's BN, the
+    down launch's BN), from the shapes alone (the source's ``mg_plan``).
+    bf16: 128-row M tiles (two ``wgmma`` warpgroups) where a non-empty
+    expert averages more than 48 rows, else 64; 128-column N tiles where
+    the expected busy CTAs (non-empty experts × their M tiles × N tiles)
+    still reach ``CTA_TARGET``, else 64.  float32: ``F32_PLAN``."""
+    if dtype != torch.bfloat16:
+        return F32_PLAN
     m = min(n_slots, n_experts)
-    return (n_slots + m * (BM - 1)) // BM
+    bm = 128 if n_slots * 4 > m * 3 * 64 else 64
+    tiles = m * _cdiv(_cdiv(n_slots, m), bm)
+
+    def bn(N: int) -> int:
+        return 128 if N > 64 and tiles * _cdiv(N, 128) >= CTA_TARGET else 64
+    return bm, bn(f), bn(d)
 
 
-def source_m_tiles(n_slots: int, n_experts: int) -> int:
+def m_tiles(n_slots: int, n_experts: int, bm: int) -> int:
+    """The kernel grid's M tiles for ``n_slots`` slots over
+    ``n_experts`` experts at ``bm`` rows a tile: the most any routing
+    can take, Σₑ ⌈nₑ / bm⌉ ≤ (n + min(E, n)·(bm − 1)) / bm (at most
+    min(E, n) experts are non-empty)."""
+    m = min(n_slots, n_experts)
+    return (n_slots + m * (bm - 1)) // bm
+
+
+def source_m_tiles(n_slots: int, n_experts: int, bm: int) -> int:
     """``m_tiles`` as the built source computes it (the card tests hold
     the two equal).  Builds the kernel's library if needed."""
     fn = library(MOE_KERNEL.source).repro_moe_m_tiles
-    fn.argtypes = [ctypes.c_longlong, ctypes.c_int]
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
     fn.restype = ctypes.c_longlong
-    return fn(n_slots, n_experts)
+    return fn(n_slots, n_experts, bm)
+
+
+def source_plan(n_slots: int, n_experts: int, d: int, f: int,
+                dtype: torch.dtype) -> Tuple[int, int, int]:
+    """``plan`` as the built source computes it."""
+    fn = library(MOE_KERNEL.source).repro_moe_plan
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = None
+    out = (ctypes.c_int * 3)()
+    fn(n_slots, n_experts, d, f, dtype_code(dtype), ctypes.addressof(out))
+    return tuple(out)
 
 
 def sort_slots(idx: torch.Tensor, n_experts: int

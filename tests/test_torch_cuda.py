@@ -868,6 +868,10 @@ def _moe_inputs(dev, dtype, T, E, k, d, f, route="topk", seed=0):
           randn(E, f, d, scale=f ** -0.5))
     if route == "one":                      # every slot on the last expert
         idx = torch.full((T, k), E - 1, dtype=torch.int64, device=dev)
+    elif route == "skew":                   # hot experts at the end
+        bias = 4.0 * torch.arange(E, device=dev) / E
+        idx = (torch.randn(T, E, generator=g, device=dev) + bias).topk(
+            k).indices
     else:
         idx = torch.randn(T, E, generator=g, device=dev).topk(k).indices
     return x, ws, idx
@@ -881,9 +885,13 @@ def _moe_close(y, ref, dtype):
 
 
 # full-width granite-moe and qwen3-moe at a 4-row decode (32 slots), a
-# 64-token chunk (512 slots) and the serving phases' largest buckets (4 ×
-# 64 chunk rows, 4 × 512 whole prompts) in bf16, the reduced experts in
-# float32, and the edge routings: every slot on one expert, a single token
+# 64-token chunk (512 slots), the serving phases' largest buckets (4 ×
+# 64 chunk rows, 4 × 512 whole prompts) and qwen3-moe's largest served
+# whole prompt (1 × 512) in bf16, the reduced experts in float32, the
+# edge routings (every slot on one expert, a single token), d and f not
+# multiples of 64 (the tiles' zero-filled edges), and granite-moe on
+# both sides of the 64 / 128-row plan threshold (192 and 193 tokens)
+# with a skewed routing (empty experts beside ones of several M tiles)
 @pytest.mark.parametrize("dtype,T,shape,route", [
     (torch.bfloat16, 4, GRANITE, "topk"),
     (torch.bfloat16, 64, GRANITE, "topk"),
@@ -899,6 +907,11 @@ def _moe_close(y, ref, dtype):
     (torch.float32, 64, REDUCED, "one"),
     (torch.float32, 1, REDUCED, "topk"),
     (torch.float32, 7, (8, 3, 72, 40), "topk"),     # d, f not of 64
+    (torch.bfloat16, 512, QWEN3, "topk"),
+    (torch.bfloat16, 7, (8, 3, 72, 40), "topk"),
+    (torch.bfloat16, 33, (8, 3, 200, 136), "skew"),
+    (torch.bfloat16, 192, GRANITE, "skew"),
+    (torch.bfloat16, 193, GRANITE, "skew"),
 ])
 def test_moe_grouped_kernel_matches_plain(dev, dtype, T, shape, route):
     E, k, d, f = shape
@@ -911,7 +924,49 @@ def test_moe_grouped_kernel_matches_plain(dev, dtype, T, shape, route):
     torch.cuda.synchronize()
     assert y.shape == (T * k, d) and y.dtype == dtype
     _moe_close(y, ref, dtype)
-    assert mg.source_m_tiles(T * k, E) == mg.m_tiles(T * k, E)
+    pl = mg.plan(T * k, E, d, f, dtype)
+    assert mg.source_plan(T * k, E, d, f, dtype) == pl
+    assert mg.source_m_tiles(T * k, E, pl[0]) == mg.m_tiles(T * k, E, pl[0])
+
+
+# kernel 6 captured in a CUDA graph: a replay equals the eager call bit
+# for bit, on the captured routing and on another one copied into the
+# graph's inputs (the grid is fixed by shapes, the tiles found on the
+# device), at a 64- and a 128-row plan; its scratch (act, allocated
+# inside the captured call) stays in the graph's pool: tensors of act's
+# size allocated after the capture are untouched by a replay
+@pytest.mark.parametrize("T,shape", [(64, GRANITE), (256, GRANITE)])
+def test_moe_grouped_graph_replay_equals_eager(dev, T, shape):
+    E, k, d, f = shape
+    dtype = torch.bfloat16
+    x, (wg, wu, wd), idx = _moe_inputs(dev, dtype, T, E, k, d, f, "skew")
+    order, offsets = mg.sort_slots(idx, E)
+    eager = mg.grouped_swiglu(x, order, offsets, wg, wu, wd, k)
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):      # warm the launch path off the capture
+        mg.grouped_swiglu(x, order, offsets, wg, wu, wd, k)
+    torch.cuda.current_stream().wait_stream(s)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = mg.grouped_swiglu(x, order, offsets, wg, wu, wd, k)
+    junk = [torch.full((T * k, f), 7.0, dtype=dtype, device=dev)
+            for _ in range(4)]
+    n0 = mg.MOE_KERNEL.launches
+    graph.replay()
+    torch.cuda.synchronize()
+    assert mg.MOE_KERNEL.launches == n0      # a replay launches no wrapper
+    assert torch.equal(static, eager)
+    assert all((j == 7.0).all() for j in junk)
+    x2, _, idx2 = _moe_inputs(dev, dtype, T, E, k, d, f, "topk", seed=4)
+    o2, off2 = mg.sort_slots(idx2, E)
+    x.copy_(x2)
+    order.copy_(o2)
+    offsets.copy_(off2)
+    graph.replay()
+    eager2 = mg.grouped_swiglu(x, order, offsets, wg, wu, wd, k)
+    torch.cuda.synchronize()
+    assert torch.equal(static, eager2)
 
 
 def test_moe_grouped_kernel_refuses_bad_operands(dev):
