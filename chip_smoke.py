@@ -166,7 +166,15 @@
    (d) the serve steps of ``launch/steps.py`` at full width in f32: the
    sliding-window ring-buffer decode of qwen2-7b past its 4096-token
    window, the hybrid (zamba2-1.2b) and SSM (mamba2-2.7b) prefill and
-   decode, each held to ``forward``;
+   decode, each held to ``forward``; (e) the train step as one CUDA
+   graph (``train/graphs.compile_train_step``): (c)'s 20 steps as one
+   capture and 19 replays, losses and every parameter bit-equal to (c)'s
+   and kernels 3 and 4 launched by every replay as often as eagerly; the
+   five reduced architectures at the trainer's defaults (8 x 64), plain
+   and with two microbatches, eagerly twice and as graphs, bit-equal or
+   within the eager runs' spread; a ``launch/train.py --ckpt`` run
+   stopped and resumed, its losses equal to an uninterrupted run's; step
+   ms p50, capture seconds and peak memory in each mode;
 12. holds the lowering tools' accounting against the card
    (``check_lowering``): on the 1×1 host mesh, qwen2-7b prefill_32k and
    mamba2-2.7b prefill_32k (batch 1 of 32: kernels 3 and 4 at S =
@@ -4453,7 +4461,8 @@ def _step_breakdown(torch, cfg, params, state, opt, toks, labels) -> dict:
     return ms
 
 
-def train_full_width(torch, device="cuda", reduced=False) -> dict:
+def train_full_width(torch, device="cuda", reduced=False,
+                     keep=None) -> dict:
     """(c) zamba2-1.2b at the published widths and full depth (38 Mamba2
     layers, the shared attention block every 6), float32 parameters as
     ``launch/train.py`` makes them, remat on, ``TRAIN_FULL['steps']``
@@ -4463,7 +4472,9 @@ def train_full_width(torch, device="cuda", reduced=False) -> dict:
     gradient (``_kernel_leaf_check``); kernels 3 and 4 must launch in
     every step.  ``reduced``: the reduced config on ``device`` (the CPU
     rehearsal).  Returns per-step losses, seconds and launches, tokens/s,
-    peak memory, the step's bytes (``train_step_bytes``) and flops."""
+    peak memory, the step's bytes (``train_step_bytes``) and flops.
+    ``keep``: a dict that receives the parameters after the last step
+    (copies, ``keep["params"]``), for the train graphs phase's twin."""
     from repro_torch import configs
     from repro_torch.core.costmodel import step_flops, train_step_bytes
     from repro_torch.kernels import ops
@@ -4515,6 +4526,10 @@ def train_full_width(torch, device="cuda", reduced=False) -> dict:
         after = ops.launch_counts()
         per_step.append({k: after[k] - before[k] for k in after})
     peak = mem.fold()
+    reserved = (torch.cuda.max_memory_reserved() / 1e9
+                if dev.type == "cuda" else 0.0)
+    if keep is not None:
+        keep["params"] = [p.detach().clone() for p in leaves(params)]
     breakdown = _step_breakdown(torch, cfg, params, state, opt,
                                 *batch(steps))
     need = ("repro_flash_prefill", "repro_ssd_scan") if dev.type == "cuda" \
@@ -4533,7 +4548,8 @@ def train_full_width(torch, device="cuda", reduced=False) -> dict:
         config=cfg.name, layers=cfg.n_layers, params=n_params, batch=B,
         seq=S, steps=steps, losses=losses, step_s=secs,
         step_s_median=steady, tokens_per_s=B * S / steady,
-        first_step_s=secs[0], peak_gb=peak, held_gb=mem.held,
+        first_step_s=secs[0], peak_gb=peak, peak_reserved_gb=reserved,
+        held_gb=mem.held,
         launches_per_step=per_step[-1],
         launches={k: sum(n[k] for n in per_step) for k in per_step[0]},
         kernel_leaf_grads=checked, breakdown_ms=breakdown,
@@ -4545,6 +4561,364 @@ def train_full_width(torch, device="cuda", reduced=False) -> dict:
     del params, state
     _free(torch, dev)
     return res
+
+
+# (e) the train step as one CUDA graph: the reduced cases at the
+# trainer's defaults (batch 8 x 64, its schedule for 200 steps), remat
+# off as the trainer runs them
+TRAIN_GRAPH_CASES = {"plain": 1, "microbatches 2": 2}
+TRAIN_GRAPH_STEPS = 5
+TRAIN_GRAPH_CLI_STEPS = 8
+TRAIN_GRAPH_SPREAD = 100
+TRAIN_KERNELS = ("repro_flash_prefill", "repro_ssd_scan")
+
+
+def _train_steps(torch, step, params, state, batches) -> dict:
+    """``step`` over ``batches``: each step's loss, host seconds (from a
+    synchronised card to the loss read back) and kernel launches."""
+    from repro_torch.kernels import ops
+    cuda = state.step.device.type == "cuda"
+    losses, secs, launches = [], [], []
+    for b in batches:
+        before = ops.launch_counts()
+        if cuda:
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, state, m = step(params, state, *b)
+        losses.append(float(m["loss"]))           # syncs
+        secs.append(time.perf_counter() - t)
+        after = ops.launch_counts()
+        launches.append({k: after[k] - before[k] for k in after})
+    return dict(losses=losses, step_s=secs, launches=launches,
+                step_ms_p50=1e3 * _pct(secs[1:], 0.5))
+
+
+def _peaks(torch, dev) -> dict:
+    """The allocator's peak allocated and reserved GB since its last
+    reset (zeros on the CPU)."""
+    if dev.type != "cuda":
+        return dict(peak_gb=0.0, peak_reserved_gb=0.0)
+    torch.cuda.synchronize()
+    return dict(peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9)
+
+
+def _run_diff(torch, got: dict, ref: dict) -> float:
+    """The largest difference of two runs (``losses``, ``final``
+    parameter leaves): a loss's relative, or a leaf's over that leaf's
+    largest |ref|; 0 where both are bit-equal."""
+    worst = max(abs(a - b) / abs(b)
+                for a, b in zip(got["losses"], ref["losses"]))
+    for a, b in zip(got["final"], ref["final"]):
+        if not torch.equal(a, b):
+            worst = max(worst, ((a - b).abs().max() / b.abs().max().clamp(
+                min=1e-30)).item())
+    return worst
+
+
+def _bit_equal(torch, got: dict, ref: dict) -> bool:
+    return got["losses"] == ref["losses"] and all(
+        torch.equal(a, b) for a, b in zip(got["final"], ref["final"]))
+
+
+def _graph_counts(graphs, before=None) -> dict:
+    """The train kind's captures, capture seconds and replays (since
+    ``before``)."""
+    now = dict(captures=graphs.GRAPH_CAPTURES["train"],
+               capture_s=graphs.CAPTURE_SECONDS["train"],
+               replays=graphs.GRAPH_REPLAYS["train"])
+    return now if before is None else {k: now[k] - before[k] for k in now}
+
+
+def _full_width_graphs(torch, dev, reduced, eager, kept) -> dict:
+    """(i) phase (c)'s steps as one graph: the same seed, batches and
+    schedule; losses and every parameter against phase (c)'s."""
+    from repro_torch import configs
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving import graphs
+    from repro_torch.train.data import DataConfig, synth_batch
+    from repro_torch.train.graphs import compile_train_step
+    from repro_torch.train.optimizer import AdamWConfig, init_state
+    from repro_torch.train.pytree import leaves
+    from repro_torch.train.train_step import make_train_step
+
+    arch = TRAIN_FULL["arch"]
+    cfg = configs.get_reduced(arch) if reduced else configs.get(arch)
+    B, S, steps = eager["batch"], eager["seq"], eager["steps"]
+    opt = AdamWConfig(lr=TRAIN_FULL["lr"], warmup_steps=2,
+                      total_steps=steps)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
+                      seed=0, n_patterns=2)
+    batches = []
+    for i in range(steps):
+        toks, labels, _ = synth_batch(dcfg, i)
+        batches.append((torch.from_numpy(toks).long(),
+                        torch.from_numpy(labels)))
+    _free(torch, dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         torch.float32, dev)
+    state = init_state(params)
+    step = compile_train_step(make_train_step(cfg, opt, remat=True))
+    before = _graph_counts(graphs)
+    run = _train_steps(torch, step, params, state, batches)
+    run.update(_graph_counts(graphs, before), **_peaks(torch, dev))
+    run["final"] = [p.detach() for p in leaves(params)]
+    twin = dict(losses=eager["losses"], final=kept["params"])
+    res = dict(
+        config=cfg.name, layers=cfg.n_layers, batch=B, seq=S, steps=steps,
+        remat=True, bit_equal=_bit_equal(torch, run, twin),
+        max_diff=_run_diff(torch, run, twin),
+        leaves=len(run["final"]), step_count=int(state.step),
+        eager=dict(step_ms_p50=1e3 * eager["step_s_median"],
+                   peak_gb=eager["peak_gb"],
+                   peak_reserved_gb=eager["peak_reserved_gb"],
+                   launches_per_step={k: eager["launches_per_step"][k]
+                                      for k in TRAIN_KERNELS}),
+        graphs={k: run[k] for k in ("step_ms_p50", "captures", "capture_s",
+                                    "replays", "peak_gb",
+                                    "peak_reserved_gb")},
+        graph_launches={k: [n[k] for n in run["launches"]]
+                        for k in TRAIN_KERNELS},
+        losses=run["losses"], step_s=run["step_s"])
+    del params, state, step, run, twin
+    kept.clear()
+    _free(torch, dev)
+    cuda = dev.type == "cuda"
+    counted = not cuda or (res["graphs"]["captures"],
+                           res["graphs"]["replays"]) == (1, steps - 1)
+    if not (res["bit_equal"] and res["step_count"] == steps and counted):
+        raise AssertionError(f"full-width training as one graph against "
+                             f"phase (c)'s eager run: {res}")
+    for k in TRAIN_KERNELS:
+        per_step = res["graph_launches"][k]
+        if any(n != res["eager"]["launches_per_step"][k] for n in per_step) \
+                or (cuda and not all(per_step)):
+            raise AssertionError(f"full-width training as one graph: {k} "
+                                 f"launched {per_step} a step, eager "
+                                 f"{res['eager']['launches_per_step'][k]}")
+    return res
+
+
+def _within_spread(bit_equal: bool, diff: float, spread: float) -> bool:
+    """A graph run against its eager twin: bit-equal where two eager
+    runs are (``spread`` 0), else within ``TRAIN_GRAPH_SPREAD`` times
+    their spread (an op whose accumulation order varies between runs
+    makes every run diverge from the others by as much)."""
+    return bit_equal or (spread > 0 and diff <= TRAIN_GRAPH_SPREAD * spread)
+
+
+def _reduced_graphs(torch, dev, reduced) -> dict:
+    """(ii) The five reduced architectures at the trainer's defaults,
+    plain and with two microbatches: eagerly twice (inside
+    ``disable_graphs``: their spread) and as one graph, from one seed
+    and one set of batches."""
+    from repro_torch import configs
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving import graphs
+    from repro_torch.train.data import DataConfig, synth_batch
+    from repro_torch.train.graphs import compile_train_step
+    from repro_torch.train.optimizer import AdamWConfig, init_state
+    from repro_torch.train.pytree import leaves
+    from repro_torch.train.train_step import make_train_step
+
+    # the CPU rehearsal: 3 steps at 4 x 32, for its time
+    steps, B, S = (3, 4, 32) if reduced else (TRAIN_GRAPH_STEPS, 8, 64)
+    opt = AdamWConfig(lr=3e-3, warmup_steps=10, total_steps=200)
+    out = {}
+    for arch in TRAIN_ARCHS:
+        cfg = configs.get_reduced(arch)
+        dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                          global_batch=B, seed=0,
+                          frontend_dim=cfg.frontend_dim,
+                          n_prefix_tokens=cfg.n_prefix_tokens)
+        batches = []
+        for i in range(steps):
+            toks, labels, prefix = synth_batch(dcfg, i)
+            b = (torch.from_numpy(toks).long(), torch.from_numpy(labels))
+            batches.append(b if prefix is None
+                           else b + (torch.from_numpy(prefix),))
+        for variant, micro in TRAIN_GRAPH_CASES.items():
+            runs = {}
+            for mode in ("eager", "eager again", "graphs"):
+                if dev.type == "cuda":
+                    torch.cuda.reset_peak_memory_stats()
+                params = init_params(
+                    cfg, torch.Generator(device=dev).manual_seed(0),
+                    torch.float32, dev)
+                state = init_state(params)
+                step = compile_train_step(make_train_step(
+                    cfg, opt, remat=False, microbatches=micro))
+                before = _graph_counts(graphs)
+                ctx = (contextlib.nullcontext() if mode == "graphs"
+                       else graphs.disable_graphs())
+                with ctx:
+                    run = _train_steps(torch, step, params, state, batches)
+                run.update(_graph_counts(graphs, before), **_peaks(torch, dev))
+                run["final"] = [p.detach() for p in leaves(params)]
+                runs[mode] = run
+                del params, state, step
+            e, e2, g = runs["eager"], runs["eager again"], runs["graphs"]
+            r = dict(
+                batch=B, seq=S, spread=_run_diff(torch, e2, e),
+                diff=_run_diff(torch, g, e), bit_equal=_bit_equal(torch, g, e),
+                **{m: {k: runs[m][k] for k in (
+                    "step_ms_p50", "captures", "capture_s", "replays",
+                    "peak_gb", "peak_reserved_gb")} for m in runs},
+                launches_per_step={m: {k: runs[m]["launches"][-1][k]
+                                       for k in TRAIN_KERNELS}
+                                   for m in runs},
+                losses=g["losses"])
+            out[f"{arch} {variant}"] = r
+            for run in runs.values():
+                run.pop("final")
+            ok = _within_spread(r["bit_equal"], r["diff"], r["spread"])
+            cuda = dev.type == "cuda"
+            counted = (not cuda or (g["captures"] == 1
+                                    and g["replays"] == steps - 1))
+            same = all(n == e["launches"][-1] for n in g["launches"])
+            if not (ok and counted and same
+                    and e["captures"] == e2["captures"] == 0):
+                raise AssertionError(f"reduced {arch} {variant} as one "
+                                     f"graph against eager: {r}")
+    _free(torch, dev)
+    return out
+
+
+def _cli_resume(torch, device, reduced) -> dict:
+    """(iii) ``launch/train.py --ckpt`` on reduced zamba2-1.2b at its
+    defaults (``reduced``: at 4 x 32, as ``_reduced_graphs``): a run
+    stopped after its checkpoint at half way (the save raises once it
+    has written), resumed by a second run, against an uninterrupted run.
+    Every step's loss is read from the compiled step's metrics."""
+    import io
+    import tempfile
+    from unittest import mock
+
+    from repro_torch.launch import train as cli
+    from repro_torch.serving import graphs
+    from repro_torch.train import checkpoint
+
+    n, half = TRAIN_GRAPH_CLI_STEPS, TRAIN_GRAPH_CLI_STEPS // 2
+
+    class _Stop(Exception):
+        pass
+
+    compile_step, save = cli.compile_train_step, checkpoint.save
+    losses = []
+
+    def recording(step_fn):
+        compiled = compile_step(step_fn)
+
+        def run(*a):
+            out = compiled(*a)
+            losses[-1].append(float(out[2]["loss"]))
+            return out
+        return run
+
+    def stopping(d, tree, step):
+        path = save(d, tree, step=step)
+        if step == half:
+            raise _Stop
+        return path
+
+    argv = ["--arch", TRAIN_FULL["arch"], "--steps", str(n), "--log-every",
+            "1", "--ckpt-every", str(half), "--device", device]
+    if reduced:
+        argv += ["--batch", "4", "--seq", "32"]
+    runs = {}
+    with tempfile.TemporaryDirectory() as d, \
+            mock.patch.object(cli, "compile_train_step", recording):
+        for name, ck, saver in (("uninterrupted", "u", save),
+                                ("stopped", "s", stopping),
+                                ("resumed", "s", save)):
+            losses.append([])
+            before = _graph_counts(graphs)
+            text = io.StringIO()
+            with contextlib.redirect_stdout(text), \
+                    mock.patch.object(checkpoint, "save", saver):
+                try:
+                    cli.main(argv + ["--ckpt", os.path.join(d, ck)])
+                except _Stop:
+                    pass
+            runs[name] = dict(losses=losses[-1],
+                              first_line=text.getvalue().splitlines()[0],
+                              **_graph_counts(graphs, before))
+    u, s, r = runs["uninterrupted"], runs["stopped"], runs["resumed"]
+    res = dict(arch=TRAIN_FULL["arch"], steps=n, stopped_at=half,
+               equal=s["losses"] == u["losses"][:half]
+               and r["losses"] == u["losses"][half:], runs=runs)
+    cuda = device != "cpu"
+    if not (res["equal"] and r["first_line"] == f"[train] resumed from "
+            f"step {half}" and (not cuda or all(
+                x["captures"] == 1 for x in runs.values()))):
+        raise AssertionError(f"launch/train.py resumed against an "
+                             f"uninterrupted run: {res}")
+    return res
+
+
+def train_graphs(torch, eager: dict, kept: dict, device="cuda",
+                 reduced=False) -> dict:
+    """(e) The train step as one CUDA graph (``train/graphs.py``, the
+    reference's ``jax.jit(make_train_step)``): (i) phase (c)'s 20
+    full-width steps (``eager`` is its result, ``kept`` its final
+    parameters) as one capture and 19 replays, losses and every
+    parameter bit-equal to phase (c)'s, kernels 3 and 4 launched by every
+    replay as often as eagerly; (ii) the five reduced architectures at
+    the trainer's defaults, plain and with two microbatches, eager and
+    as graphs (``_reduced_graphs``); (iii) a ``launch/train.py`` run
+    stopped and resumed from its checkpoint against an uninterrupted
+    one.  ``reduced``: phase (c)'s CPU rehearsal as ``eager``, 3 steps a
+    reduced case."""
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    from repro_torch.kernels import ops
+    before = ops.launch_counts()
+    res = dict(full=_full_width_graphs(torch, dev, reduced, eager, kept),
+               reduced=_reduced_graphs(torch, dev, reduced),
+               cli=_cli_resume(torch, device, reduced))
+    after = ops.launch_counts()
+    res["launches"] = {k: after[k] - before[k] for k in after}
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def print_train_graphs(res: dict, card: str) -> None:
+    f = res["full"]
+    e, g = f["eager"], f["graphs"]
+    print(f"train graphs ({card}): {f['config']} {f['layers']} layers f32 "
+          f"remat, {f['batch']} x {f['seq']}, {f['steps']} steps: step p50 "
+          f"eager {e['step_ms_p50']:.2f} ms, graph {g['step_ms_p50']:.2f} "
+          f"ms; {g['captures']} capture ({g['capture_s']:.2f} s, the eager "
+          f"first step included), {g['replays']} replays; peak GB eager "
+          f"{e['peak_gb']:.2f} (reserved {e['peak_reserved_gb']:.2f}), "
+          f"graph {g['peak_gb']:.2f} (reserved {g['peak_reserved_gb']:.2f});"
+          f" kernel 3 / 4 launches a step eager "
+          f"{json.dumps(e['launches_per_step'])}, graph (each step) "
+          f"{json.dumps(f['graph_launches'])}; losses and all "
+          f"{f['leaves']} parameter leaves bit-equal {f['bit_equal']}")
+    for label, r in res["reduced"].items():
+        e, g = r["eager"], r["graphs"]
+        print(f"train graphs ({card}): {label}, {r['batch']} x "
+              f"{r['seq']}: step p50 eager "
+              f"{e['step_ms_p50']:.2f} ms, graph {g['step_ms_p50']:.2f} ms;"
+              f" {g['captures']} capture ({g['capture_s']:.2f} s), "
+              f"{g['replays']} replays; peak GB eager {e['peak_gb']:.3f}, "
+              f"graph {g['peak_gb']:.3f} (reserved "
+              f"{g['peak_reserved_gb']:.3f}); launches a step "
+              f"{json.dumps(r['launches_per_step']['graphs'])} (eager "
+              f"{json.dumps(r['launches_per_step']['eager'])}); bit-equal "
+              f"{r['bit_equal']}, max diff {r['diff']:.3g} beside the "
+              f"eager-vs-eager spread {r['spread']:.3g}")
+    c = res["cli"]
+    print(f"train graphs ({card}): launch/train.py --ckpt, {c['arch']} "
+          f"reduced, {c['steps']} steps stopped at {c['stopped_at']} and "
+          f"resumed: losses equal to the uninterrupted run's {c['equal']}; "
+          f"captures / replays "
+          + json.dumps({k: (v["captures"], v["replays"])
+                        for k, v in c["runs"].items()}))
+    print("train graphs: " + json.dumps(res))
 
 
 def _ring(torch, cache, W: int, n: int):
@@ -5092,20 +5466,24 @@ def main() -> int:
     reduced_train = train_reduced_match(torch)
     print(f"phase (b) reduced training, card vs CPU: "
           f"{reduced_train['seconds']:.1f} s")
-    full_train = train_full_width(torch)
+    kept = {}
+    full_train = train_full_width(torch, keep=kept)
     print(f"phase (c) full-width training: {full_train['seconds']:.1f} s")
+    train_graph = train_graphs(torch, full_train, kept)
+    print(f"phase (e) train graphs: {train_graph['seconds']:.1f} s")
     steps_served = serve_steps_full_width(torch)
     print(f"phase (d) serve steps at full width: "
           f"{steps_served['seconds']:.1f} s")
     print_training(grads, reduced_train, full_train, steps_served, card)
+    print_train_graphs(train_graph, card)
     lowering = check_lowering(torch)
     print_lowering(lowering, card)
 
     runs = list(served.values()) + [compiled, graph_steps, placed, w8,
                                     stream, chaos,
                                     prefix, recfg,
-                                    reduced_train, full_train, steps_served,
-                                    lowering]
+                                    reduced_train, full_train, train_graph,
+                                    steps_served, lowering]
     launches = {k.symbol: sum(r["launches"][k.symbol] for r in runs)
                 for k in ops.path_kernels()}
     # kernel 6's launches by layer shape and slot count: the MoE serve

@@ -8,7 +8,11 @@ The JAX CLI's flags and log lines, plus ``--device`` (default
 ``cuda``; it raises where there is no GPU, as ``launch/serve.py``).
 Parameters are float32, drawn from a ``torch.Generator`` seeded with
 ``--seed`` (other numbers than the JAX CLI's ``PRNGKey``), and TF32 is
-off, so a float32 product on the card runs in float32.
+off, so a float32 product on the card runs in float32.  The step is
+``compile_train_step(make_train_step(...))``, as the reference jits it:
+on the card one CUDA graph, captured at the first step (on the restored
+tensors after a resume) and replayed at every later one; on the CPU,
+or inside ``serving.graphs.disable_graphs()``, the eager step.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ from repro_torch import configs, resolve_device
 from repro_torch.models.transformer import init_params
 from repro_torch.train import checkpoint as ckpt_lib
 from repro_torch.train.data import DataConfig, synth_batch
+from repro_torch.train.graphs import compile_train_step
 from repro_torch.train.optimizer import AdamWConfig, init_state
 from repro_torch.train.pytree import leaves
 from repro_torch.train.train_step import make_train_step
@@ -66,19 +71,20 @@ def main(argv=None) -> int:
                       global_batch=args.batch, seed=args.seed,
                       frontend_dim=cfg.frontend_dim,
                       n_prefix_tokens=cfg.n_prefix_tokens)
-    step_fn = make_train_step(cfg, opt, remat=False,
-                              microbatches=args.microbatches)
+    step_fn = compile_train_step(make_train_step(
+        cfg, opt, remat=False, microbatches=args.microbatches))
 
     n_params = sum(int(np.prod(p.shape)) for p in leaves(params))
     print(f"[train] {cfg.name}: {n_params / 1e6:.1f}M params, "
           f"{args.steps} steps @ batch {args.batch} × seq {args.seq}")
     t0 = time.perf_counter()
     for i in range(start, args.steps):
+        # host tensors: the compiled step copies them to the card
         toks, labels, prefix = synth_batch(dcfg, i)
-        a = [params, state, torch.from_numpy(toks).long().to(device),
-             torch.from_numpy(labels).to(device)]
+        a = [params, state, torch.from_numpy(toks).long(),
+             torch.from_numpy(labels)]
         if prefix is not None:
-            a.append(torch.from_numpy(prefix).to(device))
+            a.append(torch.from_numpy(prefix))
         params, state, m = step_fn(*a)
         if (i + 1) % args.log_every == 0 or i == start:
             tps = args.batch * args.seq * (i + 1 - start)\

@@ -142,7 +142,7 @@ def moe_ffn(x: torch.Tensor, p: Dict, li, cfg: ModelConfig
     e_safe = torch.where(keep, flat_e, 0)
     p_safe = torch.where(keep, pos_in_e, cap - 1)
     xt_rep = xt[:, None].expand(T, k, d).reshape(T * k, d)
-    upd = torch.where(keep[:, None], xt_rep, torch.zeros((), dtype=xt.dtype))
+    upd = torch.where(keep[:, None], xt_rep, xt.new_zeros(()))
     upd = constrain(upd, ("pod", "data"), None)
     disp = _dispatch(upd, e_safe, p_safe, E, cap)
     disp = constrain(disp, "model", None, None)
@@ -154,8 +154,7 @@ def moe_ffn(x: torch.Tensor, p: Dict, li, cfg: ModelConfig
     # combine: slot outputs back in token order, summed over the k slots
     slot_out = _combine(y, e_safe, p_safe)                # [T*k, d]
     slot_out = constrain(slot_out, ("pod", "data"), None)
-    slot_out = torch.where(keep[:, None], slot_out,
-                           torch.zeros((), dtype=slot_out.dtype))
+    slot_out = torch.where(keep[:, None], slot_out, slot_out.new_zeros(()))
     w = (gates.reshape(-1) * keep).to(slot_out.dtype)     # [T*k]
     out = (slot_out * w[:, None]).reshape(T, k, d).sum(dim=1)
     out = constrain(out, ("pod", "data"), None)

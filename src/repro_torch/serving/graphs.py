@@ -53,6 +53,9 @@ and replayed:
   a capture's calls launch nothing and are taken back, and each replay
   adds them again, so ``kernels.ops.launch_counts()`` stays true.
 
+The trainer's step (``train/graphs.py``) goes through the same
+registry, capture and pool, as the kind ``train``.
+
 ``disable_graphs()`` runs every step eagerly on the card, for
 comparison (the reference's ``jax.disable_jit()``).  Operands on the
 CPU always run eagerly.  A failed capture or replay raises: there is no
@@ -165,37 +168,52 @@ class CudaGraphCapture:
         self.live -= 1
 
 
-class _StepGraph:
-    """One captured step: its static input, the pinned buffer that
-    feeds it, the replay, the static output, the kernel launches one
-    replay makes and the replays so far."""
+class StaticInput:
+    """A graph's static input and the pinned buffer that feeds it from
+    the host: each ``load`` from the host waits until the previous copy
+    out of the pinned buffer is done, fills it, and copies it into the
+    static tensor without blocking the host.  A source on the static
+    tensor's device, or a static tensor on the CPU, takes a plain
+    copy."""
 
-    def __init__(self, kind, static_in, replay, out, launches):
+    def __init__(self, src: torch.Tensor, device):
+        self.tensor = torch.empty(src.shape, dtype=src.dtype, device=device)
+        self.pinned = self.copied = None
+        self.load(src)
+
+    def load(self, src: torch.Tensor) -> None:
+        if self.tensor.device.type != "cuda" or src.device.type != "cpu":
+            self.tensor.copy_(src)
+            return
+        if self.pinned is None:
+            self.pinned = torch.empty(src.shape, dtype=src.dtype,
+                                      pin_memory=True)
+            self.copied = torch.cuda.Event()
+        else:
+            # the pinned buffer may still feed the previous step's copy
+            self.copied.synchronize()
+        self.pinned.copy_(src)
+        self.tensor.copy_(self.pinned, non_blocking=True)
+        self.copied.record()
+
+
+class _StepGraph:
+    """One captured step: its static inputs, the replay, the static
+    output, the kernel launches one replay makes and the replays so
+    far."""
+
+    def __init__(self, kind, inputs, replay, out, launches):
         self.kind = kind
-        self.static_in = static_in
+        self.inputs = inputs
         self.replay = replay
         self.out = out
         self.launches = launches
         self.replays = 0
         self.refs: List[weakref.ref] = []
-        self.pinned = self.copied = None
-        if static_in.device.type == "cuda":
-            self.pinned = torch.empty(static_in.shape, dtype=torch.int64,
-                                      pin_memory=True)
-            self.copied = torch.cuda.Event()
 
-    def load(self, packed: np.ndarray) -> None:
-        if self.pinned is None:
-            self.static_in.copy_(torch.from_numpy(packed))
-            return
-        # the pinned buffer may still feed the previous step's copy
-        self.copied.synchronize()
-        self.pinned.numpy()[:] = packed
-        self.static_in.copy_(self.pinned, non_blocking=True)
-        self.copied.record()
-
-    def run(self, packed: np.ndarray, fn) -> torch.Tensor:
-        self.load(packed)
+    def run(self, srcs, fn) -> torch.Tensor:
+        for s, src in zip(self.inputs, srcs):
+            s.load(src)
         self.replay(fn)
         for k, n in self.launches:
             k.launches += n
@@ -243,33 +261,37 @@ class GraphRegistry:
                 tuple(t.data_ptr() for t in leaves))
         key = (slot, tuple(t.data_ptr() for t in bufs)
                + tuple(t.shape[0] for t in bufs))
+        return self.step(kind, key, leaves + list(bufs), bufs[0].device,
+                         (torch.from_numpy(packed),),
+                         lambda buf: body(params, bufs, unpack(buf, layout)))
+
+    def step(self, kind: str, key: tuple, held, device, srcs,
+             body) -> torch.Tensor:
+        """``body(*inputs)`` on static copies of the tensors ``srcs``, as
+        the graph of ``key`` (``(slot, buffers)``, see the header):
+        replayed, or captured on first sight.  ``held`` are the objects
+        the key names (tensors by their storage): the graph goes when one
+        dies.
+        ``body`` returns one tensor, the graph's static output."""
         g = self.graphs.get(key)
         if g is not None:
-            return g.run(packed, lambda: body(params, bufs,
-                                              unpack(g.static_in, layout)))
-        return self._capture(kind, key, leaves + list(bufs), params, bufs,
-                             packed, layout, body)
-
-    def _capture(self, kind, key, held, params, bufs, packed, layout,
-                 body) -> torch.Tensor:
+            return g.run(srcs, lambda: body(*(s.tensor for s in g.inputs)))
         from repro_torch.kernels import ops
         t0 = time.perf_counter()
         old = self._by_slot.get(key[0])
         if old is not None:
             self._drop(old)              # the same step on other buffers
-        dev = bufs[0].device
-        static_in = torch.empty(packed.shape, dtype=torch.int64, device=dev)
-        static_in.copy_(torch.from_numpy(packed))
+        inputs = tuple(StaticInput(src, device) for src in srcs)
 
         def fn():
-            return body(params, bufs, unpack(static_in, layout))
-        result = self.capture.eager(fn, dev)
+            return body(*(s.tensor for s in inputs))
+        result = self.capture.eager(fn, device)
         # a capture's kernel calls launch nothing: count them per replay
         kernels = ops.path_kernels()
         before = [k.launches for k in kernels]
         self._capturing = True
         try:
-            replay, out = self.capture.record(key, fn, dev)
+            replay, out = self.capture.record(key, fn, device)
         finally:
             self._capturing = False
             launches = tuple((k, k.launches - n)
@@ -279,7 +301,7 @@ class GraphRegistry:
             pending, self._pending = self._pending, []
             for dead in pending:
                 self._drop(dead)
-        g = _StepGraph(kind, static_in, replay, out,
+        g = _StepGraph(kind, inputs, replay, out,
                        tuple((k, n) for k, n in launches if n))
         for t in held:
             g.refs.append(weakref.ref(t, lambda _r, key=key: self._drop(key)))

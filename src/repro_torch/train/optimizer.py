@@ -1,10 +1,12 @@
 """AdamW + schedules (port of ``repro/train/optimizer.py``).
 
 Optimizer state mirrors the param tree (m, v in float32).  Unlike the
-JAX package, ``apply_updates`` updates the parameters and the moments
-IN PLACE under ``torch.no_grad()`` and returns the same tensors: a
-full-width update then needs a few leaf-sized temporaries, not a second
-copy of every tree.  The arithmetic is the reference's, in float32.
+JAX package, ``apply_updates`` updates the parameters, the moments and
+the step counter IN PLACE under ``torch.no_grad()`` and returns the same
+tensors: a full-width update then needs a few leaf-sized temporaries,
+not a second copy of every tree, and a captured step
+(``train/graphs.py``) reads and advances the same buffers at every
+replay.  The arithmetic is the reference's, in float32.
 """
 from __future__ import annotations
 
@@ -89,11 +91,12 @@ def _decay_mask(path: Path, leaf) -> bool:
 def apply_updates(params: Pytree, grads: Pytree, state: AdamWState,
                   cfg: AdamWConfig) -> Tuple[Pytree, AdamWState, dict]:
     """One AdamW step: clip the gradients by their global norm, then
-    update every parameter and both moments in place.  Returns
-    (params, state with the step advanced, {"lr", "grad_norm"})."""
+    update every parameter, both moments and the step counter in place.
+    Returns (params, state, {"lr", "grad_norm"}): the same tensors, the
+    step advanced."""
     gnorm = global_norm(grads)
     scale = _clip_scale(gnorm, cfg.grad_clip)
-    step = state.step + 1
+    step = state.step.add_(1)
     lr = cosine_lr(cfg, step)
     b1, b2 = cfg.beta1, cfg.beta2
     bc1 = 1 - b1 ** step.to(torch.float32)
@@ -107,5 +110,4 @@ def apply_updates(params: Pytree, grads: Pytree, state: AdamWState,
         if _decay_mask(path, p):
             delta.add_(cfg.weight_decay * p.float())
         p.copy_((p.float() - lr * delta).to(p.dtype))
-    return params, AdamWState(step=step, m=state.m, v=state.v), \
-        {"lr": lr, "grad_norm": gnorm}
+    return params, state, {"lr": lr, "grad_norm": gnorm}

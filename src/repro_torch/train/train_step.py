@@ -1,12 +1,14 @@
 """Training step: CE loss → grad → AdamW update (port of
 ``repro/train/train_step.py``).
 
-``make_train_step`` returns the step the trainer (``launch/train.py``)
-and ``chip_smoke.py`` run.  Autograd differentiates ``loss_fn`` with
-respect to detached aliases of the parameters (the caller's tensors do
-not become autograd leaves); ``apply_updates`` then writes the update
-into the caller's parameters in place.  On CUDA tensors the forward
-runs kernels 3 and 4, whose backward is the VJP of their plain versions
+``make_train_step`` returns the eager step; the trainer
+(``launch/train.py``) runs it through ``train/graphs.compile_train_step``,
+the reference's ``jax.jit``: on the card one CUDA graph holds the whole
+step.  Autograd differentiates ``loss_fn`` with respect to detached
+aliases of the parameters (the caller's tensors do not become autograd
+leaves); ``apply_updates`` then writes the update, the moments and the
+step counter in place.  On CUDA tensors the forward runs kernels 3 and
+4, whose backward is the VJP of their plain versions
 (``kernels/flash_prefill``, ``kernels/ssd_scan``).
 """
 from __future__ import annotations

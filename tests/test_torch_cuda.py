@@ -1114,3 +1114,93 @@ def test_captured_moe_steps_equal_eager(dev):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(static, eager), kind
+
+
+# ---------------------------------------------------------------------------
+# the train step as one CUDA graph (train/graphs.py)
+# ---------------------------------------------------------------------------
+TRAIN_GRAPH_ARCHS = ("qwen2-7b", "granite-moe-3b-a800m", "mamba2-2.7b",
+                     "zamba2-1.2b", "musicgen-medium")
+TRAIN_GRAPH_VARIANTS = {"plain": dict(remat=False, microbatches=1),
+                        "remat": dict(remat=True, microbatches=1),
+                        "microbatches 2": dict(remat=False, microbatches=2)}
+
+
+def _train_steps(dev, arch, kw, graphed, steps=3):
+    """``steps`` steps of the reduced ``arch`` at the trainer's defaults
+    (batch 8 x 64, host batches), compiled or inside ``disable_graphs``:
+    the losses, every parameter and state leaf after them, and each
+    step's kernel launches."""
+    from repro_torch import configs
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving import graphs
+    from repro_torch.train.data import DataConfig, synth_batch
+    from repro_torch.train.graphs import compile_train_step
+    from repro_torch.train.optimizer import AdamWConfig, init_state
+    from repro_torch.train.pytree import leaves
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = configs.get_reduced(arch)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         torch.float32, dev)
+    state = init_state(params)
+    step = compile_train_step(make_train_step(
+        cfg, AdamWConfig(lr=3e-3, warmup_steps=2, total_steps=60), **kw))
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=64, global_batch=8,
+                      seed=0, frontend_dim=cfg.frontend_dim,
+                      n_prefix_tokens=cfg.n_prefix_tokens)
+    losses, launches = [], []
+    with (contextlib.nullcontext() if graphed else graphs.disable_graphs()):
+        for i in range(steps):
+            toks, labels, prefix = synth_batch(dcfg, i)
+            b = [torch.from_numpy(toks).long(), torch.from_numpy(labels)]
+            if prefix is not None:
+                b.append(torch.from_numpy(prefix))
+            ops.reset_launch_counts()
+            params, state, m = step(params, state, *b)
+            losses.append(m["loss"].item())
+            launches.append(ops.launch_counts())
+    return losses, [t.clone() for t in leaves((params, state))], launches
+
+
+def _spread(a, b):
+    """The largest difference of two runs: a loss's relative, or a
+    leaf's over that leaf's largest magnitude."""
+    d = [abs(x - y) / abs(y) for x, y in zip(a[0], b[0])]
+    d += [((x.double() - y.double()).abs().max()
+           / y.double().abs().max().clamp(min=1e-30)).item()
+          for x, y in zip(a[1], b[1])]
+    return max(d)
+
+
+@pytest.mark.parametrize("variant", list(TRAIN_GRAPH_VARIANTS))
+@pytest.mark.parametrize("arch", TRAIN_GRAPH_ARCHS)
+def test_compiled_train_step_equals_eager(dev, arch, variant):
+    """Three steps of the compiled step (one capture, two replays) give
+    the losses, parameters, moments and step counter of three eager
+    steps bit for bit, and launch kernels 3 and 4 as often.  Where two
+    eager runs are not bit-equal themselves (an accumulation whose order
+    varies between runs: the capacity MoE FFN's
+    ``index_put_(accumulate=True)`` dispatch and the embedding's
+    backward), the graph must stay within 100 times their spread.  A
+    failed capture raises out of the step and fails the test."""
+    from repro_torch.serving import graphs
+
+    kw = TRAIN_GRAPH_VARIANTS[variant]
+    caps, reps = (graphs.GRAPH_CAPTURES["train"],
+                  graphs.GRAPH_REPLAYS["train"])
+    eager = _train_steps(dev, arch, kw, graphed=False)
+    graph = _train_steps(dev, arch, kw, graphed=True)
+    assert graphs.GRAPH_CAPTURES["train"] - caps == 1
+    assert graphs.GRAPH_REPLAYS["train"] - reps == 2
+    assert graph[2] == eager[2]
+    if arch != "mamba2-2.7b":
+        assert all(n["repro_flash_prefill"] > 0 for n in graph[2])
+    if arch in ("mamba2-2.7b", "zamba2-1.2b"):
+        assert all(n["repro_ssd_scan"] > 0 for n in graph[2])
+    if graph[0] == eager[0] and all(torch.equal(a, b)
+                                    for a, b in zip(graph[1], eager[1])):
+        return
+    spread = _spread(_train_steps(dev, arch, kw, graphed=False), eager)
+    assert spread > 0, (arch, variant, _spread(graph, eager))
+    assert _spread(graph, eager) <= 100 * spread

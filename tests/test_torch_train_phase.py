@@ -1,11 +1,13 @@
 """``chip_smoke.py``'s training and serve-step phases rehearsed on the
 CPU at reduced width: (b) ``train_reduced_match(device="cpu")``, (c)
 ``train_full_width(reduced=True)`` with its step-1 gradient check of
-every leaf behind kernels 3 and 4 and its one-step time breakdown, and
-(d) ``serve_steps_full_width(reduced=True)`` — the ring-buffer decode
-held to the windowed forward and away from the unwindowed one, the SSM
-and hybrid decodes held to the forward.  Their host logic runs here as
-it runs on the card, apart from the launch counts (the wrappers launch
+every leaf behind kernels 3 and 4 and its one-step time breakdown, (d)
+``serve_steps_full_width(reduced=True)`` — the ring-buffer decode held
+to the windowed forward and away from the unwindowed one, the SSM and
+hybrid decodes held to the forward — and (e) ``train_graphs(...,
+reduced=True)`` on (c)'s rehearsal, through the capture stub of
+``tests/test_torch_step_graphs.py``.  Their host logic runs here as it
+runs on the card, apart from the launch counts (the wrappers launch
 nothing on CPU tensors) and the kernels' own spans in the breakdown."""
 import sys
 from pathlib import Path
@@ -15,6 +17,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
+from test_torch_step_graphs import stub  # noqa: E402,F401
 
 torch.set_num_threads(2)
 
@@ -38,6 +41,47 @@ def test_full_width_training_phase_rehearses_on_cpu():
     parts = res["breakdown_ms"]
     assert parts["step"] == pytest.approx(
         parts["forward"] + parts["backward"] + parts["optimizer"])
+
+
+def test_train_graphs_phase_rehearses_on_cpu(stub):
+    """(c) then (e): one capture and 7 replays bit-equal to (c)'s eager
+    steps, each reduced case bit-equal to its eager twin (the CPU runs
+    under ``torch.use_deterministic_algorithms``: its embedding
+    gradient otherwise sums in a varying order), the trainer stopped and
+    resumed to the uninterrupted run's losses."""
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        kept = {}
+        full = chip_smoke.train_full_width(torch, device="cpu", reduced=True,
+                                           keep=kept)
+        res = chip_smoke.train_graphs(torch, full, kept, device="cpu",
+                                      reduced=True)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    f = res["full"]
+    assert f["bit_equal"] and f["max_diff"] == 0.0 and not kept
+    assert (f["graphs"]["captures"], f["graphs"]["replays"]) == (1, 7)
+    assert set(res["reduced"]) == {f"{a} {v}" for a in chip_smoke.TRAIN_ARCHS
+                                   for v in chip_smoke.TRAIN_GRAPH_CASES}
+    for r in res["reduced"].values():
+        assert r["bit_equal"] and r["spread"] == 0.0
+        assert (r["graphs"]["captures"], r["graphs"]["replays"]) == (1, 2)
+        assert r["eager"]["captures"] == r["eager again"]["captures"] == 0
+    cli = res["cli"]
+    assert cli["equal"] and cli["runs"]["resumed"]["first_line"] == \
+        "[train] resumed from step 4"
+    assert [(r["captures"], r["replays"]) for r in cli["runs"].values()] \
+        == [(1, 7), (1, 3), (1, 3)]
+    chip_smoke.print_train_graphs(res, "cpu")
+
+
+def test_graph_runs_are_held_to_the_eager_spread():
+    within = chip_smoke._within_spread
+    assert within(True, 0.0, 0.0)
+    assert not within(False, 1e-9, 0.0)       # eager reproducible: exact
+    assert within(False, 1e-7, 2e-9)
+    assert not within(False, 1e-5, 2e-9)
 
 
 def test_full_width_training_leaf_check_catches_a_dead_leaf():
