@@ -49,6 +49,7 @@ from repro_torch.models.layers import (attn_qkv, embed_tokens, linear,
 from repro_torch.models.moe import ffn
 from repro_torch.serving import cache_ops, graphs
 from repro_torch.serving.kvcache import ModelCacheView
+from repro_torch.serving.metrics import RECORDER, traced
 
 
 @dataclass
@@ -122,9 +123,29 @@ def _pad_rows(rows: int, *specs):
 def greedy_tokens(logits: torch.Tensor) -> np.ndarray:
     """Greedy next tokens on the host (the first maximum on ties, as
     ``jnp.argmax``).  A non-finite logit is a fault, never a token."""
-    if not bool(torch.isfinite(logits).all()):
+    if not _all_finite(logits):
         raise FloatingPointError("non-finite logits in a serving step")
+    return _host_argmax(logits)
+
+
+@traced("readback.finite")
+def _all_finite(logits: torch.Tensor) -> bool:
+    """Whether every logit is finite: the host waits here for the step."""
+    return bool(torch.isfinite(logits).all())
+
+
+@traced("readback.tokens")
+def _host_argmax(logits: torch.Tensor) -> np.ndarray:
     return logits.argmax(dim=-1).cpu().numpy()
+
+
+def count_fill(kind: str, real: int, computed: int) -> None:
+    """Count a step's ``real`` rows or tokens against the ``computed``
+    ones its shape runs (``RECORDER`` counters ``<kind>.real`` and
+    ``<kind>.computed``; ``kind`` is ``rows.decode`` or
+    ``tokens.chunk``).  Call only while ``RECORDER`` is armed."""
+    RECORDER.add(kind + ".real", real)
+    RECORDER.add(kind + ".computed", computed)
 
 
 # ---------------------------------------------------------------------------
@@ -505,6 +526,7 @@ class Engine:
             # times stamp at prompt completion, whenever that is
             self._prefilling[slot] = hit
 
+    @traced("plan.batch")
     def export_prefill_job(self) -> Optional[PrefillJob]:
         """Snapshot the in-flight chunk rows (None when nothing is
         prefilling)."""
@@ -527,6 +549,7 @@ class Engine:
                           seq_ids=[int(self.slot_seq[sl]) for sl in slots],
                           toks=toks, offs=offs, clens=clens)
 
+    @traced("engine.commit")
     def apply_prefill_result(self, job: PrefillJob, nxt: np.ndarray) -> int:
         """Commit one chunk advance (shared by the serial and fused
         prefill paths); ``nxt`` is the greedy next token per job row."""
@@ -562,12 +585,21 @@ class Engine:
         power-of-2 row bucket."""
         B = len(job)
         Bp = _next_pow2(B)
-        toks, offs, clens, table = _pad_rows(
-            Bp, (job.toks, 0), (job.offs, 0), (job.clens, 0),
-            (self.view.block_table(job.seq_ids, self.max_blocks), -1))
+        if RECORDER.on:
+            count_fill("tokens.chunk", int(job.clens.sum()),
+                       Bp * self.chunk_tokens)
+        toks, offs, clens, table = self._chunk_batch(job, Bp)
         logits = self._chunk_fn(self.params, self.model_index, toks, offs,
                                 clens, self.pool, table)
         return self.apply_prefill_result(job, greedy_tokens(logits[:B]))
+
+    @traced("plan.batch")
+    def _chunk_batch(self, job: PrefillJob, rows: int) -> list:
+        """A chunk job's tokens, offsets, lengths and block table padded
+        to ``rows`` rows."""
+        return _pad_rows(
+            rows, (job.toks, 0), (job.offs, 0), (job.clens, 0),
+            (self.view.block_table(job.seq_ids, self.max_blocks), -1))
 
     def _prefill_chunked(self, reqs: List[Request]) -> int:
         self.admit_chunked(reqs)
@@ -582,6 +614,8 @@ class Engine:
         exact rows, fresh sequences start from zero state; the step reads
         and writes the rows' state in the engine's buffers."""
         job = self.export_prefill_job()
+        if RECORDER.on:
+            count_fill("tokens.chunk", int(job.clens.sum()), job.toks.size)
         logits = self._chunk_fn(
             self.params, self.model_index, job.toks, job.clens,
             self.ssm_state, self.conv_tail, slots=job.slots,
@@ -589,6 +623,7 @@ class Engine:
         return self.apply_prefill_result(job, greedy_tokens(logits))
 
     # ------------------------------------------------------------------
+    @traced("plan.batch")
     def export_decode_job(self) -> Optional[DecodeJob]:
         """Active decode rows (prefilling slots excluded) plus per-row
         sequence identity; None when there is no decode work."""
@@ -601,6 +636,7 @@ class Engine:
         return DecodeJob(slots=act, reqs=reqs,
                          seq_ids=[r._seq_id for r in reqs], last_tok=last)
 
+    @traced("engine.commit")
     def apply_decode_result(self, job: DecodeJob, nxt: np.ndarray) -> int:
         """Commit one decode step's tokens (shared by the serial and
         fused paths).  Rows that cannot reserve their next-token block
@@ -661,16 +697,24 @@ class Engine:
         if self.cfg.ssm:
             return self._decode_ssm(job)
         B = len(job)
-        lens = self.view.seq_lens(job.seq_ids)  # incl. reserved current token
-        table = self.view.block_table(job.seq_ids, self.max_blocks)
-        last_tok = job.last_tok
         Bp = _next_pow2(B)
-        if Bp != B:
-            last_tok, lens, table = _pad_rows(
-                Bp, (job.last_tok, 0), (lens, 1), (table, -1))
+        if RECORDER.on:
+            count_fill("rows.decode", B, Bp)
+        last_tok, lens, table = self._decode_batch(job, Bp)
         logits = self._decode_fn(self.params, self.model_index, last_tok,
                                  lens, self.pool, table)
         return self.apply_decode_result(job, greedy_tokens(logits[:B]))
+
+    @traced("plan.batch")
+    def _decode_batch(self, job: DecodeJob, rows: int) -> tuple:
+        """A decode job's last tokens, lengths (the reserved current
+        token included) and block table, padded to ``rows`` rows."""
+        lens = self.view.seq_lens(job.seq_ids)
+        table = self.view.block_table(job.seq_ids, self.max_blocks)
+        if rows == len(job):
+            return job.last_tok, lens, table
+        return tuple(_pad_rows(rows, (job.last_tok, 0), (lens, 1),
+                               (table, -1)))
 
     def _decode_ssm(self, job: DecodeJob) -> int:
         """Decode step of an SSM/hybrid engine: exact rows (a bucket is a
@@ -679,20 +723,28 @@ class Engine:
         slots; the rows that roll back are restored from there before the
         next step overwrites it: the SSM carry is not idempotent, so a
         retry must start from the pre-step state."""
-        lens = self.view.seq_lens(job.seq_ids)
-        table = self.view.block_table(job.seq_ids, self.max_blocks)
+        B = len(job)
+        if RECORDER.on:
+            count_fill("rows.decode", B, B)
+        last_tok, lens, table = self._decode_batch(job, B)
         logits = self._decode_fn(
-            self.params, self.model_index, job.last_tok, lens, self.pool,
+            self.params, self.model_index, last_tok, lens, self.pool,
             table, self.ssm_state, self.conv_tail, slots=job.slots,
             prev=self._prev)
         toks = self.apply_decode_result(job, greedy_tokens(logits))
         if self._rolled_rows:
-            dev = self.pool.device
-            ri = torch.tensor(self._rolled_rows, device=dev)
-            sl = torch.tensor(job.slots, device=dev)[ri]
-            self.ssm_state[:, sl] = self._prev[0][:, ri]
-            self.conv_tail[:, sl] = self._prev[1][:, ri]
+            self._restore_rolled(job)
         return toks
+
+    @traced("engine.commit")
+    def _restore_rolled(self, job: DecodeJob) -> None:
+        """Put back the pre-step state of the decode rows that rolled
+        back (``_prev``'s rows 0..B-1)."""
+        dev = self.pool.device
+        ri = torch.tensor(self._rolled_rows, device=dev)
+        sl = torch.tensor(job.slots, device=dev)[ri]
+        self.ssm_state[:, sl] = self._prev[0][:, ri]
+        self.conv_tail[:, sl] = self._prev[1][:, ri]
 
     def has_decode_work(self) -> bool:
         return any(s not in self._prefilling for s in self.active_slots())
@@ -757,6 +809,7 @@ def _arena(pool) -> tuple:
     return pool.arena() if hasattr(pool, "arena") else (pool.k, pool.v)
 
 
+@traced("plan.inputs")
 def _decode_inputs(toks, lens, tables, block_tokens: int) -> dict:
     """Host part of a decode step: toks [M, R] last tokens, lens [M, R]
     lengths incl. the current token, tables [M, R, W] group bases."""
@@ -770,6 +823,7 @@ def _decode_inputs(toks, lens, tables, block_tokens: int) -> dict:
                                        block_tokens))
 
 
+@traced("plan.inputs")
 def _chunk_inputs(toks, offs, clens, tables, block_tokens: int) -> dict:
     """Host part of a chunked-prefill step: toks [M, R, C], offs and
     clens [M, R], tables [M, R, W]."""
@@ -785,6 +839,7 @@ def _chunk_inputs(toks, offs, clens, tables, block_tokens: int) -> dict:
                                        block_tokens))
 
 
+@traced("plan.inputs")
 def _prefill_inputs(toks, lens, table, block_tokens: int) -> dict:
     """Host part of a whole-prompt prefill with attention: toks [B, S],
     lens [B], table [B, W]; every row's prompt starts at position 0."""
@@ -797,6 +852,7 @@ def _prefill_inputs(toks, lens, table, block_tokens: int) -> dict:
                                        block_tokens))
 
 
+@traced("plan.inputs")
 def _state_rows(slots, rows: int) -> dict:
     """Which state slot each of a step's ``rows`` rows reads and writes:
     ``rows`` [rows], the slot, and ``take`` [rows], the row whose new
@@ -1003,6 +1059,7 @@ def _put_rows(buf, new, a) -> None:
     buf.index_copy_(0, a["rows"], new.index_select(0, a["take"]).to(buf.dtype))
 
 
+@traced("plan.inputs")
 def _ssm_inputs(toks, valid, **extra) -> dict:
     """Host part of an SSM prefill or chunk: toks [B, S]; ``valid`` [B]
     the true length of each row (padded positions get dt = 0)."""

@@ -72,6 +72,8 @@ from typing import Callable, Dict, Iterator, List, Tuple
 import numpy as np
 import torch
 
+from repro_torch.serving.metrics import traced
+
 # captures by step kind, the seconds they took (the eager first run
 # included), and replays by step kind
 GRAPH_CAPTURES: Counter = Counter()
@@ -94,6 +96,7 @@ def disable_graphs() -> Iterator[None]:
 # ---------------------------------------------------------------------------
 # packed step inputs
 # ---------------------------------------------------------------------------
+@traced("plan.inputs")
 def pack(arrays: Dict[str, np.ndarray]) -> Tuple[np.ndarray, tuple]:
     """One int64 array holding every host input of a step, and the layout
     ``((name, shape, numpy dtype), ...)`` that ``unpack`` reads."""
@@ -181,6 +184,7 @@ class StaticInput:
         self.pinned = self.copied = None
         self.load(src)
 
+    @traced("graph.load")
     def load(self, src: torch.Tensor) -> None:
         if self.tensor.device.type != "cuda" or src.device.type != "cpu":
             self.tensor.copy_(src)
@@ -214,11 +218,19 @@ class _StepGraph:
     def run(self, srcs, fn) -> torch.Tensor:
         for s, src in zip(self.inputs, srcs):
             s.load(src)
-        self.replay(fn)
+        self._replay(fn)
         for k, n in self.launches:
             k.launches += n
         self.replays += 1
         GRAPH_REPLAYS[self.kind] += 1
+        return self._clone()
+
+    @traced("graph.replay")
+    def _replay(self, fn) -> None:
+        self.replay(fn)
+
+    @traced("graph.clone")
+    def _clone(self) -> torch.Tensor:
         return self.out.clone()
 
 
@@ -255,15 +267,23 @@ class GraphRegistry:
             body) -> torch.Tensor:
         """``body(params, bufs, inputs)`` for this call's ``packed``
         inputs: replayed, or captured on first sight."""
+        key, held, src = self._key(kind, cfg_key, midx, params, bufs,
+                                   packed, layout)
+        return self.step(kind, key, held, bufs[0].device, (src,),
+                         lambda buf: body(params, bufs, unpack(buf, layout)))
+
+    @traced("plan.inputs")
+    def _key(self, kind: str, cfg_key, midx, params, bufs, packed,
+             layout) -> tuple:
+        """A step's key (see the header), the objects it names and its
+        packed inputs as a tensor."""
         from repro_torch.serving.engine import tree_leaves
         leaves = tree_leaves(params)
         slot = (kind, cfg_key, layout, midx,
                 tuple(t.data_ptr() for t in leaves))
         key = (slot, tuple(t.data_ptr() for t in bufs)
                + tuple(t.shape[0] for t in bufs))
-        return self.step(kind, key, leaves + list(bufs), bufs[0].device,
-                         (torch.from_numpy(packed),),
-                         lambda buf: body(params, bufs, unpack(buf, layout)))
+        return key, leaves + list(bufs), torch.from_numpy(packed)
 
     def step(self, kind: str, key: tuple, held, device, srcs,
              body) -> torch.Tensor:

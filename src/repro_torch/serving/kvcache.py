@@ -39,6 +39,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.config import BLOCK_TOKENS, ModelConfig
 from repro_torch.serving.cache_ops import copy_block_groups
+from repro_torch.serving.metrics import traced
 
 
 class BlockAllocator:
@@ -495,6 +496,7 @@ class ModelCacheView:
         sc.shared = blk
         return True
 
+    @traced("pool.append")
     def append_tokens(self, seq_id: int, n_tokens: int) -> bool:
         """Reserve cache space for n_tokens more tokens of seq_id."""
         cost = self._blocks_needed(seq_id, n_tokens)
@@ -530,6 +532,7 @@ class ModelCacheView:
         self.pool.used_by[self.cfg.name] = self.used
         return True
 
+    @traced("pool.free")
     def free_seq(self, seq_id: int) -> None:
         sc = self.seqs.pop(seq_id, None)
         if sc is None:
@@ -544,6 +547,7 @@ class ModelCacheView:
         self.pool.used_by[self.cfg.name] = self.used
 
     # ---- device-side tables -------------------------------------------
+    @traced("pool.table")
     def block_table(self, seq_ids: List[int], max_blocks: int) -> np.ndarray:
         """[len(seq_ids), max_blocks] int32 group bases (−1 padded)."""
         t = np.full((len(seq_ids), max_blocks), -1, np.int32)
@@ -552,10 +556,12 @@ class ModelCacheView:
             t[i, :len(bases)] = bases
         return t
 
+    @traced("pool.table")
     def seq_lens(self, seq_ids: List[int]) -> np.ndarray:
         return np.array([self.seqs[s].n_tokens for s in seq_ids], np.int32)
 
 
+@traced("pool.table")
 def fused_block_tables(views_seqs: List[Tuple["ModelCacheView", List[int]]],
                        rows: int, max_blocks: int
                        ) -> Tuple[np.ndarray, np.ndarray]:
@@ -774,6 +780,7 @@ class UnifiedKVPool:
             raise ValueError(f"unregistering view {name!r} with live "
                              f"sequences {sorted(v.seqs)} leaks pool blocks")
 
+    @traced("pool.quota")
     def grant_min_quota(self, view: "ModelCacheView", need: int) -> bool:
         """Raise ``view``'s quota to at least ``need`` head-blocks by
         pulling spare quota (quota − used) from the other views,
@@ -801,6 +808,7 @@ class UnifiedKVPool:
         return view.quota >= need
 
     # ---- ADBS quota adaptation (paper Alg. 3, last line) ---------------
+    @traced("pool.quota")
     def adapt_quotas(self, min_quota: int = 64) -> None:
         """Move head-block quota from low- to high-utilization LLMs."""
         if len(self.views) < 2:

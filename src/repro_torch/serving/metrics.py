@@ -1,6 +1,10 @@
 """Dependency-free Prometheus-style metrics for the serving stack (port
-of ``repro/serving/metrics.py``; host code, the JAX package's line for
-line, so the two packages' snapshots compare with ``==``).
+of ``repro/serving/metrics.py``; host code, so the two packages'
+snapshots compare with ``==``).  The port departs from the JAX package's
+lines only in its docstrings and imports and in the span recorder
+(``SpanRecorder``, ``RECORDER``, ``traced``, ``SpanRecord``: the end of
+the module and ``__all__``), which is the port's own and has no
+counterpart there.
 
 The live front end (``serving/frontend.py``) and the closed-loop driver
 (``serving/driver.py``) both need the same observability surface: per-LLM
@@ -20,17 +24,27 @@ provides that surface with zero third-party dependencies:
 - :class:`MetricsServer` — optional stdlib-only HTTP endpoint serving the
   text exposition at ``/metrics``, the JSON snapshot at ``/metrics.json``,
   and a server-sent-events stream of structured-log records at ``/events``.
+- :class:`SpanRecorder` (the port only) — host spans and counters inside
+  the serving loop, off by default (``RECORDER``): the step split into its
+  plan, launch, read-back and commit, the pool's allocator calls, each
+  request's wait in its queue, the rows and tokens a step computes
+  against those it serves.
 
 Determinism note: metric *values* are derived from the serving clock and
 request outcomes, so under the deterministic tick-cost clock two runs of
 the same trace produce identical snapshots.  Only the HTTP server (a
-daemon thread) touches wall time, and it is opt-in.
+daemon thread) and the span recorder touch wall time, and both are
+opt-in; neither writes into a snapshot.
 """
 
 from __future__ import annotations
 
+import functools
 import json
+import sys
 import threading
+import time
+from array import array
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Deque, Dict, List, Optional, Sequence, Tuple
@@ -44,6 +58,10 @@ __all__ = [
     "StructuredLog",
     "MetricsServer",
     "DEFAULT_LATENCY_BUCKETS",
+    "SpanRecorder",
+    "SpanRecord",
+    "RECORDER",
+    "traced",
 ]
 
 LabelKey = Tuple[str, ...]
@@ -561,8 +579,8 @@ def percentile_from_histogram(
 ) -> Optional[float]:
     """Estimate a quantile from cumulative buckets (upper-bound estimate).
 
-    Used by dashboards / the benchmark for coarse checks; exact latency
-    percentiles still come from the driver's LatencyStats.
+    A coarse figure for dashboards; exact latency percentiles come from
+    the driver's LatencyStats.
     """
     with hist._lock:
         s = hist._series.get(hist._key(labels))
@@ -573,3 +591,293 @@ def percentile_from_histogram(
             if cum >= rank:
                 return ub
         return float("inf")
+
+
+# ---------------------------------------------------------------------------
+# spans and counters inside the serving loop (the port's own)
+# ---------------------------------------------------------------------------
+QUEUE_SPAN = "request.queue"
+_now = time.perf_counter_ns
+
+
+class _NoProfiler:
+    """Where torch's profiler module is not loaded: never recording."""
+
+    _is_profiler_enabled = False
+
+
+_NO_PROFILER = _NoProfiler()
+
+
+@dataclass
+class SpanRecord:
+    """What a :class:`SpanRecorder` held when it was read: span ``i`` is
+    ``names[i]`` from ``t0[i]`` to ``t1[i]`` (``time.perf_counter_ns``),
+    inside span ``parent[i]`` (−1: none), for request ``req[i]`` (−1:
+    none).  ``annotated[i]`` is 0 where the span was no profiler
+    annotation, else the ns between the two stamps whose middle is its
+    start (the profiler stamps its annotation between them: the start's
+    uncertainty, wide where the thread lost the processor there).
+    ``counters`` are the plain integer counters; ``dropped``
+    the spans a full store could not keep.  ``offset_us`` (``align``)
+    maps a stamp onto a profiler trace's clock: ``t / 1e3 + offset_us``.
+    """
+
+    names: List[str]
+    t0: Sequence[int]
+    t1: Sequence[int]
+    parent: Sequence[int]
+    req: Sequence[int]
+    annotated: Sequence[int]
+    counters: Dict[str, int] = field(default_factory=dict)
+    dropped: int = 0
+    offset_us: Optional[float] = None
+
+    def __len__(self) -> int:
+        return len(self.names)
+
+    def durations_ns(self, name: str) -> List[int]:
+        return [self.t1[i] - self.t0[i]
+                for i, n in enumerate(self.names) if n == name]
+
+    def total_ns(self, *names: str) -> int:
+        """The summed durations of every span named one of ``names``."""
+        want = set(names)
+        return sum(self.t1[i] - self.t0[i]
+                   for i, n in enumerate(self.names) if n in want)
+
+    def self_ns(self) -> List[int]:
+        """Each span's self time: its duration less its children's (a
+        thread's spans nest, so the children never overlap)."""
+        out = [self.t1[i] - self.t0[i] for i in range(len(self))]
+        for i, p in enumerate(self.parent):
+            if p >= 0:
+                out[p] -= self.t1[i] - self.t0[i]
+        return out
+
+    def self_total_ns(self, prefix: str) -> int:
+        """The summed self time of every span whose name starts with
+        ``prefix``."""
+        own = self.self_ns()
+        return sum(own[i] for i, n in enumerate(self.names)
+                   if n.startswith(prefix))
+
+    def count(self, name: str) -> int:
+        return sum(1 for n in self.names if n == name)
+
+    def align(self, events: Sequence[dict]) -> Optional[float]:
+        """Set and return ``offset_us`` from a profiler trace's events
+        (chrome-trace dicts): each annotated span is matched, name by
+        name in order, to the trace's annotation of that name, and the
+        offset is the median of the start differences.  None where no
+        annotated span is in the trace."""
+        mine: Dict[str, List[int]] = {}
+        for i, n in enumerate(self.names):
+            if self.annotated[i]:
+                mine.setdefault(n, []).append(self.t0[i])
+        theirs: Dict[str, List[float]] = {}
+        for e in events:
+            n = e.get("name")
+            if (n in mine and e.get("ph") == "X"
+                    and str(e.get("cat", "")).lower() == "user_annotation"):
+                theirs.setdefault(n, []).append(float(e["ts"]))
+        diffs = sorted(ts - t / 1e3 for n, starts in mine.items()
+                       for t, ts in zip(sorted(starts),
+                                        sorted(theirs.get(n, ()))))
+        if not diffs:
+            return None
+        mid = len(diffs) // 2
+        self.offset_us = (diffs[mid] if len(diffs) % 2
+                          else (diffs[mid - 1] + diffs[mid]) / 2)
+        return self.offset_us
+
+    def on_trace(self, i: int) -> Tuple[float, float]:
+        """Span ``i``'s start and end on the aligned trace's clock (us)."""
+        if self.offset_us is None:
+            raise ValueError("align the record with a trace first")
+        return (self.t0[i] / 1e3 + self.offset_us,
+                self.t1[i] / 1e3 + self.offset_us)
+
+
+class SpanRecorder:
+    """Host spans and counters inside the serving loop.
+
+    Off by default: a span site tests ``on`` and, disarmed, goes on (no
+    allocation, lock, profiler call or device work).  ``arm``
+    preallocates a bounded store (``capacity`` spans; past it a span is
+    counted in ``dropped`` and not kept), ``disarm`` stops recording and
+    keeps what was recorded, ``reset`` empties the store between steps,
+    ``record`` reads it.
+
+    Armed, each span keeps its name, its start and end
+    (``time.perf_counter_ns``), its parent (the span open around it) and
+    a request id where one applies.  While a ``torch.profiler`` session
+    records, each span is also entered as a profiler annotation of the
+    same name, so it lands in the trace beside the device's work.  Such
+    a span's start and end are the middles of the profiler's calls that
+    open and close its annotation, in which the profiler takes its own
+    stamps: its bookkeeping around them (tens of us where it grows its
+    buffers or runs cold) then errs both ways by half, not one way by
+    all (``SpanRecord.align`` maps the stamps onto the trace's clock).
+    Outside a profiler session no profiler call is made.
+    ``request.queue`` spans (``queued`` at submission, ``admitted`` when
+    a request leaves its queue for an engine's slot) overlap one another
+    and are never annotations.
+
+    A site is a function decorated with ``traced``: its call is the
+    span.  Nothing here synchronises the device.  One thread records:
+    the serving loop's.
+    """
+
+    def __init__(self) -> None:
+        self.on = False
+        self._profiler = _NO_PROFILER
+        # span names by code (a name's code never changes)
+        self._table: List[str] = []
+        self._codes: Dict[str, int] = {}
+        self._allocate(0)
+
+    def code(self, name: str) -> int:
+        """The code the store keeps for spans named ``name``."""
+        c = self._codes.get(name)
+        if c is None:
+            c = self._codes[name] = len(self._table)
+            self._table.append(name)
+        return c
+
+    def _allocate(self, capacity: int) -> None:
+        self.capacity = capacity
+        self._names = array("H", bytes(2 * capacity))
+        self._t0 = array("q", bytes(8 * capacity))
+        self._t1 = array("q", bytes(8 * capacity))
+        self._parent = array("q", bytes(8 * capacity))
+        self.reset()
+
+    # -- state ---------------------------------------------------------------
+    def arm(self, capacity: int = 1 << 20) -> None:
+        """Start recording into an empty store of ``capacity`` spans."""
+        if capacity != self.capacity:
+            self._allocate(capacity)
+        else:
+            self.reset()
+        # the profiler's own annotation ops, as ``record_function`` calls
+        # them; its module's flag says whether a session is recording
+        self._profiler = sys.modules.get("torch.autograd.profiler",
+                                         _NO_PROFILER)
+        if self._profiler is not _NO_PROFILER:
+            ops = sys.modules["torch"].ops.profiler
+            self._note_open = ops._record_function_enter_new
+            self._note_close = ops._record_function_exit._RecordFunction
+        self.on = True
+
+    def disarm(self) -> None:
+        self.on = False
+
+    def reset(self) -> None:
+        """Forget every span and counter (call between steps: a span
+        open now is not kept)."""
+        self.n = 0
+        self.dropped = 0
+        self.counters: Dict[str, int] = {}
+        self._stack: List[int] = []
+        self._notes: List[object] = []
+        # most spans have no request and no annotation
+        self._req = array("q", [-1]) * self.capacity
+        self._annotated = array("q", bytes(8 * self.capacity))
+
+    def record(self) -> SpanRecord:
+        n = self.n
+        table = self._table
+        return SpanRecord([table[c] for c in self._names[:n]],
+                          self._t0[:n], self._t1[:n],
+                          self._parent[:n], self._req[:n],
+                          self._annotated[:n], dict(self.counters),
+                          self.dropped)
+
+    # -- recording -------------------------------------------------------------
+    def open(self, code: int) -> None:
+        """Open a span of the name ``code`` stands for inside the
+        innermost open one; ``close`` ends it.  Call only while armed."""
+        stack = self._stack
+        i = self.n
+        if i >= self.capacity:
+            self.dropped += 1
+            stack.append(-1)
+            return
+        self.n = i + 1
+        self._names[i] = code
+        self._parent[i] = stack[-1] if stack else -1
+        stack.append(i)
+        if self._profiler._is_profiler_enabled:
+            t = _now()
+            self._notes.append(self._note_open(self._table[code], None))
+            u = _now()
+            self._t0[i] = (t + u) // 2
+            self._annotated[i] = max(u - t, 1)
+        else:
+            self._t0[i] = _now()
+
+    def close(self) -> None:
+        """End the innermost open span."""
+        if not self._stack:
+            return
+        i = self._stack.pop()
+        if i < 0:
+            return
+        if self._annotated[i]:
+            t = _now()
+            self._note_close(self._notes.pop())
+            self._t1[i] = (t + _now()) // 2
+        else:
+            self._t1[i] = _now()
+
+    def add(self, name: str, n: int) -> None:
+        """Add ``n`` to the counter ``name``."""
+        self.counters[name] = self.counters.get(name, 0) + n
+
+    def queued(self, req) -> None:
+        """Stamp a request entering its queue."""
+        req._queued_ns = _now()
+
+    def admitted(self, reqs) -> None:
+        """Close the ``request.queue`` span of each request of ``reqs``
+        (those leaving their queue for an engine) stamped by ``queued``."""
+        t = _now()
+        code = self.code(QUEUE_SPAN)
+        for r in reqs:
+            t0 = r.__dict__.pop("_queued_ns", None)
+            if t0 is None:
+                continue
+            i = self.n
+            if i >= self.capacity:
+                self.dropped += 1
+                continue
+            self.n = i + 1
+            self._names[i] = code
+            self._parent[i] = -1
+            self._req[i] = r.req_id
+            self._t0[i] = t0
+            self._t1[i] = t
+
+
+# the serving loop's recorder
+RECORDER = SpanRecorder()
+
+
+def traced(name: str):
+    """Decorator: each call is a ``RECORDER`` span named ``name``."""
+    code = RECORDER.code(name)
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kw):
+            rec = RECORDER
+            if not rec.on:
+                return fn(*args, **kw)
+            rec.open(code)
+            try:
+                return fn(*args, **kw)
+            finally:
+                rec.close()
+        return call
+    return wrap

@@ -42,11 +42,12 @@ from typing import Deque, Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.serving.engine import (Engine, Request, greedy_tokens,
-                                        step_fn, tree_bytes, tree_map,
-                                        unique_tree_bytes)
+from repro_torch.serving.engine import (Engine, Request, count_fill,
+                                        greedy_tokens, step_fn, tree_bytes,
+                                        tree_map, unique_tree_bytes)
 from repro_torch.serving.faults import FaultInjector
 from repro_torch.serving.kvcache import UnifiedKVPool, fused_block_tables
+from repro_torch.serving.metrics import RECORDER, traced
 
 SHED_POLICIES = ("none", "reject", "deadline")
 
@@ -164,15 +165,10 @@ class FusedGroup:
         rows are padded and masked).  Returns committed tokens per
         member name."""
         pool = self.engines[0].pool
-        rows = self.rows
-        toks = np.zeros((len(self.engines), rows), np.int32)
-        for m, job in enumerate(jobs):
-            if job is not None:
-                toks[m, :len(job)] = job.last_tok
-        tables, lens = fused_block_tables(
-            [(eng.view, job.seq_ids if job is not None else [])
-             for eng, job in zip(self.engines, jobs)],
-            rows, self.max_blocks)
+        if RECORDER.on:
+            count_fill("rows.decode", sum(len(j) for j in jobs if j),
+                       len(self.engines) * self.rows)
+        toks, lens, tables = self._decode_batch(jobs)
         logits = self._decode_fn(self.params, toks, lens, pool, tables)
         nxt = greedy_tokens(logits)                           # [M, rows]
         per: Dict[str, int] = {}
@@ -182,12 +178,45 @@ class FusedGroup:
                     job, nxt[m, :len(job)])
         return per
 
+    @traced("plan.batch")
+    def _decode_batch(self, jobs) -> tuple:
+        """The sweep's ``[M, rows]`` last tokens and lengths and
+        ``[M, rows, max_blocks]`` block tables (padded rows: token 0,
+        length 1, table −1)."""
+        toks = np.zeros((len(self.engines), self.rows), np.int32)
+        for m, job in enumerate(jobs):
+            if job is not None:
+                toks[m, :len(job)] = job.last_tok
+        tables, lens = fused_block_tables(
+            [(eng.view, job.seq_ids if job is not None else [])
+             for eng, job in zip(self.engines, jobs)],
+            self.rows, self.max_blocks)
+        return toks, lens, tables
+
     def prefill(self, jobs) -> Dict[str, int]:
         """One fused chunked-prefill sweep: every member's in-flight
         prompt chunks advance by one window.  ``jobs`` is aligned with
         ``self.engines`` (None where a member has nothing prefilling).
         Returns prompt tokens processed per member name."""
         pool = self.engines[0].pool
+        toks, offs, clens, tables = self._prefill_batch(jobs)
+        if RECORDER.on:
+            count_fill("tokens.chunk", int(clens.sum()), toks.size)
+        logits = self._prefill_fn(self.params, toks, offs, clens, pool,
+                                  tables)
+        nxt = greedy_tokens(logits)                           # [M, rows]
+        per: Dict[str, int] = {}
+        for m, (eng, job) in enumerate(zip(self.engines, jobs)):
+            if job is not None:
+                per[eng.cfg.name] = eng.apply_prefill_result(
+                    job, nxt[m, :len(job)])
+        return per
+
+    @traced("plan.batch")
+    def _prefill_batch(self, jobs) -> tuple:
+        """The sweep's ``[M, rows, C]`` chunk tokens, ``[M, rows]``
+        offsets and true lengths, and block tables (padded rows: zeros,
+        table −1)."""
         rows, C, M = self.rows, self.chunk_tokens, len(self.engines)
         toks = np.zeros((M, rows, C), np.int32)
         offs = np.zeros((M, rows), np.int32)
@@ -202,15 +231,7 @@ class FusedGroup:
             clens[m, :b] = job.clens
             tables[m, :b] = eng.view.block_table(job.seq_ids,
                                                  self.max_blocks)
-        logits = self._prefill_fn(self.params, toks, offs, clens, pool,
-                                  tables)
-        nxt = greedy_tokens(logits)                           # [M, rows]
-        per: Dict[str, int] = {}
-        for m, (eng, job) in enumerate(zip(self.engines, jobs)):
-            if job is not None:
-                per[eng.cfg.name] = eng.apply_prefill_result(
-                    job, nxt[m, :len(job)])
-        return per
+        return toks, offs, clens, tables
 
 
 # backwards-compatible name (the group now fuses prefill too)
@@ -427,6 +448,8 @@ class MuxScheduler:
             self._shed(req, "queue_full")
             return
         q.append(req)
+        if RECORDER.on:
+            RECORDER.queued(req)
 
     def pending(self) -> int:
         return sum(len(q) for q in self.queues.values()) + sum(
@@ -652,6 +675,8 @@ class MuxScheduler:
                 batch.append(q.popleft())
             else:
                 break
+        if RECORDER.on and batch:
+            RECORDER.admitted(batch)
         return batch
 
     def _run_prefill_round_robin(self) -> bool:
@@ -784,6 +809,7 @@ class MuxScheduler:
                 eng.preempted.clear()
 
     # ------------------------------------------------------------------
+    @traced("sched.tick")
     def tick(self) -> None:
         """One scheduler iteration (paper Alg. 3 main loop).
 
@@ -848,6 +874,8 @@ class MuxScheduler:
                     pending += eng.lifetime_blocks(q[0])
                     batch.append(q.popleft())
                 if batch:
+                    if RECORDER.on:
+                        RECORDER.admitted(batch)
                     now = self.clock()
                     for r in batch:
                         r.prefill_done = now
