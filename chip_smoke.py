@@ -1720,8 +1720,9 @@ def serve_graphs(torch, device="cuda", reduced=False) -> dict:
     (d)'s; every greedy token equal; the first ``FIRST_DECODES`` fused
     decodes' logits (the first replay among them) within
     ``GRAPH_LOGIT_TOL`` of the largest; the launch counts equal
-    between the eager and graph runs; in (c) every graph on the old
-    arena dropped at the grow and each step recaptured at most once
+    between the eager and graph runs; (b) captures the fused decode once
+    and the fused chunk sweep once a row bucket; in (c) every graph on
+    the old arena dropped at the grow and each step recaptured at most once
     after it, the fused decode exactly once.  Measures the captures by
     kind and their seconds, the graph pool's bytes, the peak memory of
     each run, and per tick (capture ticks aside) the wall ms and the
@@ -1797,6 +1798,8 @@ def serve_graphs(torch, device="cuda", reduced=False) -> dict:
             capture_ticks=len(ticks) - len(steady),
             peak_gb=mem.fold(), launches=ops.launch_counts(),
             captured=[k[0][0] for k in graphs.REGISTRY.log[n_log:]],
+            chunk_buckets=sum(len(g.chunk_buckets)
+                              for g in unit.fused_groups),
             # while the run's graphs live (they go with the unit)
             graph_pool_bytes=_graph_pool_bytes(torch, graphs))
         if grow is not None:
@@ -1842,7 +1845,8 @@ def serve_graphs(torch, device="cuda", reduced=False) -> dict:
             problems.append(f"{what} captured {x['nums']['captured']} "
                             f"under disable_graphs")
     caught = Counter(b["nums"]["captured"])
-    if caught["fused_decode"] != 1 or caught["fused_prefill_chunk"] != 1:
+    if caught["fused_decode"] != 1 \
+            or caught["fused_prefill_chunk"] != b["nums"]["chunk_buckets"]:
         problems.append(f"(b) captured {dict(caught)}")
     g = c["nums"]["grow"]
     if not g["live_blocks"] or g["reallocated"] is not True:

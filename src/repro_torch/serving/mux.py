@@ -35,6 +35,7 @@ emission hook (``set_emit``) feeds the streaming front end.
 from __future__ import annotations
 
 import time
+import weakref
 from dataclasses import dataclass, field
 from collections import deque
 from typing import Deque, Dict, List, Optional
@@ -111,7 +112,14 @@ class FusedGroup:
     concatenated once on a leading model axis and every member *adopts*
     the stacked tree, so the group holds exactly one weight copy.
     ``reclaimed_bytes`` (the members' former private trees) is what the
-    scheduler grants the pool as extra head-blocks."""
+    scheduler grants the pool as extra head-blocks.
+
+    A decode sweep always runs ``rows`` rows a member: it reads every
+    weight once whatever its rows, so a padded row costs next to
+    nothing.  A chunk sweep runs the smallest of ``chunk_buckets`` that
+    holds the busiest member's rows, since there every padded row is a
+    whole chunk of GEMM work; every bucket is run once on padded rows at
+    the first sweep on an arena, so none is met first under traffic."""
 
     def __init__(self, engines: List[Engine],
                  names: Optional[List[str]] = None):
@@ -125,8 +133,13 @@ class FusedGroup:
         self.cfg_key = engines[0].cfg_key
         self.max_blocks = engines[0].max_blocks
         self.chunk_tokens = engines[0].chunk_tokens
-        # fixed row count: one shape per group sweep
+        # the decode sweep's rows; the chunk sweep's largest bucket
         self.rows = max(e.max_slots for e in engines)
+        self.chunk_buckets = tuple(sorted(
+            {1 << k for k in range(self.rows.bit_length())
+             if 1 << k < self.rows} | {self.rows}))
+        # the arena the chunk buckets last ran on (``_warm_chunk_buckets``)
+        self._warm_arena = None
         member_bytes = sum(tree_bytes(e.params) for e in engines)
         self.params = _stack_members([e.params for e in engines])
         for m, e in enumerate(engines):
@@ -199,12 +212,15 @@ class FusedGroup:
         ``self.engines`` (None where a member has nothing prefilling).
         Returns prompt tokens processed per member name."""
         pool = self.engines[0].pool
-        toks, offs, clens, tables = self._prefill_batch(jobs)
+        self._warm_chunk_buckets(pool)
+        busiest = max((len(j) for j in jobs if j is not None), default=1)
+        rows = next(r for r in self.chunk_buckets if r >= busiest)
+        toks, offs, clens, tables = self._prefill_batch(jobs, rows)
         if RECORDER.on:
             count_fill("tokens.chunk", int(clens.sum()), toks.size)
         logits = self._prefill_fn(self.params, toks, offs, clens, pool,
                                   tables)
-        nxt = greedy_tokens(logits)                           # [M, rows]
+        nxt = greedy_tokens(logits)                     # [M, bucket rows]
         per: Dict[str, int] = {}
         for m, (eng, job) in enumerate(zip(self.engines, jobs)):
             if job is not None:
@@ -212,12 +228,31 @@ class FusedGroup:
                     job, nxt[m, :len(job)])
         return per
 
+    def _warm_chunk_buckets(self, pool) -> None:
+        """Run the chunk sweep once at each of ``chunk_buckets`` on
+        padded rows (length 0, table −1: no KV lands, the logits are
+        dropped) when the group first sweeps on ``pool``'s arena: on the
+        card every bucket's graph is captured here, together, and again
+        after the arena they read was replaced (a ``grow`` that
+        reallocates, a migrated view)."""
+        arena = pool.arena()[0]
+        if self._warm_arena is not None and self._warm_arena() is arena:
+            return
+        # the step itself, not ``_prefill_fn``: that stays the one call
+        # that sweeps real rows, for whatever wraps it to observe them
+        step = step_fn("fused_prefill_chunk", self.cfg_key)
+        for rows in self.chunk_buckets:
+            toks, offs, clens, tables = self._prefill_batch(
+                [None] * len(self.engines), rows)
+            step(self.params, toks, offs, clens, pool, tables)
+        self._warm_arena = weakref.ref(arena)
+
     @traced("plan.batch")
-    def _prefill_batch(self, jobs) -> tuple:
+    def _prefill_batch(self, jobs, rows: int) -> tuple:
         """The sweep's ``[M, rows, C]`` chunk tokens, ``[M, rows]``
         offsets and true lengths, and block tables (padded rows: zeros,
         table −1)."""
-        rows, C, M = self.rows, self.chunk_tokens, len(self.engines)
+        C, M = self.chunk_tokens, len(self.engines)
         toks = np.zeros((M, rows, C), np.int32)
         offs = np.zeros((M, rows), np.int32)
         clens = np.zeros((M, rows), np.int32)

@@ -849,6 +849,65 @@ def test_captured_fused_steps_equal_eager(dev, dtype):
     assert len(graphs.REGISTRY.graphs) == 2
 
 
+# the fused chunk sweep sized to its rows (``FusedGroup.prefill``): with
+# 1, 3, 5 and 9 rows in flight in one member (and 1 in the other) the
+# sweep runs its row bucket, and the real rows' logits and the arena's
+# KV equal those of the same sweeps run at all 16 rows, to bf16
+# tolerance of the largest magnitude (cuBLAS may tile a smaller M
+# otherwise); the KV lands on the same entries, and every bucket is
+# captured at the group's first sweep
+@pytest.mark.parametrize("busiest", [1, 3, 5, 9])
+def test_bucketed_chunk_sweep_equals_full_rows(dev, busiest):
+    from repro_torch.serving import driver, graphs
+    from repro_torch.serving.engine import Request
+
+    units, logits, shapes = {}, {}, {}
+    for mode in ("bucketed", "16 rows"):
+        unit = driver.build_unit_from_specs(
+            [("a", "qwen2-7b", 0.5), ("b", "qwen2-7b", 0.5)],
+            pool_blocks=4096, max_slots=16, chunk_tokens=64, seed=5,
+            fused=True, reduced=True, dtype=torch.bfloat16, device=dev)
+        (grp,) = unit.fused_groups
+        if mode == "16 rows":
+            grp.chunk_buckets = (grp.rows,)
+        logits[mode], shapes[mode] = [], []
+
+        def kept(params, toks, *rest, sweep=grp._prefill_fn, mode=mode):
+            shapes[mode].append(toks.shape)
+            out = sweep(params, toks, *rest)
+            logits[mode].append(out.float().clone())
+            return out
+        grp._prefill_fn = kept
+        rng = np.random.default_rng(busiest)
+        for eng, n in zip(grp.engines, (busiest, 1)):
+            eng.admit_chunked([Request(i, eng.cfg.name, rng.integers(
+                1, eng.cfg.vocab_size, 72 + 4 * i).tolist(), 2)
+                for i in range(n)])
+        captures = graphs.GRAPH_CAPTURES["fused_prefill_chunk"]
+        jobs = [eng.export_prefill_job() for eng in grp.engines]
+        while any(j is not None for j in jobs):
+            grp.prefill(jobs)
+            jobs = [eng.export_prefill_job() for eng in grp.engines]
+        torch.cuda.synchronize()
+        assert graphs.GRAPH_CAPTURES["fused_prefill_chunk"] - captures == \
+            len(grp.chunk_buckets)
+        units[mode] = unit
+    R = 1 << (busiest - 1).bit_length()
+    assert shapes["bucketed"] == [(2, R, 64)] * 2
+    assert shapes["16 rows"] == [(2, 16, 64)] * 2
+    for got, want in zip(logits["bucketed"], logits["16 rows"]):
+        for m, n in enumerate((busiest, 1)):
+            a, b = got[m, :n], want[m, :n]
+            assert (a - b).abs().max().item() <= \
+                TOL[torch.bfloat16] * b.abs().max().item()
+    for a, b in zip(units["bucketed"].pool.arena(),
+                    units["16 rows"].pool.arena()):
+        a, b = a.float(), b.float()
+        assert torch.equal((a != 0).any(-1), (b != 0).any(-1))
+        assert (a - b).abs().max().item() <= \
+            TOL[torch.bfloat16] * b.abs().max().item()
+
+
 # ---------------------------------------------------------------------------
 # kernel 6: the grouped-expert SwiGLU of the dropless MoE FFN
 # ---------------------------------------------------------------------------

@@ -334,7 +334,7 @@ def _trees(n):
         jax.random.PRNGKey(i), jcfg, jnp.float32)), "cpu") for i in range(n)]
 
 
-def _unit(trees, fused=True, pool_blocks=4000, chunk=16):
+def _unit(trees, fused=True, pool_blocks=4000, chunk=16, slots=4):
     base = configs.get_reduced(ARCH)
     pool = UnifiedKVPool(pool_blocks, base.hd, torch.float32, device="cpu")
     engines = {}
@@ -342,7 +342,7 @@ def _unit(trees, fused=True, pool_blocks=4000, chunk=16):
         cfg = replace(base, name=f"llm{i}")
         view = pool.register_model(cfg, pool_blocks // len(trees))
         engines[cfg.name] = Engine(cfg, TE.tree_map(lambda a: a.clone(), tree),
-                                   view, max_slots=4, chunk_tokens=chunk,
+                                   view, max_slots=slots, chunk_tokens=chunk,
                                    max_blocks_per_seq=16)
     return MuxScheduler(engines, pool, policy="adbs", fused=fused)
 
@@ -366,11 +366,20 @@ def _kinds(keys):
     return [k[0][0] for k in keys]
 
 
+def _chunk_rows(keys):
+    """The rows a member of each captured fused chunk sweep, in order
+    (the key's layout opens with the ``[M, R, C]`` tokens)."""
+    return [k[0][2][0][1][1] for k in keys
+            if k[0][0] == "fused_prefill_chunk"]
+
+
 def test_registry_one_program_per_bucket(stub):
     """A fused unit served through the registry gives the eager run's
-    tokens; every key is captured once, each fused kind once (the
-    group's fixed rows), the serial kinds once per power-of-two rows;
-    ``TRACE_COUNTS``' buckets are untouched by the registry."""
+    tokens; every key is captured once, the fused decode once (the
+    group's fixed rows), the fused chunk sweep once per row bucket
+    (``FusedGroup.chunk_buckets``), the serial kinds once per
+    power-of-two rows; ``TRACE_COUNTS``' buckets are untouched by the
+    registry."""
     trees = _trees(2)
     mux = _unit(trees)
     _wave(mux, 5, 6, seed=1)
@@ -384,7 +393,9 @@ def test_registry_one_program_per_bucket(stub):
     assert len(stub.keys) == len(set(stub.keys))
     kinds = _kinds(stub.keys)
     assert kinds.count("fused_decode") == 1
-    assert kinds.count("fused_prefill_chunk") == 1
+    (grp,) = mux.fused_groups
+    assert grp.chunk_buckets == (1, 2, 4)
+    assert _chunk_rows(stub.keys) == [1, 2, 4]
     for kind in ("decode", "chunk"):
         rows = {k[0][2][0][1][1] for k in stub.keys if k[0][0] == kind}
         assert rows <= {1, 2, 4}
@@ -393,6 +404,137 @@ def test_registry_one_program_per_bucket(stub):
                                          if k[0][0] == kind})
     assert set(graphs.REGISTRY.graphs) == set(stub.keys)
     assert TE.total_traces() == sum(TE.TRACE_COUNTS.values())
+
+
+def _submit_rows(mux, in_flight, plen=40, max_new=3, seed=8, rid=0):
+    """``in_flight[m]`` requests of ``plen`` tokens for member ``m``, ids
+    from ``rid``: one tick admits them all, so each chunk sweep of the
+    prompts runs that many rows a member."""
+    rng = np.random.default_rng(seed)
+    for n, (name, eng) in zip(in_flight, mux.engines.items()):
+        for _ in range(n):
+            mux.submit(Request(rid, name, list(rng.integers(
+                1, eng.cfg.vocab_size, plen)), max_new))
+            rid += 1
+
+
+@pytest.mark.parametrize("in_flight", [(1, 0), (1, 1), (3, 1), (5, 2),
+                                       (9, 16), (16, 16)])
+def test_chunk_sweep_runs_the_bucket_of_its_busiest_member(stub, in_flight):
+    """With 16 slots a member, the fused chunk sweep runs ``[2, R, C]``
+    tokens, ``R`` the power of two that holds the busiest member's rows
+    (16 at most), and counts ``2·R·C`` tokens computed; a lone
+    prefilling member takes its own bucketed step.  The tokens equal
+    those of the eager run and of the serial (unfused) path."""
+    from repro_torch.serving.metrics import RECORDER
+    trees = _trees(2)
+    C = 16
+    busiest = max(in_flight)
+    R = 1 << (busiest - 1).bit_length()
+    outs, sweeps = {}, []
+    for mode in ("graphs", "eager", "serial"):
+        ctx = graphs.disable_graphs() if mode == "eager" else \
+            contextlib.nullcontext()
+        with ctx:
+            mux = _unit(trees, fused=mode != "serial", chunk=C, slots=16)
+            if mode == "graphs":
+                (grp,) = mux.fused_groups
+
+                def seen(params, toks, *rest, sweep=grp._prefill_fn):
+                    sweeps.append(toks.shape)
+                    return sweep(params, toks, *rest)
+                grp._prefill_fn = seen
+                RECORDER.disarm()
+                RECORDER.reset()
+                RECORDER.arm(capacity=1 << 14)
+            _submit_rows(mux, in_flight)
+            try:
+                mux.tick()              # admits all, runs one chunk step
+            finally:
+                counted = dict(RECORDER.counters)
+                RECORDER.disarm()
+                RECORDER.reset()
+            mux.run(max_ticks=2_000)
+            assert len(mux.stats.finished) == sum(in_flight)
+            outs[mode] = _outputs(mux)
+            if mode != "graphs":
+                continue
+            assert counted["tokens.chunk.real"] == C * sum(in_flight)
+            if min(in_flight) == 0:
+                # the lone member's serial step: no fused sweep
+                assert not sweeps
+                assert counted["tokens.chunk.computed"] == R * C
+            else:
+                # 40-token prompts: three sweeps of the same rows
+                assert sweeps == [(2, R, C)] * 3
+                assert counted["tokens.chunk.computed"] == 2 * R * C
+                assert R in grp.chunk_buckets
+    assert outs["graphs"] == outs["eager"] == outs["serial"]
+
+
+def test_first_chunk_sweep_captures_every_bucket(stub):
+    """The group's first chunk sweep, of one row a member, captures every
+    bucket (6 slots: 1, 2, 4 and 6 rows) at once, each once; later
+    sweeps at any rows capture no chunk sweep.  The buckets' runs on
+    padded rows write nothing into the arena."""
+    trees = _trees(2)
+    idle = _unit(trees, slots=6)
+    (grp,) = idle.fused_groups
+    assert grp.chunk_buckets == (1, 2, 4, 6)
+    k0, v0 = (t.clone() for t in idle.pool.arena())
+    grp._warm_chunk_buckets(idle.pool)
+    assert _chunk_rows(stub.keys) == [1, 2, 4, 6]
+    assert torch.equal(idle.pool.arena()[0], k0)
+    assert torch.equal(idle.pool.arena()[1], v0)
+    mux = _unit(trees, slots=6)
+    n = len(stub.keys)
+    _submit_rows(mux, (1, 1))
+    mux.tick()
+    assert _chunk_rows(stub.keys[n:]) == [1, 2, 4, 6]
+    n = len(stub.keys)
+    mux.run(max_ticks=2_000)
+    for in_flight in ((5, 2), (6, 3), (2, 2)):
+        _submit_rows(mux, in_flight, seed=sum(in_flight))
+        mux.run(max_ticks=2_000)
+    assert "fused_prefill_chunk" not in _kinds(stub.keys[n:])
+    assert len(mux.stats.finished) == 2 + 7 + 9 + 4
+
+
+def test_chunk_buckets_recaptured_together_after_reallocating_grow(stub):
+    """After a ``grow`` that reallocates the arena, the next chunk sweep
+    recaptures every bucket on the new arena, all in that sweep, each
+    once; the tokens equal the eager twin's."""
+    trees = _trees(2)
+    outs = {}
+    for mode in ("graphs", "eager"):
+        ctx = graphs.disable_graphs() if mode == "eager" else \
+            contextlib.nullcontext()
+        with ctx:
+            mux = _unit(trees, pool_blocks=2000, slots=8)
+            (grp,) = mux.fused_groups
+            _submit_rows(mux, (3, 2))
+            mux.run(max_ticks=2_000)
+            pool = mux.pool
+            k_before = pool.arena()[0]
+            pool.grow(k_before.shape[0])            # past the buffer
+            assert pool.arena()[0] is not k_before
+            del k_before
+            if mode == "graphs":
+                assert not any(k[0][0] == "fused_prefill_chunk"
+                               for k in graphs.REGISTRY.graphs)
+            n = len(stub.keys)
+            _submit_rows(mux, (2, 1), seed=9, rid=100)
+            mux.tick()
+            if mode == "graphs":
+                assert _chunk_rows(stub.keys[n:]) == list(grp.chunk_buckets)
+                assert all(k[1][0] == pool.arena()[0].data_ptr()
+                           for k in stub.keys[n:])
+            n = len(stub.keys)
+            mux.run(max_ticks=2_000)
+            if mode == "graphs":
+                assert "fused_prefill_chunk" not in _kinds(stub.keys[n:])
+            outs[mode] = _outputs(mux)
+    assert outs["graphs"] == outs["eager"] and len(outs["graphs"]) == 8
 
 
 def test_registry_no_capture_in_fused_tick_measured_waves(stub):
@@ -635,7 +777,8 @@ def test_graphs_phase_rehearses_on_cpu(stub):
     runs = res["runs"]
     # (b) once; (c) once on its fresh unit and once after the grow
     assert res["captures"]["fused_decode"] == 3
-    assert runs["(b) graphs"]["captured"].count("fused_prefill_chunk") == 1
+    # one capture per chunk bucket of the group's 4 slots: 1, 2, 4 rows
+    assert runs["(b) graphs"]["captured"].count("fused_prefill_chunk") == 3
     assert not runs["(a) eager"]["captured"]
     grow = runs["(c) graphs, grown"]["grow"]
     assert grow["reallocated"] and grow["graphs_on_old_arena"] > 0
