@@ -7,10 +7,12 @@ the metrics are files found by the names in ``BENCHMARK.json``.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import sys
 import time
+import typing
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Dict, List
@@ -90,12 +92,38 @@ def port():
 # ---------------------------------------------------------------------------
 # the unit
 # ---------------------------------------------------------------------------
+# a model entry's keys that are the benchmark's, not the port's
+ENTRY_KEYS = ("source", "reference", "max_logit_gap")
+
+
+def _fields(cls, values: dict, allowed=()) -> dict:
+    """``values`` as keyword arguments of dataclass ``cls``, each group
+    of keys as the dataclass its field's type names.  A key that is no
+    field (``name`` aside: the engine names the model) and not one of
+    ``allowed`` is refused; the ``allowed`` keys are left out."""
+    fields = {f.name for f in dataclasses.fields(cls)} - {"name"}
+    unknown = set(values) - fields - set(allowed)
+    if unknown:
+        raise ValueError(f"{cls.__name__} has no field {sorted(unknown)}")
+    hints = typing.get_type_hints(cls)
+    return {k: _group(hints[k], v) if isinstance(v, dict) else v
+            for k, v in values.items() if k in fields}
+
+
+def _group(hint, value: dict):
+    for cls in typing.get_args(hint) or (hint,):
+        if dataclasses.is_dataclass(cls):
+            return cls(**_fields(cls, value))
+    raise ValueError(f"a field of type {hint} takes no group of keys")
+
+
 def model_config(m: dict, name: str):
-    from repro_torch.config import ModelConfig, SSMConfig
-    keys = set(ModelConfig.__dataclass_fields__) - {"name", "ssm", "source"}
-    ssm = SSMConfig(**m["ssm"]) if "ssm" in m else None
-    return ModelConfig(name=name, ssm=ssm, source=m["source"],
-                       **{k: v for k, v in m.items() if k in keys})
+    """The port's ``ModelConfig`` of model entry ``m``, named ``name``:
+    every key a field of it, each group of keys (``ssm``, ``moe``, ...)
+    the dataclass its field names; a key that is neither a field nor one
+    of ``ENTRY_KEYS`` is refused."""
+    from repro_torch.config import ModelConfig
+    return ModelConfig(name=name, **_fields(ModelConfig, m, ENTRY_KEYS))
 
 
 def arrivals(config: dict, traffic: dict, seed: int, seconds: float):
@@ -152,34 +180,65 @@ def _probe_rows(eng) -> List[int]:
             if 1 << k <= eng.max_slots]
 
 
-def warm(unit, seed: int) -> dict:
+def _prefill_buckets(eng, traffic: dict) -> List[tuple]:
+    """``(rows, prompt length)`` of a probe for every whole-prompt bucket
+    the traffic can reach on an engine without chunked prefill: the
+    rows' power-of-two buckets at every padded length of the traffic's
+    prompt range (clipped to the sequence envelope, as ``arrivals``
+    clips it), then the decode's exact row counts (``_probe_rows``) at
+    the shortest."""
+    block = eng.pool.block_tokens
+    spec = traffic["prompt"]
+    lo = max(1, int(spec["min"]))
+    hi = min(int(spec["max"]), eng.max_blocks * block - 2)
+    padded = sorted({-(-n // block) * block for n in range(lo, hi + 1)})
+    rows = sorted({min(1 << (b - 1).bit_length(), eng.max_slots)
+                   for b in range(1, eng.max_slots + 1)})
+    out = [(r, min(s, hi)) for s in padded for r in rows]
+    return out + [(b, min(padded[0], hi)) for b in _probe_rows(eng)
+                  if b not in rows]
+
+
+def warm(unit, seed: int, traffic: dict) -> dict:
     """Capture every step this unit's traffic can take before the wall
     clock starts: each engine's lone chunk and decode steps at every
-    row bucket, then, through the scheduler, the fused groups' sweeps.
-    Probes are one-chunk prompts with two output tokens; they finish
-    and free what they held."""
+    row bucket (with chunked prefill), or its whole-prompt prefill at
+    every bucket of rows and padded length ``traffic`` reaches and its
+    decode at every row bucket (without), then, through the scheduler,
+    the fused groups' sweeps.  Probes have two output tokens; they
+    finish and free what they held."""
     from repro_torch.serving.engine import Request
     from repro_torch.serving import graphs
     rng = np.random.default_rng(seed)
     t0 = time.perf_counter()
     before = sum(graphs.GRAPH_CAPTURES.values())
 
-    def probes(name, eng, n):
+    def probes(name, eng, n, length):
         return [Request(-1, name, rng.integers(
-            1, eng.cfg.vocab_size, eng.chunk_tokens).tolist(), 2)
+            1, eng.cfg.vocab_size, length).tolist(), 2)
                 for _ in range(n)]
+
+    def serve(eng, reqs):
+        eng.prefill(reqs)
+        while eng.has_prefill_work():
+            eng.prefill([])
+        while eng.has_decode_work():
+            eng.decode()
+        eng.finished.clear()
+    whole = 0
     for name, eng in unit.engines.items():
-        for b in _probe_rows(eng):
-            eng.prefill(probes(name, eng, b))
-            while eng.has_prefill_work():
-                eng.prefill([])
-            while eng.has_decode_work():
-                eng.decode()
-            eng.finished.clear()
+        if eng.chunk_tokens:
+            for b in _probe_rows(eng):
+                serve(eng, probes(name, eng, b, eng.chunk_tokens))
+            continue
+        for b, length in _prefill_buckets(eng, traffic):
+            serve(eng, probes(name, eng, b, length))
+            whole += 1
     if unit.fused_groups:
         for grp in unit.fused_groups:
             for name, eng in zip(grp.names, grp.engines):
-                for r in probes(name, eng, eng.max_slots):
+                for r in probes(name, eng, eng.max_slots,
+                                eng.chunk_tokens or eng.pool.block_tokens):
                     unit.submit(r)
         while unit.pending():
             unit.tick()
@@ -187,7 +246,8 @@ def warm(unit, seed: int) -> dict:
     if unit.pool.device.type == "cuda":
         torch.cuda.synchronize()
     return dict(seconds=time.perf_counter() - t0,
-                captures=sum(graphs.GRAPH_CAPTURES.values()) - before)
+                captures=sum(graphs.GRAPH_CAPTURES.values()) - before,
+                whole_prompt_probes=whole)
 
 
 # ---------------------------------------------------------------------------

@@ -59,16 +59,19 @@ def per_tick_us(run, seconds: float) -> Optional[float]:
     return seconds / ticks * 1e6 if ticks else None
 
 
-def step_share(run, kind: str) -> Optional[float]:
-    """Bound seconds of the profiled steps of ``kind`` over their device
+def step_share(run, *kinds: str) -> Optional[float]:
+    """Bound seconds of the profiled steps of ``kinds`` over their device
     seconds in the trace (the union of the device operations each step
     launched; ``probe.step_reads``), in percent."""
     if run.probe is None or run.probe.trace is None:
         return None
-    r = run.probe.trace["steps"].get(kind)
-    if not r or r["device_s"] <= 0 or r["bound_s"] <= 0:
+    reads = [run.probe.trace["steps"][k] for k in kinds
+             if k in run.probe.trace["steps"]]
+    bound = sum(r["bound_s"] for r in reads)
+    device = sum(r["device_s"] for r in reads)
+    if device <= 0 or bound <= 0:
         return None
-    return 100.0 * r["bound_s"] / r["device_s"]
+    return 100.0 * bound / device
 
 
 def kernel_share(run, key: str) -> Optional[float]:

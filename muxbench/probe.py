@@ -3,11 +3,13 @@ program's calls (no span is added inside the program).
 
 * host clock around ``ServeSession.step``, ``MuxScheduler.tick``, every
   step function of every engine and fused group (the host plan and the
-  graph replay's launch), and ``greedy_tokens`` (the argmax read back,
-  where the host waits for the card);
+  graph replay's launch: decodes, chunked prefills and whole-prompt
+  prefills), and ``greedy_tokens`` (the argmax read back, where the host
+  waits for the card);
 * the shapes of every profiled step call's real rows, read from the
   step's host arguments (token counts, offsets, context lengths) before
-  it runs;
+  it runs, and the step's bound from the family module of each model in
+  it (``muxbench/families/``);
 * ``torch.profiler`` (CUPTI) over the window's last ``PROFILE_S``
   seconds, with the host spans above as annotations, for each step's
   device time (the union of the device operations launched under its
@@ -32,13 +34,15 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from muxbench import bounds
+from muxbench import bounds, families
 
 PROFILE_S = 2.0
 # kernel groups by CUDA function name: kernel 1 (paged split-KV decode
 # and its combine), kernel 2 (paged chunk prefill: the tensor-core
-# attention with paged addressing), kernel 4 (the SSD scan)
-KERNELS = {"k1": "splitkv_", "k2": "PagedAddr", "k4": "ssd_scan"}
+# attention with paged addressing), kernel 4 (the SSD scan), and the
+# groups the family modules add
+KERNELS = families.kernel_groups(
+    {"k1": "splitkv_", "k2": "PagedAddr", "k4": "ssd_scan"})
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 # host events that launch device work (their correlation ids mark it)
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
@@ -47,10 +51,11 @@ LAUNCH_SLACK_US = 100.0
 
 @dataclass
 class Step:
-    kind: str                         # "decode" or "chunk"
+    kind: str                         # "decode", "chunk" or "prefill"
     parts: List[Tuple[str, dict]]     # (engine, real rows' shapes)
     bound_s: float = 0.0
     kernel_bound_s: Dict[str, float] = field(default_factory=dict)
+    host_s: float = 0.0               # the call on the host clock
 
 
 def _fused_decode(names):
@@ -71,18 +76,20 @@ def _fused_chunk(names):
     return parse
 
 
-def _decode(name, ssm):
+def _decode(name, state):
     def parse(args, kw):
-        if ssm:
-            return [(name, dict(rows=len(kw["slots"])))]
+        if state:
+            rows = len(kw["slots"])
+            return [(name, dict(rows=rows,
+                                lens=np.asarray(args[3])[:rows].tolist()))]
         lens, table = args[3], args[5]
         return [(name, dict(lens=lens[table[:, 0] >= 0].tolist()))]
     return parse
 
 
-def _chunk(name, ssm):
+def _chunk(name, state):
     def parse(args, kw):
-        if ssm:
+        if state:
             return [(name, dict(clens=np.asarray(args[3]).tolist(),
                                 fresh=np.asarray(kw["fresh"]).tolist()))]
         offs, clens = args[3], args[4]
@@ -90,6 +97,44 @@ def _chunk(name, ssm):
         return [(name, dict(offs=offs[real].tolist(),
                             clens=clens[real].tolist()))]
     return parse
+
+
+def _prefill(name, state):
+    """A whole-prompt prefill: toks [B, S], lens [B] (0 on padded rows),
+    in either form."""
+    def parse(args, kw):
+        lens = np.asarray(args[3])
+        return [(name, dict(lens=lens[lens > 0].tolist()))]
+    return parse
+
+
+# each engine's step functions: (attribute, kind, parser); an engine
+# whose model carries a state (``cfg.ssm``) takes the state form
+ENGINE_STEPS = (("_decode_fn", "decode", _decode),
+                ("_chunk_fn", "chunk", _chunk),
+                ("_prefill_fn", "prefill", _prefill))
+# a fused group's: its decode sweep and its chunk sweep
+GROUP_STEPS = (("_decode_fn", "decode", _fused_decode),
+               ("_prefill_fn", "chunk", _fused_chunk))
+
+
+def step_bound(kind: str, parts, models: Dict[str, dict]
+               ) -> Tuple[float, Dict[str, float]]:
+    """A step's bound seconds and its kernels' bound seconds: the bytes
+    and FLOPs of every model's rows in it, each from its family's step
+    of ``kind`` over that model's engines."""
+    by: Dict[int, Tuple[dict, list]] = {}
+    for name, shp in parts:
+        m = models[name]
+        by.setdefault(id(m), (m, []))[1].append(shp)
+    n_bytes = flops = 0
+    kernels: Dict[str, float] = {}
+    for m, shps in by.values():
+        b, f, k = getattr(families.of(m), kind)(m, shps)
+        n_bytes, flops = n_bytes + b, flops + f
+        for key, v in k.items():
+            kernels[key] = kernels[key] + v if key in kernels else v
+    return bounds.bound_s(n_bytes, flops), kernels
 
 
 class Probe:
@@ -132,10 +177,11 @@ class Probe:
             t = time.perf_counter()
             with record_function(f"step.{kind}"):
                 out = fn(*args, **kw)
+            dt = time.perf_counter() - t
             if rec:
-                self.host["steps"] += time.perf_counter() - t
+                self.host["steps"] += dt
             if prof:
-                self.steps.append(Step(kind, parts))
+                self.steps.append(Step(kind, parts, host_s=dt))
             return out
         return call
 
@@ -159,16 +205,18 @@ class Probe:
             return tick()
         self._patch(u, "tick", timed_tick)
         for grp in u.fused_groups:
-            self._patch(grp, "_decode_fn", self._step(
-                grp._decode_fn, "decode", _fused_decode(grp.names)))
-            self._patch(grp, "_prefill_fn", self._step(
-                grp._prefill_fn, "chunk", _fused_chunk(grp.names)))
+            for attr, kind, parse in GROUP_STEPS:
+                fn = getattr(grp, attr, None)
+                if fn is not None:
+                    self._patch(grp, attr,
+                                self._step(fn, kind, parse(grp.names)))
         for name, eng in u.engines.items():
-            ssm = eng.cfg.ssm is not None
-            self._patch(eng, "_decode_fn", self._step(
-                eng._decode_fn, "decode", _decode(name, ssm)))
-            self._patch(eng, "_chunk_fn", self._step(
-                eng._chunk_fn, "chunk", _chunk(name, ssm)))
+            state = eng.cfg.ssm is not None
+            for attr, kind, parse in ENGINE_STEPS:
+                fn = getattr(eng, attr, None)
+                if fn is not None:
+                    self._patch(eng, attr,
+                                self._step(fn, kind, parse(name, state)))
         if self.cuda:
             # CUPTI's first start takes seconds: pay it at set-up
             from torch.profiler import ProfilerActivity, profile
@@ -218,7 +266,7 @@ class Probe:
     # -- after the window ---------------------------------------------------
     def finish(self) -> None:
         """Read the trace, and work out each profiled step's bound time
-        and kernel bounds."""
+        and kernel bounds (``step_bound``)."""
         if self.profiling:
             torch.cuda.synchronize()
             self._profiled_range.__exit__(None, None, None)
@@ -227,42 +275,8 @@ class Probe:
         if self.cuda:
             torch.cuda.synchronize()
         for s in self.steps:
-            step_bytes = step_flops = 0
-            calls: Dict[str, list] = defaultdict(list)
-            m = None
-            for name, shp in s.parts:
-                m = self.models[name]
-                if s.kind == "decode":
-                    lens = shp.get("lens") or [1] * shp["rows"]
-                    b, f = bounds.decode_step(m, lens)
-                    if m["family"] != "ssm":
-                        calls["k1"] += lens
-                else:
-                    fresh = shp.get("fresh", ())
-                    b, f = bounds.chunk_step(m, shp.get("offs", [0] * len(
-                        shp["clens"])), shp["clens"], fresh)
-                    if m["family"] == "ssm":
-                        calls["k4"].append((shp["clens"], fresh))
-                    else:
-                        calls["k2"].append((shp["offs"], shp["clens"]))
-                step_bytes += b
-                step_flops += f
-            s.bound_s = bounds.bound_s(step_bytes, step_flops)
-            if m is None:
-                continue
-            L = m["n_layers"]
-            if calls.get("k1"):
-                s.kernel_bound_s["k1"] = L * bounds.bound_s(
-                    *bounds.k1_decode_call(m, calls["k1"]))
-            if calls.get("k2"):
-                offs = [o for p in calls["k2"] for o in p[0]]
-                clens = [c for p in calls["k2"] for c in p[1]]
-                s.kernel_bound_s["k2"] = L * bounds.bound_s(
-                    *bounds.k2_chunk_call(m, offs, clens))
-            if calls.get("k4"):
-                clens, fresh = calls["k4"][0]
-                s.kernel_bound_s["k4"] = L * bounds.bound_s(
-                    *bounds.k4_ssd_call(m, clens, fresh))
+            s.bound_s, s.kernel_bound_s = step_bound(s.kind, s.parts,
+                                                     self.models)
         if self.prof is not None:
             self.trace = read_trace(self.prof)
             self.trace["steps"] = step_reads(

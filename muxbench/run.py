@@ -24,6 +24,7 @@ T_START = time.perf_counter()
 import argparse  # noqa: E402
 import json  # noqa: E402
 import sys  # noqa: E402
+from collections import Counter  # noqa: E402
 from types import SimpleNamespace  # noqa: E402
 
 import numpy as np  # noqa: E402
@@ -50,7 +51,7 @@ def run_cell(cell: harness.Cell, seed: int, seconds: float, trace: bool,
     device = torch.device(device)
     seed = seed_of(seed)
     unit = harness.build_unit(cfg, traffic, seed, device, dtype)
-    warmed = harness.warm(unit, seed)
+    warmed = harness.warm(unit, seed, traffic)
     arrivals = harness.arrivals(cfg, traffic, seed, seconds)
     probe = Probe(unit, harness.engine_models(cfg)) if trace else None
     if probe is not None:
@@ -108,6 +109,7 @@ def run_cell(cell: harness.Cell, seed: int, seconds: float, trace: bool,
             for p in (50, 75, 90, 95, 100)] for q, v in tails.items()},
         "warm-up s": warmed["seconds"], "graphs captured in warm-up":
             warmed["captures"],
+        "whole-prompt probes in warm-up": warmed["whole_prompt_probes"],
         "graphs captured in fill and window": window.captures,
         "resets": sum(s.resets for s in window.requests),
         "reference s": t_check,
@@ -118,7 +120,9 @@ def run_cell(cell: harness.Cell, seed: int, seconds: float, trace: bool,
         out["_log"]["control correct"] = harness.verdict(checks,
                                                          "control_gap")
     if trace and run.probe is not None:
-        out["_log"]["profiled steps"] = len(run.probe.steps)
+        out["_log"]["profiled steps"] = dict(sorted(Counter(
+            f"{s.kind} {name}" for s in run.probe.steps
+            for name, _ in s.parts).items()))
         if run.probe.trace is not None:
             out["_log"]["trace"] = run.probe.trace["info"]
     return out

@@ -34,7 +34,7 @@ def sweep(cell: harness.Cell, rates, seconds: float, seed: int,
     device = torch.device(device)
     seed = seed_of(seed)
     unit = harness.build_unit(cfg, cell.traffic, seed, device, dtype)
-    harness.warm(unit, seed)
+    harness.warm(unit, seed, cell.traffic)
     rows = []
     for rate in rates:
         traffic = dict(cell.traffic, rate=float(rate))

@@ -1,19 +1,15 @@
 """Reduced copies of the benchmark's cells for the CPU tests: the same
 families, unit and traffic shape at widths a CPU run holds (head sizes
-the card's kernels take, so the card tests can run them too)."""
+the card's kernels take, so the card tests can run them too).  A model
+entry takes its family module's ``REDUCED`` sizes
+(``muxbench/families/``), so a new family's cell is reduced with no
+edit here."""
 from __future__ import annotations
 
 import copy
 
-from muxbench import harness
+from muxbench import families, harness
 
-REDUCED_MODELS = {
-    "dense": dict(n_layers=2, d_model=128, n_heads=4, n_kv_heads=2,
-                  head_dim=64, d_ff=256, vocab_size=512),
-    "ssm": dict(n_layers=2, d_model=128, vocab_size=512,
-                ssm=dict(d_state=16, head_dim=64, expand=2, conv_kernel=4,
-                         chunk_size=32, n_groups=1)),
-}
 REDUCED_UNIT = dict(max_slots=4, max_blocks_per_seq=16, chunk_tokens=16,
                     pool_blocks=1024)
 REDUCED_TRAFFIC = dict(rate=6.0, fill_s=0.5,
@@ -21,11 +17,17 @@ REDUCED_TRAFFIC = dict(rate=6.0, fill_s=0.5,
                        output=dict(mean=8, sigma=0.8, min=2, max=24))
 
 
+def reduce(m: dict) -> dict:
+    """Model entry ``m`` at its family's ``REDUCED`` sizes, in place."""
+    m.update(copy.deepcopy(families.of(m).REDUCED))
+    return m
+
+
 def reduced_cell(name: str) -> harness.Cell:
     cell = harness.load_cell(name)
     cfg = copy.deepcopy(cell.config)
     for m in cfg["models"].values():
-        m.update(copy.deepcopy(REDUCED_MODELS[m["family"]]))
+        reduce(m)
     cfg["unit"].update(REDUCED_UNIT)
     cfg["dtype"] = "float32"
     traffic = dict(cell.traffic, **copy.deepcopy(REDUCED_TRAFFIC))

@@ -1,5 +1,5 @@
 """The byte and FLOP counts against hand counts at one shape each, and
-the weight bytes against the trees the benchmark makes."""
+each family's weight bytes against the trees the benchmark makes."""
 from __future__ import annotations
 
 import json
@@ -7,7 +7,8 @@ import math
 
 import pytest
 
-from muxbench import bounds, weights
+from muxbench import bounds, families, weights
+from muxbench.families import dense
 from muxbench.harness import HERE
 
 QWEN = json.loads((HERE / "configs" / "qwen2-7b-pair.json").read_text()
@@ -33,6 +34,13 @@ def test_kernel2_chunk_call():
     assert f == 4 * pairs * 28 * 128
 
 
+def test_kernel3_prefill_call():
+    # whole prompts of 64 and 10 tokens from position 0
+    b, f = bounds.k3_prefill_call(QWEN, [64, 10])
+    assert b == 2 * 74 * 28 * 128 * 2 + 2 * 74 * 4 * 128 * 2
+    assert f == 4 * (64 * 65 // 2 + 10 * 11 // 2) * 28 * 128
+
+
 def test_kernel4_ssd_call():
     # Mamba2-2.7B: 80 heads of 64, d_state 128, one group; a fresh
     # 64-token row and a carried 5-token row
@@ -50,17 +58,17 @@ def test_weight_bytes_match_the_made_tree(m):
     embedding's unlooked rows and the padded vocabulary's columns."""
     size = {leaf: math.prod(shape) * (4 if leaf in weights.FLOAT32_LEAVES
                                       else 2)
-            for _, leaf, shape, _, _ in weights._specs(m)}
+            for _, leaf, shape, _, _ in weights.specs(m)}
     V, d, rows = m["vocab_size"], m["d_model"], 3
     pad = (weights.padded_vocab(V) - V) * d * 2
     want = sum(size.values()) - pad
     if not m.get("tie_embeddings"):
         want += rows * d * 2 - size["embed"]
-    assert bounds.weight_bytes(m, rows) == want
+    assert families.of(m).weight_bytes(m, rows) == want
 
 
 def test_decode_step_of_the_pair_is_bytes_bound():
-    b, f = bounds.decode_step(QWEN, [512] * 16)
+    b, f = dense.decode_rows(QWEN, [512] * 16)
     assert b / bounds.PEAK_BYTES > f / bounds.PEAK_FLOPS
     # 14.15 GB of weights (the embedding table aside) and 0.47 GB of cache
     assert 14.0e9 < b < 15.0e9

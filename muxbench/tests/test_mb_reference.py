@@ -9,13 +9,12 @@ import torch
 
 from muxbench import harness, weights
 from muxbench.reference.common import served_gaps
-from muxbench.tests.cells import REDUCED_MODELS
+from muxbench.tests.cells import reduce
 
 
 def _model(cell: str, key: str) -> dict:
-    m = copy.deepcopy(harness.load_cell(cell).config["models"][key])
-    m.update(copy.deepcopy(REDUCED_MODELS[m["family"]]))
-    return m
+    m = harness.load_cell(cell).config["models"][key]
+    return reduce(copy.deepcopy(m))
 
 
 @pytest.mark.parametrize("cell,key", [("pair-chat", "qwen2-7b"),

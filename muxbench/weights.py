@@ -2,16 +2,14 @@
 on the device in the type they are served in.
 
 Each leaf is one call on a ``torch.Generator`` of its own, seeded from
-(run seed, engine index, leaf name): the program gets the whole tree at
-set-up, and the reference makes the same tree again after the window,
-one model at a time.
+(run seed, engine index, ``group.leaf``): the program gets the whole
+tree at set-up, and the reference makes the same tree again after the
+window, one model at a time.
 Layout (the port's, ``repro_torch/models/transformer.py``): per-layer
 leaves stacked ``[L, ...]``, matrices ``[d_in, d_out]`` applied as
-``x @ w``; dense ``{"tok": {embed, out_norm, lm_head}, "layers": {wq,
-wk, wv, wo, bq, bk, bv, w_gate, w_up, w_down, ln1, ln2}}``; Mamba2
-``{"tok": {embed, out_norm}, "layers": {in_proj, conv_w, conv_b, a_log,
-dt_bias, d_skip, gnorm, out_proj, ln1}}`` with ``a_log``, ``dt_bias``
-and ``d_skip`` in float32.
+``x @ w``.  Which leaves a tree has, their shapes, kinds and scales are
+its family's (``muxbench/families/<name>.leaves``); this module draws
+them.
 """
 from __future__ import annotations
 
@@ -25,6 +23,9 @@ import torch
 # ``models/mamba2.FLOAT32_LEAVES``)
 FLOAT32_LEAVES = ("a_log", "dt_bias", "d_skip")
 
+# (group, leaf, shape, kind, scale)
+Spec = Tuple[str, str, tuple, str, float]
+
 
 def padded_vocab(v: int, multiple: int = 256) -> int:
     return -(-v // multiple) * multiple
@@ -35,59 +36,30 @@ def leaf_seed(seed: int, engine: int, leaf: str) -> int:
     return int.from_bytes(h[:8], "little") >> 1
 
 
-def _specs(m: dict) -> List[Tuple[str, str, tuple, str, float]]:
-    """``(group, leaf, shape, kind, scale)`` of every leaf of model
-    entry ``m`` (a configuration file's ``models`` entry).  Kinds:
-    ``normal`` N(0, scale), ``norm`` 1 + N(0, scale), ``a_log``,
-    ``dt_bias``."""
-    L, d, V = m["n_layers"], m["d_model"], padded_vocab(m["vocab_size"])
+def token_leaves(m: dict) -> List[Spec]:
+    """The ``tok`` group every family has: the embedding over the padded
+    vocabulary, the final norm and, untied, the output matrix."""
+    d, V = m["d_model"], padded_vocab(m["vocab_size"])
     tok = [("tok", "embed", (V, d), "normal", 0.02),
            ("tok", "out_norm", (d,), "norm", 0.1)]
     if not m.get("tie_embeddings", False):
         tok.append(("tok", "lm_head", (d, V), "normal", 1 / math.sqrt(d)))
-    if m["family"] == "ssm":
-        s = m["ssm"]
-        di = s["expand"] * d
-        H, N, G, K = di // s["head_dim"], s["d_state"], s["n_groups"], \
-            s["conv_kernel"]
-        conv = di + 2 * G * N
-        return tok + [
-            ("layers", "in_proj", (L, d, 2 * di + 2 * G * N + H), "normal",
-             1 / math.sqrt(d)),
-            ("layers", "conv_w", (L, K, conv), "normal", 0.2),
-            ("layers", "conv_b", (L, conv), "normal", 0.1),
-            ("layers", "a_log", (L, H), "a_log", 0.0),
-            ("layers", "dt_bias", (L, H), "dt_bias", 0.0),
-            ("layers", "d_skip", (L, H), "norm", 0.1),
-            ("layers", "gnorm", (L, di), "norm", 0.1),
-            ("layers", "out_proj", (L, di, d), "normal", 1 / math.sqrt(di)),
-            ("layers", "ln1", (L, d), "norm", 0.1)]
-    H, KV, hd, f = m["n_heads"], m["n_kv_heads"], m["head_dim"], m["d_ff"]
-    leaves = [("layers", "wq", (L, d, H * hd), "normal", 1 / math.sqrt(d)),
-              ("layers", "wk", (L, d, KV * hd), "normal", 1 / math.sqrt(d)),
-              ("layers", "wv", (L, d, KV * hd), "normal", 1 / math.sqrt(d)),
-              ("layers", "wo", (L, H * hd, d), "normal",
-               1 / math.sqrt(H * hd))]
-    if m.get("qkv_bias", False):
-        leaves += [("layers", "bq", (L, H * hd), "normal", 0.1),
-                   ("layers", "bk", (L, KV * hd), "normal", 0.1),
-                   ("layers", "bv", (L, KV * hd), "normal", 0.1)]
-    leaves += [("layers", "w_gate", (L, d, f), "normal", 1 / math.sqrt(d)),
-               ("layers", "w_up", (L, d, f), "normal", 1 / math.sqrt(d)),
-               ("layers", "w_down", (L, f, d), "normal", 1 / math.sqrt(f)),
-               ("layers", "ln1", (L, d), "norm", 0.1),
-               ("layers", "ln2", (L, d), "norm", 0.1)]
-    return tok + leaves
+    return tok
 
 
-def make_leaf(m: dict, seed: int, engine: int, name: str, dtype,
-              device) -> torch.Tensor:
+def specs(m: dict) -> List[Spec]:
+    """``(group, leaf, shape, kind, scale)`` of every leaf of model entry
+    ``m`` (a configuration file's ``models`` entry), from its family's
+    ``leaves``.  Kinds: ``normal`` N(0, scale), ``norm`` 1 + N(0,
+    scale), ``a_log``, ``dt_bias``."""
+    from muxbench import families
+    return families.of(m).leaves(m)
+
+
+def _draw(spec: Spec, seed: int, engine: int, dtype, device
+          ) -> torch.Tensor:
     """One leaf of engine ``engine``'s tree, the same on every call."""
-    for group, leaf, shape, kind, scale in _specs(m):
-        if leaf == name:
-            break
-    else:
-        raise KeyError(f"no leaf {name!r} in a {m['family']} tree")
+    group, leaf, shape, kind, scale = spec
     gen = torch.Generator(device=device).manual_seed(
         leaf_seed(seed, engine, f"{group}.{leaf}"))
     if leaf in FLOAT32_LEAVES:
@@ -109,16 +81,11 @@ def make_leaf(m: dict, seed: int, engine: int, name: str, dtype,
     return t
 
 
-def leaf_names(m: dict) -> List[Tuple[str, str]]:
-    return [(group, leaf) for group, leaf, *_ in _specs(m)]
-
-
 def make_tree(m: dict, seed: int, engine: int, dtype, device
               ) -> Dict[str, Dict[str, torch.Tensor]]:
     """The whole tree of engine ``engine`` (nothing else holds it)."""
     tree: Dict[str, Dict[str, torch.Tensor]] = {}
-    for group, leaf in leaf_names(m):
-        tree.setdefault(group, {})[leaf] = make_leaf(
-            m, seed, engine, leaf, dtype, device)
+    for spec in specs(m):
+        tree.setdefault(spec[0], {})[spec[1]] = _draw(spec, seed, engine,
+                                                      dtype, device)
     return tree
-
